@@ -1,0 +1,113 @@
+"""Build and bind the port's CUDA kernels (``gcc_tpu_torch/csrc/*.cu``).
+
+Each source compiles with nvcc into its own shared library with a plain C
+interface, loaded with ctypes. Libraries go to ``build/gcc_tpu_torch/`` at
+the repository root, named with a hash of their source and flags, so an
+edited source is rebuilt and an unchanged one is loaded as is. ``build()``
+starts one nvcc per source, all at once. Nothing here runs at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gcc_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# argtypes of every C entry point, by source name (pointers and the stream
+# as c_void_p, ints as c_int); every entry point returns cudaError_t as int
+SIGNATURES: Dict[str, Dict[str, list]] = {
+    "mobile_block": {
+        "gcc_stage_fwd": [_P] * 9 + [_I] * 6 + [_P],
+        "gcc_stage_bwd_pw": [_P] * 9 + [_I] * 7 + [_P],
+        "gcc_stage_bwd_dw": [_P] * 9 + [_I] * 4 + [_P],
+    },
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
+                       "CUDA toolkit is installed")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+
+
+def build(names: List[str] = None) -> float:
+    """Compile every source in ``names`` (default: all) that has no current
+    library, one nvcc process per source, all started together. Returns the
+    seconds it took; raises with nvcc's output if any build fails."""
+    names = list(SIGNATURES) if names is None else names
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu:\n{log.decode(errors='replace')}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = _lib_path(name)
+        if not path.exists():
+            build([name])
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def launch(name: str, fn: str, *args) -> None:
+    """Call entry point ``fn`` of library ``name`` on the current stream of
+    the current device; raise if it reports a CUDA error."""
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(library(name), fn)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} failed with CUDA error {err}")
+
+
+def ptr(t) -> int:
+    """Device pointer of a tensor, or NULL for None."""
+    return None if t is None else t.data_ptr()
