@@ -18,7 +18,24 @@ Phases, each of which exits non-zero on failure:
               3 timed iterations and one generate, with the kernels' launch
               counters checked against the engine's structure;
   5. agree    fused against unfused engines (kernels vs cuDNN path) from the
-              same weights on the same batches at a small width.
+              same weights on the same batches at a small width;
+  6. attention each flash-attention kernel (B1-fwd, B1-bwd-dq, B1-bwd-dkv)
+              against its plain PyTorch version at the SAGAN main path's
+              teacher (B 64, N 1024, dq 8, dv 64) and student (dq 2, dv 16)
+              shapes, a ragged case (B 2, N 1000, dq 25, dv 200) and a
+              many-tile case (B 2, N 4096, dq 8, dv 64); CUDA-event times of
+              the kernel, the plain version and
+              F.scaled_dot_product_attention(scale=1);
+  7. sagan    the SAGAN GCC cooperative iteration (train_step + arch_step) at
+              full width (scripts/sagan/train.sh): 64 px, batch 64, z_dim
+              128, teacher ngf/ndf 64, the pruned student [69, 34, 17, 16]
+              with ndf 64; 1 warm-up and 3 timed iterations and one
+              generate, with exactly 6/2/2 B1 launches per iteration (the
+              generators' attn2 at N = 1024: three teacher and three student
+              forwards, two backwards);
+  8. agree    the kernel route of attention against the einsum route
+              (pallas_attn_threshold 1024 vs 2^30) from the same weights on
+              the same batches at a small width, gamma non-zero.
 The run is fp32 throughout: TF32 is off for cuDNN and matmul. The last two
 lines are the kernels' JSON record and {"ok": true, "device": ...}.
 """
@@ -39,7 +56,17 @@ FP32_FLOPS = 67e12  # fp32 outside the tensor cores, H100 SXM at 700 W
 PER_ITER = {"stage_fwd": 108, "stage_bwd_pw": 36, "stage_bwd_dw": 36}
 TPU_KERNEL = {"stage_fwd": "gcc_tpu/ops/pallas/mobile_block.py:155",
               "stage_bwd_pw": "gcc_tpu/ops/pallas/mobile_block.py:187",
-              "stage_bwd_dw": "gcc_tpu/ops/pallas/mobile_block.py:220"}
+              "stage_bwd_dw": "gcc_tpu/ops/pallas/mobile_block.py:220",
+              "attn_fwd": "gcc_tpu/ops/pallas/attention.py:44",
+              "attn_bwd_dq": "gcc_tpu/ops/pallas/attention.py:81",
+              "attn_bwd_dkv": "gcc_tpu/ops/pallas/attention.py:110"}
+# (case, B, N, dq, dv): the main path's teacher and student attn2, then shapes
+# that exercise the ragged key tile and wide features, and many tiles
+ATTN_CASES = [("teacher", 64, 1024, 8, 64), ("student", 64, 1024, 2, 16),
+              ("ragged", 2, 1000, 25, 200), ("many_tile", 2, 4096, 8, 64)]
+ATTN_PER_ITER = {"attn_fwd": 6, "attn_bwd_dq": 2, "attn_bwd_dkv": 2}
+# the student of scripts/sagan/train.sh (ngf 48) pruned to 0.016 GMACs
+SAGAN_STUDENT_CFG = [69, 34, 17, 16]
 
 
 def fail(msg):
@@ -228,28 +255,23 @@ def make_batches(torch, np, n, batch, size, seed, device):
     return out
 
 
-def phase_main(torch, np):
-    from gcc_tpu_torch.config import Config
-    from gcc_tpu_torch.engines.pix2pix import Pix2PixEngine
-    from gcc_tpu_torch.ops import mobile_block as mb
-
-    batch, size, n_timed = 4, 256, 3
-    print(f"== phase 4: main path, pix2pix resnet GCC iteration, {size}px, "
-          f"batch {batch}, 1 warm-up + {n_timed} timed")
-    cfg = main_config(Config, ngf=24, ndf=128, teacher_ngf=64,
-                      teacher_ndf=128, crop_size=size, batch_size=batch)
-    engine = Pix2PixEngine(cfg, filter_cfgs=STUDENT_CFG)  # device: the card
-    state = engine.init_state(seed=0)
-    batches = make_batches(torch, np, 2 * (n_timed + 1), batch, size, 0,
-                           engine.device)
-    gen_in = batches[0]["A"]
+def drive(torch, engine, cfg, batches, gen_in, counters, per_iter, gen_calls,
+          name):
+    """Run the engine's iteration (train_step + arch_step) once per pair of
+    batches, the first pair as warm-up, then one generate on gen_in, with the
+    kernels' launch counters set to 0 just before and read just after. Fails
+    on a non-finite loss, on per-iteration launches other than per_iter, on
+    totals other than the iterations' plus gen_calls, and on a generate that
+    is not finite or not of gen_in's batch and image shape. Returns the
+    launches."""
+    n, batch = len(batches) // 2, gen_in.shape[0]
+    state, times = engine.init_state(seed=0), []
     torch.cuda.synchronize()
-
     torch.cuda.reset_peak_memory_stats()
-    mb.reset_launches()  # counts from here on are the main path's alone
-    times = []
-    for i in range(n_timed + 1):
-        before = dict(mb.LAUNCHES)
+    for k in counters:  # counts from here on are this path's alone
+        counters[k] = 0
+    for i in range(n):
+        before = dict(counters)
         t0 = time.perf_counter()
         state, m = engine.train_arch_step(state, batches[2 * i],
                                           batches[2 * i + 1], cfg.lr,
@@ -261,33 +283,52 @@ def phase_main(torch, np):
         losses = {k: float(v) for k, v in m.items()}
         if not all(math.isfinite(v) for v in losses.values()):
             fail(f"iteration {i}: non-finite loss {losses}")
-        grown = {k: mb.LAUNCHES[k] - before[k] for k in PER_ITER}
-        if grown != PER_ITER:
-            fail(f"iteration {i}: kernel calls {grown}, expected {PER_ITER}")
+        grown = {k: counters[k] - before[k] for k in per_iter}
+        if grown != per_iter:
+            fail(f"iteration {i}: kernel calls {grown}, expected {per_iter}")
         print(f"  iter {i}{' (warm-up)' if i == 0 else ''}: {dt * 1e3:.3f} ms "
               f"launches {grown} "
               + " ".join(f"{k}={v:.5g}" for k, v in losses.items()))
     out = engine.generate(state, gen_in)
     torch.cuda.synchronize()
-    launches = dict(mb.LAUNCHES)
-    if tuple(out.shape) != (batch, 3, size, size) \
+    launches = dict(counters)
+    if tuple(out.shape) != (batch, 3, cfg.crop_size, cfg.crop_size) \
             or not bool(torch.isfinite(out).all()):
         fail(f"generate: shape {tuple(out.shape)} or non-finite values")
-    expected_fwd = (n_timed + 1) * PER_ITER["stage_fwd"] + 18
-    if launches["stage_fwd"] != expected_fwd:
-        fail(f"stage_fwd calls {launches['stage_fwd']}, expected {expected_fwd}")
+    expected = {k: n * v + gen_calls.get(k, 0) for k, v in per_iter.items()}
+    if launches != expected:
+        fail(f"kernel calls {launches}, expected {expected}")
     ms = 1e3 * sum(times) / len(times)
-    print(f"  main path: {ms:.3f} ms/iteration (min {1e3 * min(times):.3f}, "
+    print(f"  {name}: {ms:.3f} ms/iteration (min {1e3 * min(times):.3f}, "
           f"max {1e3 * max(times):.3f}), {batch / (ms / 1e3):.3f} images/s "
-          f"(mean of {n_timed}), peak memory "
+          f"(mean of {len(times)}), peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
           f"launches {launches}")
     profile_iteration(torch, engine, state, batches[0], batches[1], cfg)
-    return launches, ms
+    return launches
+
+
+def phase_main(torch, np):
+    from gcc_tpu_torch.config import Config
+    from gcc_tpu_torch.engines.pix2pix import Pix2PixEngine
+    from gcc_tpu_torch.ops import mobile_block as mb
+
+    batch, size, n_timed = 4, 256, 3
+    print(f"== phase 4: main path, pix2pix resnet GCC iteration, {size}px, "
+          f"batch {batch}, 1 warm-up + {n_timed} timed")
+    cfg = main_config(Config, ngf=24, ndf=128, teacher_ngf=64,
+                      teacher_ndf=128, crop_size=size, batch_size=batch)
+    engine = Pix2PixEngine(cfg, filter_cfgs=STUDENT_CFG)  # device: the card
+    batches = make_batches(torch, np, 2 * (n_timed + 1), batch, size, 0,
+                           engine.device)
+    # the student's 9 blocks make 18 stage forwards in generate
+    return drive(torch, engine, cfg, batches, batches[0]["A"], mb.LAUNCHES,
+                 PER_ITER, {"stage_fwd": 18}, "main path")
 
 
 STAGE_KERNELS = ("dw_in_fwd_kernel", "in_fwd_kernel", "in_bwd_kernel",
                  "dw_bwd_kernel", "sgemm_kernel", "sum_partials_kernel")
+ATTN_KERNELS = ("attn_fwd_kernel", "attn_ds_kernel", "attn_dv_kernel")
 CONV_MARKS = ("conv", "cudnn", "xmma", "cutlass", "implicit", "wgrad", "dgrad")
 
 
@@ -312,11 +353,13 @@ def profile_iteration(torch, engine, state, batch, val_batch, cfg):
     if total == 0:
         print("  profile: the profiler saw no device time")
         return
-    groups = {"stage kernels (B2)": 0.0, "convolutions (cuDNN)": 0.0,
-              "other": 0.0}
+    groups = {"stage kernels (B2)": 0.0, "B1 attention kernels": 0.0,
+              "convolutions (cuDNN)": 0.0, "other": 0.0}
     for name, t, _ in kernels:
         low = name.lower()
-        if any(k in name for k in STAGE_KERNELS):
+        if any(k in name for k in ATTN_KERNELS):
+            groups["B1 attention kernels"] += t
+        elif any(k in name for k in STAGE_KERNELS):
             groups["stage kernels (B2)"] += t
         elif any(k in low for k in CONV_MARKS):
             groups["convolutions (cuDNN)"] += t
@@ -361,6 +404,177 @@ def phase_agree(torch, np):
         fail(f"generate differs by {err}")
 
 
+def attn_bounds(B, N, dq, dv):
+    """Least time for each B1 wrapper's work (fp32): its inputs read once and
+    outputs written once; its multiply-adds (2 flops each) at the fp32 peak."""
+    pairs, bn = B * N * N, 4 * B * N
+    return {"attn_fwd": bound_ms(bn * (2 * dq + 2 * dv + 1),
+                                 2 * pairs * (dq + dv)),
+            # q, k, v, dO, lse, delta in; dq out
+            "attn_bwd_dq": bound_ms(bn * (3 * dq + 2 * dv + 2),
+                                    2 * pairs * (2 * dq + dv)),
+            # q, k, v, dO, lse, delta in; dk, dv out
+            "attn_bwd_dkv": bound_ms(bn * (3 * dq + 3 * dv + 2),
+                                     2 * pairs * (2 * dq + 2 * dv))}
+
+
+def phase_attention(torch, F):
+    from gcc_tpu_torch.ops import flash_attention as fa
+
+    print("== phase 6: flash-attention kernels against their plain versions "
+          "(fp32, TF32 off)")
+    record = {k: {"max_abs_err": 0.0} for k in ATTN_PER_ITER}
+    gen = torch.Generator().manual_seed(0)
+    for case, B, N, dq, dv in ATTN_CASES:
+        print(f"  {case}: B={B} N={N} dq={dq} dv={dv}")
+
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen) * scale).cuda()
+
+        q, k = rnd(B, dq, N, scale=0.5), rnd(B, dq, N, scale=0.5)
+        v, do = rnd(B, dv, N), rnd(B, dv, N)
+        o, lse = fa.attn_fwd(q, k, v)
+        o_p, lse_p = fa.attn_fwd_plain(q, k, v)
+        errs = [check_close(f"fwd {n}", a, b,
+                            1e-5 * max(float(b.abs().max()), 1.0))
+                for n, a, b in (("O", o, o_p), ("lse", lse, lse_p))]
+        record["attn_fwd"]["max_abs_err"] = max(
+            record["attn_fwd"]["max_abs_err"], *errs)
+        # the backward kernels on the plain forward's saved tensors
+        lse_p = lse_p.contiguous()
+        delta = (do * o_p).sum(1)
+        args = (q, k, v, do, lse_p, delta)
+        outs = {"attn_bwd_dq": ((fa.attn_bwd_dq(*args),),
+                                (fa.attn_bwd_dq_plain(*args),), ("dq",)),
+                "attn_bwd_dkv": (fa.attn_bwd_dkv(*args),
+                                 fa.attn_bwd_dkv_plain(*args), ("dk", "dv"))}
+        for key, (got, ref, names) in outs.items():
+            errs = [check_close(f"{key[5:]} {n}", a, b,
+                                1e-4 * max(float(b.abs().max()), 1.0))
+                    for n, a, b in zip(names, got, ref)]
+            record[key]["max_abs_err"] = max(record[key]["max_abs_err"],
+                                             *errs)
+        if case not in ("teacher", "student"):
+            continue
+        # times at the main path's shapes; the teacher's go to the record
+        bounds = attn_bounds(B, N, dq, dv)
+        tok = [t.transpose(1, 2).unsqueeze(1).contiguous().requires_grad_(True)
+               for t in (q, k, v)]
+        do_tok = do.transpose(1, 2).unsqueeze(1).contiguous()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(*tok, scale=1.0)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), tok, do_tok)
+
+        lib_fwd = cuda_ms(torch, sdpa)
+        # SDPA's backward computes dq, dk and dv together
+        lib_bwd = cuda_ms(torch, sdpa_fwd_bwd) - lib_fwd
+        timings = {
+            "attn_fwd": (lambda: fa.attn_fwd(q, k, v),
+                         lambda: fa.attn_fwd_plain(q, k, v), lib_fwd),
+            "attn_bwd_dq": (lambda: fa.attn_bwd_dq(*args),
+                            lambda: fa.attn_bwd_dq_plain(*args), lib_bwd),
+            "attn_bwd_dkv": (lambda: fa.attn_bwd_dkv(*args),
+                             lambda: fa.attn_bwd_dkv_plain(*args), lib_bwd),
+        }
+        for key, (kern, plain, lib) in timings.items():
+            rec = {"ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain),
+                   "library_ms": lib}
+            rec["bound_ms"], rec["bound_by"] = bounds[key]
+            print(f"    {key:<13} kernel {rec['ms']:.4f} ms  plain "
+                  f"{rec['plain_ms']:.4f} ms  library {rec['library_ms']:.4f} "
+                  f"ms  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+            if case == "teacher":
+                record[key].update(rec)
+    return record
+
+
+def sagan_config(Config, **kw):
+    base = dict(model="sagan", crop_size=64, gan_mode="hinge",
+                online_distillation=True, darts_discriminator=True,
+                threshold=0.1, lambda_L1=0.0, lambda_content=1.0,
+                lambda_gram=1.0, lr=1e-4, arch_lr=1e-4)
+    base.update(kw)
+    return Config(**base)
+
+
+def make_sagan_batches(torch, np, n, batch, z_dim, seed, device):
+    rng = np.random.RandomState(seed)
+    return [{"z": torch.from_numpy(rng.randn(batch, z_dim).astype(
+                np.float32)).to(device),
+             "real_img": torch.from_numpy(rng.rand(batch, 3, 64, 64).astype(
+                 np.float32) * 2 - 1).to(device)} for _ in range(n)]
+
+
+def phase_sagan(torch, np):
+    from gcc_tpu_torch.config import Config
+    from gcc_tpu_torch.engines.sagan import SAGANEngine
+    from gcc_tpu_torch.ops import flash_attention as fa
+
+    batch, n_timed = 64, 3
+    print(f"== phase 7: SAGAN GCC iteration, 64px, batch {batch}, 1 warm-up "
+          f"+ {n_timed} timed")
+    cfg = sagan_config(Config, ngf=48, ndf=64, teacher_ngf=64, teacher_ndf=64,
+                       z_dim=128, batch_size=batch)
+    engine = SAGANEngine(cfg, filter_cfgs=SAGAN_STUDENT_CFG)  # the card
+    batches = make_sagan_batches(torch, np, 2 * (n_timed + 1), batch,
+                                 cfg.z_dim, 0, engine.device)
+    # generate runs the student's attn2 once
+    return drive(torch, engine, cfg, batches, batches[0]["z"], fa.LAUNCHES,
+                 ATTN_PER_ITER, {"attn_fwd": 1}, "sagan path")
+
+
+def phase_sagan_agree(torch, np):
+    from gcc_tpu_torch.config import Config
+    from gcc_tpu_torch.engines.sagan import SAGANEngine
+    from gcc_tpu_torch.ops import flash_attention as fa
+    from gcc_tpu_torch.ops.attention import SelfAttention
+
+    print("== phase 8: attention kernels against the einsum route, same "
+          "weights and batches, SAGAN 64px, 2 iterations, gamma non-zero")
+    metrics, outs, launched = {}, {}, {}
+    torch.backends.cudnn.deterministic = True  # only attention may differ
+    try:
+        for route, thr in (("kernels", 1024), ("einsum", 2 ** 30)):
+            cfg = sagan_config(Config, ngf=16, ndf=16, teacher_ngf=16,
+                               teacher_ndf=16, z_dim=16,
+                               pallas_attn_threshold=thr)
+            engine = SAGANEngine(cfg, device="cuda")
+            state = engine.init_state(seed=1)
+            for net in state.nets.values():
+                for name, mod in net.named_modules():
+                    if isinstance(mod, SelfAttention):
+                        mod.gamma.data.fill_(0.5 if name == "attn1" else -0.3)
+            batches = make_sagan_batches(torch, np, 4, 4, cfg.z_dim, 1,
+                                         engine.device)
+            before = fa.LAUNCHES["attn_fwd"]
+            hist = []
+            for i in range(2):
+                state, m = engine.train_arch_step(state, batches[2 * i],
+                                                  batches[2 * i + 1], cfg.lr,
+                                                  0.9)
+                hist.append({k: float(v) for k, v in m.items()})
+            metrics[route] = hist
+            outs[route] = engine.generate(state, batches[0]["z"])
+            launched[route] = fa.LAUNCHES["attn_fwd"] - before
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if launched["kernels"] == 0 or launched["einsum"] != 0:
+        fail(f"attn_fwd launches by route: {launched}")
+    for i, (a, b) in enumerate(zip(metrics["kernels"], metrics["einsum"])):
+        for k in a:
+            tol = 1e-4 + 2e-3 * abs(b[k])
+            if not abs(a[k] - b[k]) < tol:
+                fail(f"iter {i} {k}: kernels {a[k]} vs einsum {b[k]}")
+    err = max_err(outs["kernels"], outs["einsum"])
+    print(f"  losses agree within 1e-4 + 2e-3|t|; generate max|d| {err:.3e}; "
+          f"attn_fwd launches {launched}")
+    if not err < 1e-3:
+        fail(f"generate differs by {err}")
+
+
 def main():
     import numpy as np
     import torch
@@ -387,15 +601,20 @@ def main():
           f"{kernels.CSRC})")
 
     record = phase_kernels(torch, F)
-    launches, _ = phase_main(torch, np)
+    launches = phase_main(torch, np)
     phase_agree(torch, np)
+    record.update(phase_attention(torch, F))
+    launches.update(phase_sagan(torch, np))
+    phase_sagan_agree(torch, np)
 
     entries = []
-    for k in PER_ITER:
-        rec = record[k]
+    for k, rec in record.items():
+        family, csrc = (("B1", "flash_attention") if k.startswith("attn")
+                        else ("B2", "mobile_block"))
+        short = k.replace("stage_", "").replace("attn_", "").replace("_", "-")
         entries.append({
-            "name": f"B2-{k.replace('stage_', '').replace('_', '-')}",
-            "route": "cuda", "source": "gcc_tpu_torch/csrc/mobile_block.cu",
+            "name": f"{family}-{short}", "route": "cuda",
+            "source": f"gcc_tpu_torch/csrc/{csrc}.cu",
             "replaces": TPU_KERNEL[k], "launches": launches[k],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],

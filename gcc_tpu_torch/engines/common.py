@@ -102,12 +102,44 @@ class Adam:
             p.sub_(lr * (mu / c1) / (torch.sqrt(nu / c2) + self.eps))
 
 
+class DupAdam:
+    """Adam over a group in which some parameters appear twice (port of
+    gcc_tpu/engines/common.py:133-172).
+
+    The reference's SAGAN optimizer scans add every SpectralNorm-wrapped conv
+    and attention q/k/v conv twice to one param group (models/SAGAN.py:315-346),
+    and torch.optim.Adam applies one update per occurrence with shared state:
+    two steps with the same gradient, count +2. ``dup[i]`` marks such
+    parameters: they take two steps of their own Adam, the others one step
+    of a second Adam.
+    """
+
+    def __init__(self, params: Sequence[torch.Tensor], dup: Sequence[bool],
+                 b1: float = 0.9, b2: float = 0.999):
+        self.dup = list(dup)
+        self.single = Adam(self._pick(params, False), b1, b2)
+        self.double = Adam(self._pick(params, True), b1, b2)
+
+    def _pick(self, xs, want: bool) -> list:
+        return [x for x, d in zip(xs, self.dup) if d == want]
+
+    def step(self, params: Sequence[torch.Tensor],
+             grads: Sequence[torch.Tensor], lr) -> None:
+        self.single.step(self._pick(params, False), self._pick(grads, False),
+                         lr)
+        for _ in range(2):
+            self.double.step(self._pick(params, True),
+                             self._pick(grads, True), lr)
+
+
 def add_sign_sparsity(net: nn.Module, params: Sequence[torch.Tensor],
                       grads: List[torch.Tensor], lambda_weight: float,
                       lambda_scale: float) -> List[torch.Tensor]:
-    """grad += lambda * sign(w) on conv kernels (lambda_weight) and on the
-    scales of norms named '*norm*'/'*bn*' (lambda_scale), for the entries
-    of ``params`` that belong to ``net`` (models/Pix2Pix.py:554-563)."""
+    """grad += lambda * sign(w) on every conv kernel (lambda_weight; the
+    spectral convs subclass Conv/ConvTranspose, so their raw kernels count,
+    as every JAX 'kernel' leaf does) and on the scales of norms named
+    '*norm*'/'*bn*' (lambda_scale), for the entries of ``params`` that belong
+    to ``net`` (models/Pix2Pix.py:554-563)."""
     if lambda_weight <= 0.0 and lambda_scale <= 0.0:
         return grads
     lam = {}

@@ -1,6 +1,7 @@
-"""Generator networks (port of gcc_tpu/models/generators.py). This slice has
-the MobileResnet generator (models/CycleGAN.py:77-138 = models/Pix2Pix.py:199-265);
-the U-Net follows in the next slice.
+"""Generator networks (port of gcc_tpu/models/generators.py): the
+MobileResnet generator (models/CycleGAN.py:77-138 = models/Pix2Pix.py:199-265)
+and the SAGAN generator (models/SAGAN.py:109-171); the U-Net follows in a
+later slice.
 
 Submodule names mirror the JAX package's parameter tree (``conv_in``,
 ``block_3_sep1.depthwise``, ...), which is how ``utils/weights.py`` carries
@@ -10,15 +11,18 @@ distillation features in the order the JAX package's sorted sown keys give.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
+from gcc_tpu_torch.ops.attention import SelfAttention
 from gcc_tpu_torch.ops.layers import (
-    Conv, ConvTranspose, SeparableConv, instance_norm, reflect_pad,
+    BatchNorm, Conv, ConvTranspose, SeparableConv, instance_norm, reflect_pad,
 )
 from gcc_tpu_torch.ops.mobile_block import fused_mobile_block
+from gcc_tpu_torch.ops.spectral import SpectralConvTranspose
 
 
 def mobile_resnet_default_cfg(ngf: int, n_blocks: int = 9) -> list:
@@ -109,3 +113,54 @@ class MobileResnetGenerator(nn.Module):
         h = torch.relu(instance_norm(self.up_0(h)))
         h = torch.relu(instance_norm(self.up_1(h)))
         return torch.tanh(self.conv_out(reflect_pad(h, 3))), feats
+
+
+def sagan_default_filter_cfgs(ngf: int, image_size: int = 64) -> list:
+    repeat = int(math.log2(image_size)) - 3
+    mult = 2 ** repeat
+    return [ngf * mult, ngf * mult // 2, ngf * mult // 4, ngf * mult // 8]
+
+
+class SAGANGenerator(nn.Module):
+    """z -> 4 spectral-norm deconv stages with BatchNorm + two self-attention
+    blocks -> deconv to 3 channels, tanh. Image size 64 (4 stages + output).
+
+    Captured features ('l2', 'attn2', SAGAN.py:294): g_feat_0 = relu output of
+    stage 2, g_feat_1 = output of attn2. ``attn_threshold``: the H*W from
+    which attention runs through the flash kernels (attn2 at 32x32 on the
+    default 1024; attn1 at 16x16 stays below it).
+    """
+
+    def __init__(self, ngf: int = 64, image_size: int = 64, z_dim: int = 128,
+                 filter_cfgs: Optional[Sequence[int]] = None,
+                 attn_threshold: int = 1024):
+        super().__init__()
+        f = list(filter_cfgs) if filter_cfgs is not None \
+            else sagan_default_filter_cfgs(ngf, image_size)
+        self.l1 = SpectralConvTranspose(z_dim, f[0], (4, 4), (1, 1), 0)
+        self.bn1 = BatchNorm(f[0])
+        self.l2 = SpectralConvTranspose(f[0], f[1])
+        self.bn2 = BatchNorm(f[1])
+        self.l3 = SpectralConvTranspose(f[1], f[2])
+        self.bn3 = BatchNorm(f[2])
+        self.attn1 = SelfAttention(f[2], attn_threshold)
+        self.l4 = SpectralConvTranspose(f[2], f[3])
+        self.bn4 = BatchNorm(f[3])
+        self.attn2 = SelfAttention(f[3], attn_threshold)
+        self.last = ConvTranspose(f[3], 3, (4, 4), (2, 2), 1)
+
+    def forward(self, z: torch.Tensor, update_stats: bool = True
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """``update_stats``: whether a train-mode forward moves the BatchNorm
+        running statistics and the spectral vectors (the JAX package's
+        ``apply_net`` flag)."""
+        h = z.reshape(z.shape[0], z.shape[1], 1, 1)
+        h = torch.relu(self.bn1(self.l1(h, update_stats), update_stats))
+        h = torch.relu(self.bn2(self.l2(h, update_stats), update_stats))
+        feats = [h]
+        h = torch.relu(self.bn3(self.l3(h, update_stats), update_stats))
+        h = self.attn1(h)
+        h = torch.relu(self.bn4(self.l4(h, update_stats), update_stats))
+        h = self.attn2(h)
+        feats.append(h)
+        return torch.tanh(self.last(h)), feats

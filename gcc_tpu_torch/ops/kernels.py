@@ -34,6 +34,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "gcc_stage_bwd_pw": [_P] * 9 + [_I] * 7 + [_P],
         "gcc_stage_bwd_dw": [_P] * 9 + [_I] * 4 + [_P],
     },
+    "flash_attention": {
+        "gcc_attn_fwd": [_P] * 5 + [_I] * 4 + [_P],
+        "gcc_attn_bwd_dq": [_P] * 7 + [_I] * 4 + [_P],
+        "gcc_attn_bwd_dkv": [_P] * 8 + [_I] * 4 + [_P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -106,6 +111,18 @@ def launch(name: str, fn: str, *args) -> None:
     err = getattr(library(name), fn)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn} failed with CUDA error {err}")
+
+
+def check(device: torch.device, name: str, t: torch.Tensor, shape) -> None:
+    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
+    ``device``: what every kernel entry point takes."""
+    if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous float32 tensor on "
+                         f"{device}, got {t.dtype} on {t.device}"
+                         f"{'' if t.is_contiguous() else ', non-contiguous'}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
 
 
 def ptr(t) -> int:

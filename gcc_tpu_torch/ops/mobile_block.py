@@ -120,16 +120,6 @@ def sep_stage_reference(x, dwk, pwk, residual=None, relu=False):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check(device: torch.device, name: str, t: torch.Tensor, shape) -> None:
-    if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous float32 tensor on "
-                         f"{device}, got {t.dtype} on {t.device}"
-                         f"{'' if t.is_contiguous() else ', non-contiguous'}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-
-
 def _dims(x, pwk):
     b, c, h, w = x.shape
     if h < 2 or w < 2:
@@ -143,11 +133,11 @@ def stage_fwd(x, dwk, pwk, residual=None, relu=False):
         return stage_fwd_plain(x, dwk, pwk, residual, relu)
     B, C, M, H, W = _dims(x, pwk)
     dev = x.device
-    _check(dev, "x", x, (B, C, H, W))
-    _check(dev, "dwk", dwk, (C, 1, 3, 3))
-    _check(dev, "pwk", pwk, (M, C, 1, 1))
+    kernels.check(dev, "x", x, (B, C, H, W))
+    kernels.check(dev, "dwk", dwk, (C, 1, 3, 3))
+    kernels.check(dev, "pwk", pwk, (M, C, 1, 1))
     if residual is not None:
-        _check(dev, "residual", residual, (B, M, H, W))
+        kernels.check(dev, "residual", residual, (B, M, H, W))
     with torch.cuda.device(x.device):
         y = torch.empty(B, M, H, W, device=x.device)
         ahat = torch.empty_like(x)
@@ -169,11 +159,11 @@ def stage_bwd_pw(g, ahat, bhat, rstd_b, pwk, relu):
         return stage_bwd_pw_plain(g, ahat, bhat, rstd_b, pwk, relu)
     B, C, M, H, W = _dims(ahat, pwk)
     dev = g.device
-    _check(dev, "g", g, (B, M, H, W))
-    _check(dev, "ahat", ahat, (B, C, H, W))
-    _check(dev, "bhat", bhat, (B, M, H, W))
-    _check(dev, "rstd_b", rstd_b, (B, M))
-    _check(dev, "pwk", pwk, (M, C, 1, 1))
+    kernels.check(dev, "g", g, (B, M, H, W))
+    kernels.check(dev, "ahat", ahat, (B, C, H, W))
+    kernels.check(dev, "bhat", bhat, (B, M, H, W))
+    kernels.check(dev, "rstd_b", rstd_b, (B, M))
+    kernels.check(dev, "pwk", pwk, (M, C, 1, 1))
     splits = -(-H * W // K_CHUNK)
     with torch.cuda.device(g.device):
         gb = torch.empty_like(g)
@@ -195,11 +185,11 @@ def stage_bwd_dw(gah, ahat, rstd_a, x, dwk):
         return stage_bwd_dw_plain(gah, ahat, rstd_a, x, dwk)
     B, C, _, H, W = _dims(x, dwk)
     dev = x.device
-    _check(dev, "gah", gah, (B, C, H, W))
-    _check(dev, "ahat", ahat, (B, C, H, W))
-    _check(dev, "rstd_a", rstd_a, (B, C))
-    _check(dev, "x", x, (B, C, H, W))
-    _check(dev, "dwk", dwk, (C, 1, 3, 3))
+    kernels.check(dev, "gah", gah, (B, C, H, W))
+    kernels.check(dev, "ahat", ahat, (B, C, H, W))
+    kernels.check(dev, "rstd_a", rstd_a, (B, C))
+    kernels.check(dev, "x", x, (B, C, H, W))
+    kernels.check(dev, "dwk", dwk, (C, 1, 3, 3))
     with torch.cuda.device(x.device):
         ga = torch.empty_like(gah)
         gx = torch.empty_like(x)

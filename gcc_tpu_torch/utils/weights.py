@@ -13,6 +13,10 @@ Layouts (as in gcc_tpu/utils/torch_export.py:27-41):
   BatchNorm params{scale, bias} + batch_stats{mean, var}
                                 -> weight, bias, running_mean, running_var
   MaskGate arch{alpha}          -> alpha
+  SpectralConv / SpectralConvTranspose: the kernel and bias as above, plus
+    spectral{u, v}              -> u, v (the port iterates in the JAX
+                                   matricization's order: no permutation)
+  SelfAttention params{gamma}   -> gamma (a scalar; q/k/v are plain convs)
 
 Both directions are strict: every leaf of the JAX tree is consumed and every
 tensor of the port is written.
@@ -26,8 +30,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from gcc_tpu_torch.ops.attention import SelfAttention
 from gcc_tpu_torch.ops.layers import BatchNorm, Conv, ConvTranspose
 from gcc_tpu_torch.ops.mask import MaskGate
+from gcc_tpu_torch.ops.spectral import SpectralNormed
 
 _CONV_PERM = (3, 2, 0, 1)
 _DECONV_PERM = (2, 3, 0, 1)
@@ -60,6 +66,7 @@ def load_jax_variables(net: nn.Module, variables: Dict[str, dict]) -> None:
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     arch = variables.get("arch", {})
+    spectral = variables.get("spectral", {})
     used = 0
     for name, m in net.named_modules():
         if isinstance(m, (Conv, ConvTranspose)):
@@ -71,6 +78,14 @@ def load_jax_variables(net: nn.Module, variables: Dict[str, dict]) -> None:
             if m.bias is not None:
                 _copy(m.bias, node["bias"], f"{name}.bias")
                 used += 1
+            if isinstance(m, SpectralNormed):
+                st = _node(spectral, name)
+                _copy(m.u, st["u"], f"{name}.u")
+                _copy(m.v, st["v"], f"{name}.v")
+                used += 2
+        elif isinstance(m, SelfAttention):
+            _copy(m.gamma, _node(params, name)["gamma"], f"{name}.gamma")
+            used += 1
         elif isinstance(m, BatchNorm):
             node, st = _node(params, name), _node(stats, name)
             _copy(m.weight, node["scale"], f"{name}.weight")
@@ -95,8 +110,8 @@ def export_jax_variables(net: nn.Module) -> Dict[str, dict]:
         node = out.setdefault(coll, {})
         for key in name.split(".") if name else []:
             node = node.setdefault(key, {})
-        a = t.detach().cpu().numpy()
-        node[leaf] = np.transpose(a, _INV[perm]) if perm else a.copy()
+        a = t.detach().cpu().numpy()  # shares memory with a CPU tensor
+        node[leaf] = (np.transpose(a, _INV[perm]) if perm else a).copy()
 
     for name, m in net.named_modules():
         if isinstance(m, (Conv, ConvTranspose)):
@@ -104,6 +119,11 @@ def export_jax_variables(net: nn.Module) -> Dict[str, dict]:
             put("params", name, "kernel", m.weight, perm)
             if m.bias is not None:
                 put("params", name, "bias", m.bias)
+            if isinstance(m, SpectralNormed):
+                put("spectral", name, "u", m.u)
+                put("spectral", name, "v", m.v)
+        elif isinstance(m, SelfAttention):
+            put("params", name, "gamma", m.gamma)
         elif isinstance(m, BatchNorm):
             put("params", name, "scale", m.weight)
             put("params", name, "bias", m.bias)

@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 
 from gcc_tpu_torch.config import Config  # noqa: E402
 from gcc_tpu_torch.engines.pix2pix import Pix2PixEngine  # noqa: E402
+from gcc_tpu_torch.engines.sagan import SAGANEngine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "gcc_tpu_torch").rglob("*.py")) + [
@@ -84,6 +85,21 @@ def test_engine_without_device_needs_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         Pix2PixEngine(cfg, device="cuda")
     assert Pix2PixEngine(cfg, device="cpu").device.type == "cpu"
+
+
+def test_sagan_engine_without_device_needs_cuda():
+    cfg = Config(model="sagan", crop_size=64, online_distillation=True,
+                 darts_discriminator=True)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SAGANEngine(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SAGANEngine(cfg, device="cuda")
+    assert SAGANEngine(cfg, device="cpu").device.type == "cpu"
+    with pytest.raises(NotImplementedError):
+        SAGANEngine(cfg.replace(online_distillation=False,
+                                normal_distillation=True), device="cpu")
 
 
 def test_unet_backbone_not_in_this_slice():

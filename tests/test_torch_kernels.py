@@ -1,4 +1,5 @@
-"""The CUDA stage kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels (B2 stage, B1 flash attention) against their plain
+PyTorch versions, on the card.
 
 These tests need a CUDA device and nvcc; elsewhere they skip. The file
 imports no JAX, so it runs on a machine with the card alone:
@@ -6,15 +7,18 @@ imports no JAX, so it runs on a machine with the card alone:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
 Shapes are small and ragged (widths off every tile multiple, non-square and
-minimum planes, a plane larger than one split-k chunk), complementing the
-main-path shapes that chip_smoke.py checks. fp32 with TF32 off; forward
-within 1e-4, gradients within 1e-4 * max(|ref|, 1) (reduction order only).
+minimum planes, a plane larger than one split-k chunk; N off the 64-row
+tile, feature widths past one 16-wide chunk and one 64-wide output chunk),
+complementing the main-path shapes that chip_smoke.py checks. fp32 with
+TF32 off; B2 forward within 1e-4, B1 forward within 1e-5 * max(|ref|, 1),
+gradients within 1e-4 * max(|ref|, 1) (reduction order only).
 """
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from gcc_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from gcc_tpu_torch.ops import mobile_block as mb  # noqa: E402
 
 # (B, C, M, H, W, relu, residual)
@@ -83,3 +87,69 @@ def test_wrapper_rejects_bad_input(cuda):
         mb.stage_fwd(x, dwk, torch.zeros(6, 5, 1, 1, device=cuda))
     with pytest.raises(ValueError):
         mb.stage_fwd(x, dwk.cpu(), pwk)
+
+
+# (B, N, dq, dv)
+ATTN_CASES = [(1, 1, 1, 1), (2, 65, 3, 5), (3, 130, 25, 200), (2, 1024, 2, 16),
+              (1, 200, 40, 33)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_attention_kernels_match_plain(cuda, case):
+    B, N, dq, dv = case
+    gen = torch.Generator().manual_seed(1)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(cuda)
+
+    q, k = rnd(B, dq, N, scale=0.5), rnd(B, dq, N, scale=0.5)
+    v, do = rnd(B, dv, N), rnd(B, dv, N)
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.attn_fwd(q, k, v)
+    o_p, lse_p = fa.attn_fwd_plain(q, k, v)
+    for a, b in ((o, o_p), (lse, lse_p)):
+        tol = 1e-5 * max(float(b.abs().max()), 1.0)
+        assert float((a - b).abs().max()) <= tol
+    delta = (do * o_p).sum(1)
+    args = (q, k, v, do, lse_p.contiguous(), delta)
+    _close(fa.attn_bwd_dq(*args), fa.attn_bwd_dq_plain(*args), scale=True)
+    for a, b in zip(fa.attn_bwd_dkv(*args), fa.attn_bwd_dkv_plain(*args)):
+        _close(a, b, scale=True)
+    assert {k_: fa.LAUNCHES[k_] - before[k_] for k_ in before} == \
+        {"attn_fwd": 1, "attn_bwd_dq": 1, "attn_bwd_dkv": 1}
+    # no float atomics: a second call gives the same bits
+    assert torch.equal(o, fa.attn_fwd(q, k, v)[0])
+    assert all(torch.equal(a, b) for a, b in zip(
+        fa.attn_bwd_dkv(*args), fa.attn_bwd_dkv(*args)))
+
+
+@pytest.mark.cuda
+def test_attention_function_grads(cuda):
+    """flash_attention's kernels' backward against autograd through the
+    plain softmax, at the student's main-path width."""
+    gen = torch.Generator().manual_seed(2)
+    q, k = (torch.randn(2, 2, 1024, generator=gen) * 0.5 for _ in range(2))
+    v, co = (torch.randn(2, 16, 1024, generator=gen) for _ in range(2))
+    leaves = [t.to(cuda).requires_grad_(True) for t in (q, k, v)]
+    refs = [t.to(cuda).requires_grad_(True) for t in (q, k, v)]
+    co = co.to(cuda)
+    grads = torch.autograd.grad((fa.flash_attention(*leaves) * co).sum(),
+                                leaves)
+    ref = torch.autograd.grad((fa.attention_reference(*refs) * co).sum(), refs)
+    for a, b in zip(grads, ref):
+        _close(a, b, scale=True)
+
+
+@pytest.mark.cuda
+def test_attention_wrapper_rejects_bad_input(cuda):
+    q = torch.zeros(1, 2, 8, device=cuda)
+    v = torch.zeros(1, 4, 8, device=cuda)
+    with pytest.raises(ValueError):
+        fa.attn_fwd(q.double(), q.double(), v.double())
+    with pytest.raises(ValueError):
+        fa.attn_fwd(q, q, v.transpose(1, 2).contiguous())
+    with pytest.raises(ValueError):
+        fa.attn_fwd(q, q[:, :1].contiguous(), v)
+    with pytest.raises(ValueError):
+        fa.attn_fwd(q, q.cpu(), v)
