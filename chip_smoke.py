@@ -19,18 +19,19 @@ Phases, each of which exits non-zero on failure:
               counters checked against the engine's structure;
   5. agree    fused against unfused engines (kernels vs cuDNN path) from the
               same weights on the same batches at a small width;
-  6. attention each flash-attention kernel (B1-fwd, B1-bwd-dq, B1-bwd-dkv)
-              against its plain PyTorch version at the SAGAN main path's
-              teacher (B 64, N 1024, dq 8, dv 64) and student (dq 2, dv 16)
-              shapes, a ragged case (B 2, N 1000, dq 25, dv 200) and a
-              many-tile case (B 2, N 4096, dq 8, dv 64); CUDA-event times of
-              the kernel, the plain version and
-              F.scaled_dot_product_attention(scale=1);
+  6. attention each flash-attention kernel (B1-fwd, and B1-bwd: dq, dk and
+              dv in one pass) against its plain PyTorch version at the SAGAN
+              main path's teacher (B 64, N 1024, dq 8, dv 64) and student
+              (dq 2, dv 16) shapes, a ragged case (B 2, N 1000, dq 25,
+              dv 200) and a many-tile case (B 2, N 4096, dq 8, dv 64), and
+              that two backward calls give the same bits; CUDA-event times
+              of the kernel, the plain version and
+              F.scaled_dot_product_attention(scale=1), forward and backward;
   7. sagan    the SAGAN GCC cooperative iteration (train_step + arch_step) at
               full width (scripts/sagan/train.sh): 64 px, batch 64, z_dim
               128, teacher ngf/ndf 64, the pruned student [69, 34, 17, 16]
               with ndf 64; 1 warm-up and 3 timed iterations and one
-              generate, with exactly 6/2/2 B1 launches per iteration (the
+              generate, with exactly 6/2 B1 launches per iteration (the
               generators' attn2 at N = 1024: three teacher and three student
               forwards, two backwards);
   8. agree    the kernel route of attention against the einsum route
@@ -53,18 +54,20 @@ STUDENT_CASES = [("student_relu", 4, 112, 72, 64, True, False),
 STUDENT_CFG = [24, 48, 112] + [72, 112] * 9 + [48, 24]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # fp32 outside the tensor cores, H100 SXM at 700 W
+# split-TF32: three TF32 tensor-core products (495 TFLOP/s dense) per product
+TF32X3_FLOPS = 495e12 / 3
 PER_ITER = {"stage_fwd": 108, "stage_bwd_pw": 36, "stage_bwd_dw": 36}
 TPU_KERNEL = {"stage_fwd": "gcc_tpu/ops/pallas/mobile_block.py:155",
               "stage_bwd_pw": "gcc_tpu/ops/pallas/mobile_block.py:187",
               "stage_bwd_dw": "gcc_tpu/ops/pallas/mobile_block.py:220",
               "attn_fwd": "gcc_tpu/ops/pallas/attention.py:44",
-              "attn_bwd_dq": "gcc_tpu/ops/pallas/attention.py:81",
-              "attn_bwd_dkv": "gcc_tpu/ops/pallas/attention.py:110"}
+              "attn_bwd": "gcc_tpu/ops/pallas/attention.py:81, "
+                          "gcc_tpu/ops/pallas/attention.py:110"}
 # (case, B, N, dq, dv): the main path's teacher and student attn2, then shapes
 # that exercise the ragged key tile and wide features, and many tiles
 ATTN_CASES = [("teacher", 64, 1024, 8, 64), ("student", 64, 1024, 2, 16),
               ("ragged", 2, 1000, 25, 200), ("many_tile", 2, 4096, 8, 64)]
-ATTN_PER_ITER = {"attn_fwd": 6, "attn_bwd_dq": 2, "attn_bwd_dkv": 2}
+ATTN_PER_ITER = {"attn_fwd": 6, "attn_bwd": 2}
 # the student of scripts/sagan/train.sh (ngf 48) pruned to 0.016 GMACs
 SAGAN_STUDENT_CFG = [69, 34, 17, 16]
 
@@ -88,8 +91,8 @@ def cuda_ms(torch, fn, n=20, warmup=3):
     return start.elapsed_time(end) / n
 
 
-def bound_ms(nbytes, flops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+def bound_ms(nbytes, flops, peak=FP32_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -328,7 +331,7 @@ def phase_main(torch, np):
 
 STAGE_KERNELS = ("dw_in_fwd_kernel", "in_fwd_kernel", "in_bwd_kernel",
                  "dw_bwd_kernel", "sgemm_kernel", "sum_partials_kernel")
-ATTN_KERNELS = ("attn_fwd_kernel", "attn_ds_kernel", "attn_dv_kernel")
+ATTN_KERNELS = ("attn_fwd_kernel", "attn_bwd_kernel", "attn_dq_reduce_kernel")
 CONV_MARKS = ("conv", "cudnn", "xmma", "cutlass", "implicit", "wgrad", "dgrad")
 
 
@@ -406,16 +409,17 @@ def phase_agree(torch, np):
 
 def attn_bounds(B, N, dq, dv):
     """Least time for each B1 wrapper's work (fp32): its inputs read once and
-    outputs written once; its multiply-adds (2 flops each) at the fp32 peak."""
+    outputs written once; its multiply-adds (2 flops each) at the peak of
+    the units it runs on: the forward on the fp32 CUDA cores, the backward
+    on the tensor cores in split-TF32. "attn_bwd_fp32" is the backward's
+    bound on the fp32 CUDA cores, printed beside it."""
     pairs, bn = B * N * N, 4 * B * N
+    # q, k, v, dO, lse, delta in; dq, dk, dv out
+    bwd_bytes, bwd_flops = bn * (4 * dq + 3 * dv + 2), 2 * pairs * (3 * dq + 2 * dv)
     return {"attn_fwd": bound_ms(bn * (2 * dq + 2 * dv + 1),
                                  2 * pairs * (dq + dv)),
-            # q, k, v, dO, lse, delta in; dq out
-            "attn_bwd_dq": bound_ms(bn * (3 * dq + 2 * dv + 2),
-                                    2 * pairs * (2 * dq + dv)),
-            # q, k, v, dO, lse, delta in; dk, dv out
-            "attn_bwd_dkv": bound_ms(bn * (3 * dq + 3 * dv + 2),
-                                     2 * pairs * (2 * dq + 2 * dv))}
+            "attn_bwd": bound_ms(bwd_bytes, bwd_flops, TF32X3_FLOPS),
+            "attn_bwd_fp32": bound_ms(bwd_bytes, bwd_flops)}
 
 
 def phase_attention(torch, F):
@@ -440,20 +444,20 @@ def phase_attention(torch, F):
                 for n, a, b in (("O", o, o_p), ("lse", lse, lse_p))]
         record["attn_fwd"]["max_abs_err"] = max(
             record["attn_fwd"]["max_abs_err"], *errs)
-        # the backward kernels on the plain forward's saved tensors
+        # the backward kernel on the plain forward's saved tensors
         lse_p = lse_p.contiguous()
         delta = (do * o_p).sum(1)
         args = (q, k, v, do, lse_p, delta)
-        outs = {"attn_bwd_dq": ((fa.attn_bwd_dq(*args),),
-                                (fa.attn_bwd_dq_plain(*args),), ("dq",)),
-                "attn_bwd_dkv": (fa.attn_bwd_dkv(*args),
-                                 fa.attn_bwd_dkv_plain(*args), ("dk", "dv"))}
-        for key, (got, ref, names) in outs.items():
-            errs = [check_close(f"{key[5:]} {n}", a, b,
-                                1e-4 * max(float(b.abs().max()), 1.0))
-                    for n, a, b in zip(names, got, ref)]
-            record[key]["max_abs_err"] = max(record[key]["max_abs_err"],
-                                             *errs)
+        got = fa.attn_bwd(*args)
+        errs = [check_close(f"bwd {n}", a, b,
+                            1e-4 * max(float(b.abs().max()), 1.0))
+                for n, a, b in zip(("dq", "dk", "dv"), got,
+                                   fa.attn_bwd_plain(*args))]
+        record["attn_bwd"]["max_abs_err"] = max(
+            record["attn_bwd"]["max_abs_err"], *errs)
+        # no float atomics: a second call gives the same bits
+        if not all(torch.equal(a, b) for a, b in zip(got, fa.attn_bwd(*args))):
+            fail(f"{case}: two attn_bwd calls differ")
         if case not in ("teacher", "student"):
             continue
         # times at the main path's shapes; the teacher's go to the record
@@ -474,10 +478,8 @@ def phase_attention(torch, F):
         timings = {
             "attn_fwd": (lambda: fa.attn_fwd(q, k, v),
                          lambda: fa.attn_fwd_plain(q, k, v), lib_fwd),
-            "attn_bwd_dq": (lambda: fa.attn_bwd_dq(*args),
-                            lambda: fa.attn_bwd_dq_plain(*args), lib_bwd),
-            "attn_bwd_dkv": (lambda: fa.attn_bwd_dkv(*args),
-                             lambda: fa.attn_bwd_dkv_plain(*args), lib_bwd),
+            "attn_bwd": (lambda: fa.attn_bwd(*args),
+                         lambda: fa.attn_bwd_plain(*args), lib_bwd),
         }
         for key, (kern, plain, lib) in timings.items():
             rec = {"ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain),
@@ -488,6 +490,10 @@ def phase_attention(torch, F):
                   f"ms  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
             if case == "teacher":
                 record[key].update(rec)
+        fp32_ms, fp32_by = bounds["attn_bwd_fp32"]
+        print(f"    attn_bwd bound on the fp32 CUDA cores {fp32_ms:.4f} ms "
+              f"({fp32_by}); the line above is the split-TF32 tensor-core "
+              f"bound")
     return record
 
 

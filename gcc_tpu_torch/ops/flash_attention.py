@@ -9,18 +9,20 @@ Tensors are channel-major, the layout the 1x1 q/k/v convs leave in NCHW:
 q, k (B, dq, N), v and O (B, dv, N), lse (B, N); fp32 only. The JAX package
 takes (B, N, d); tests transpose at the boundary.
 
-Three wrappers stand for the three TPU kernels:
+Two wrappers stand for the three TPU kernels:
 
-    attn_fwd      <- _attn_fwd_kernel      (ops/pallas/attention.py:44)
-    attn_bwd_dq   <- _attn_bwd_dq_kernel   (:81)
-    attn_bwd_dkv  <- _attn_bwd_dkv_kernel  (:110)
+    attn_fwd  <- _attn_fwd_kernel      (ops/pallas/attention.py:44)
+    attn_bwd  <- _attn_bwd_dq_kernel   (:81) and _attn_bwd_dkv_kernel (:110),
+                 one pass that computes dq, dk and dv together
 
 On a CUDA tensor each launches its kernel (csrc/flash_attention.cu) or
 raises; on a CPU tensor it runs its plain version, ``*_plain`` below, which
 materialises the N x N matrix and repeats the kernel's formulas.
-``LAUNCHES`` counts the CUDA calls of each wrapper. ``flash_attention`` is
-the differentiable function: its forward saves (q, k, v, O, lse), its
-backward computes delta = sum_c dO * O and calls the two backward wrappers.
+``attn_bwd_dq_plain`` and ``attn_bwd_dkv_plain`` are the plain versions of
+the two TPU backward kernels' functions. ``LAUNCHES`` counts the CUDA calls
+of each wrapper. ``flash_attention`` is the differentiable function: its
+forward saves (q, k, v, O, lse), its backward computes delta = sum_c dO * O
+and calls ``attn_bwd`` once.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 
 from gcc_tpu_torch.ops import kernels
 
-LAUNCHES = {"attn_fwd": 0, "attn_bwd_dq": 0, "attn_bwd_dkv": 0}
+LAUNCHES = {"attn_fwd": 0, "attn_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -62,15 +64,25 @@ def attn_fwd_plain(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.einsum("bij,bcj->bci", p, v), lse
 
 
+def attn_bwd_plain(q, k, v, do, lse, delta
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of ``attn_bwd``: (dq = ds k, dk = ds^T q, dv = p^T dO),
+    p and ds computed once."""
+    p, ds = _ds(q, k, v, do, lse, delta)
+    return (torch.einsum("bij,bcj->bci", ds, k),
+            torch.einsum("bij,bci->bcj", ds, q),
+            torch.einsum("bij,bci->bcj", p, do))
+
+
 def attn_bwd_dq_plain(q, k, v, do, lse, delta) -> torch.Tensor:
-    """Plain version of ``attn_bwd_dq``: dq = ds k, (B, dq, N)."""
+    """dq = ds k (B, dq, N): the function of _attn_bwd_dq_kernel."""
     _, ds = _ds(q, k, v, do, lse, delta)
     return torch.einsum("bij,bcj->bci", ds, k)
 
 
 def attn_bwd_dkv_plain(q, k, v, do, lse, delta
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of ``attn_bwd_dkv``: (dk = ds^T q, dv = p^T dO)."""
+    """(dk = ds^T q, dv = p^T dO): the function of _attn_bwd_dkv_kernel."""
     p, ds = _ds(q, k, v, do, lse, delta)
     return (torch.einsum("bij,bci->bcj", ds, q),
             torch.einsum("bij,bci->bcj", p, do))
@@ -115,33 +127,26 @@ def _check_bwd(q, k, v, do, lse, delta):
     return B, N, dq, dv
 
 
-def attn_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
-    """d loss / d q (B, dq, N) from dO = d loss / d O and the saved lse."""
+def attn_bwd(q, k, v, do, lse, delta
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(d loss / d q, d loss / d k (B, dq, N), d loss / d v (B, dv, N)) from
+    dO = d loss / d O, the saved lse and delta = sum_c dO * O. On the card
+    the launch fails (RuntimeError) for widths whose tiles do not fit in
+    shared memory: more than about 370 rows of q and v together."""
     if not q.is_cuda:
-        return attn_bwd_dq_plain(q, k, v, do, lse, delta)
+        return attn_bwd_plain(q, k, v, do, lse, delta)
     B, N, dq, dv = _check_bwd(q, k, v, do, lse, delta)
     with torch.cuda.device(q.device):
-        dq_out = torch.empty_like(q)
+        dq_out, dk, dv_out = (torch.empty_like(q), torch.empty_like(k),
+                              torch.empty_like(v))
+        # per-key-tile dq partials, summed in order by the kernel's second pass
+        part = torch.empty(B, -(-N // 64), dq, N, device=q.device)
         p = kernels.ptr
-        kernels.launch("flash_attention", "gcc_attn_bwd_dq", p(q), p(k), p(v),
-                       p(do), p(lse), p(delta), p(dq_out), B, N, dq, dv)
-    LAUNCHES["attn_bwd_dq"] += 1
-    return dq_out
-
-
-def attn_bwd_dkv(q, k, v, do, lse, delta) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(d loss / d k (B, dq, N), d loss / d v (B, dv, N))."""
-    if not q.is_cuda:
-        return attn_bwd_dkv_plain(q, k, v, do, lse, delta)
-    B, N, dq, dv = _check_bwd(q, k, v, do, lse, delta)
-    with torch.cuda.device(q.device):
-        dk, dv_out = torch.empty_like(k), torch.empty_like(v)
-        p = kernels.ptr
-        kernels.launch("flash_attention", "gcc_attn_bwd_dkv", p(q), p(k),
-                       p(v), p(do), p(lse), p(delta), p(dk), p(dv_out), B, N,
-                       dq, dv)
-    LAUNCHES["attn_bwd_dkv"] += 1
-    return dk, dv_out
+        kernels.launch("flash_attention", "gcc_attn_bwd", p(q), p(k), p(v),
+                       p(do), p(lse), p(delta), p(dq_out), p(dk), p(dv_out),
+                       p(part), B, N, dq, dv)
+    LAUNCHES["attn_bwd"] += 1
+    return dq_out, dk, dv_out
 
 
 # ---------------------------------------------------------------------------
@@ -163,9 +168,7 @@ class _FlashAttention(torch.autograd.Function):
         do = do.contiguous()
         # delta_i = dO_i . O_i, O(N dv): outside the kernels, as in JAX
         delta = (do * o).sum(dim=1)
-        dq = attn_bwd_dq(q, k, v, do, lse, delta)
-        dk, dv = attn_bwd_dkv(q, k, v, do, lse, delta)
-        return dq, dk, dv
+        return attn_bwd(q, k, v, do, lse, delta)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,

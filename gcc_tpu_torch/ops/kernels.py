@@ -36,8 +36,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "flash_attention": {
         "gcc_attn_fwd": [_P] * 5 + [_I] * 4 + [_P],
-        "gcc_attn_bwd_dq": [_P] * 7 + [_I] * 4 + [_P],
-        "gcc_attn_bwd_dkv": [_P] * 8 + [_I] * 4 + [_P],
+        "gcc_attn_bwd": [_P] * 10 + [_I] * 4 + [_P],
     },
 }
 

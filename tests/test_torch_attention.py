@@ -5,8 +5,15 @@
   interpret mode, forward and jax.grad, as tests/test_ops.py:261-313 runs
   it: forward within 2e-5, gradients within 1e-4 (fp32; blockwise online
   softmax against a materialised N x N matrix, reduction order only).
-* The port's differentiable flash_attention (its own backward) against
-  autograd through the plain softmax.
+* The fused backward's plain version (attn_bwd_plain: dq, dk and dv from one
+  p and ds) against jax.vjp of the Pallas flash attention in interpret mode,
+  within 1e-5 * max(|ref|, 1).
+* The port's differentiable flash_attention (its own backward, on CPU
+  tensors through attn_bwd_plain) against autograd through the plain
+  softmax.
+* The precision argument of the CUDA backward: its products emulated with
+  TF32 operands (float32 bits masked to 10 mantissa bits) miss the port's
+  gradient bound of 1e-4 * max(|ref|, 1); split-TF32 ("3xTF32") holds it.
 * SelfAttention against the JAX module through both of the port's routes,
   with gamma non-zero: at gamma = 0 attention adds nothing and its q/k/v
   gradients vanish, so a broken backward would pass.
@@ -97,6 +104,28 @@ def test_plain_pieces_match_pallas(case):
                                    err_msg=name)
 
 
+# (B, N, dq, dv, block): a ragged N with several 16-blocks, and one 64-block
+BWD_CASES = [(2, 40, 8, 8, 16), (1, 130, 2, 16, 64)]
+
+
+@pytest.mark.parametrize("case", BWD_CASES,
+                         ids=lambda c: "B{}-N{}-dq{}-dv{}-blk{}".format(*c))
+def test_fused_bwd_plain_matches_pallas(case):
+    *shape, blk = case
+    q, k, v, co = _qkv(shape, 4)
+    out, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, blk, blk, True),
+                       jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    refs = vjp(jnp.asarray(co))
+    o, lse = fa.attn_fwd_plain(_cm(q), _cm(k), _cm(v))
+    do = _cm(co)
+    got = fa.attn_bwd_plain(_cm(q), _cm(k), _cm(v), do, lse,
+                            (do * o).sum(1))
+    for name, a, b in zip(("dq", "dk", "dv"), got, refs):
+        b = np.asarray(b)
+        np.testing.assert_allclose(_tok(a), b, rtol=0, err_msg=name,
+                                   atol=1e-5 * max(1.0, np.abs(b).max()))
+
+
 @pytest.mark.parametrize("case", CASES + [(3, 64, 1, 3)],
                          ids=lambda c: "B{}-N{}-dq{}-dv{}".format(*c))
 def test_function_grads_match_autograd(case):
@@ -113,6 +142,82 @@ def test_function_grads_match_autograd(case):
     for name, a, b in zip("qkv", grads, ref_grads):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0, msg=name)
     assert all(n == 0 for n in fa.LAUNCHES.values())
+
+
+def test_function_backward_runs_fused_plain(monkeypatch):
+    """On CPU tensors flash_attention's backward is one attn_bwd_plain call
+    (the fused backward's plain version), whose gradients match autograd
+    through attention_reference within 1e-5 * max(|ref|, 1)."""
+    calls = []
+    plain = fa.attn_bwd_plain
+    monkeypatch.setattr(fa, "attn_bwd_plain",
+                        lambda *a: calls.append(1) or plain(*a))
+    q, k, v, co = _qkv((2, 96, 4, 12), 5)
+    leaves = [_cm(a).requires_grad_(True) for a in (q, k, v)]
+    grads = torch.autograd.grad((fa.flash_attention(*leaves) * _cm(co)).sum(),
+                                leaves)
+    ref_leaves = [_cm(a).requires_grad_(True) for a in (q, k, v)]
+    ref = fa.attention_reference(*ref_leaves)
+    ref_grads = torch.autograd.grad((ref * _cm(co)).sum(), ref_leaves)
+    assert calls == [1]
+    for name, a, b in zip("qkv", grads, ref_grads):
+        tol = 1e-5 * max(float(b.abs().max()), 1.0)
+        torch.testing.assert_close(a, b, atol=tol, rtol=0, msg=name)
+
+
+def _tf32(x):
+    """float32 -> TF32 by masking the 13 low mantissa bits, as the CUDA
+    kernel forms its operands."""
+    return (x.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def _emulated_mm(a, b, mode):
+    """a @ b with the operands as the kernel would feed the tensor cores,
+    each product exact and summed in float64."""
+    if mode == "fp32":
+        return (a.double() @ b.double()).float()
+    ah, bh = _tf32(a), _tf32(b)
+    if mode == "tf32":
+        return (ah.double() @ bh.double()).float()
+    al, bl = _tf32(a - ah), _tf32(b - bh)  # split-TF32: x = hi + lo
+    return (al.double() @ bh.double() + ah.double() @ bl.double()
+            + ah.double() @ bh.double()).float()
+
+
+@pytest.mark.parametrize("mode", ["fp32", "split", "tf32"])
+def test_split_tf32_precision(mode):
+    """The fused backward's six products (S, dP, dV, dK, dQ) emulated at
+    B 1, N 256, dq 8, dv 64 (q, k at scale 0.5, the kernel's card tests'
+    inputs) against float64: fp32 and split-TF32 operands hold the port's
+    gradient bound of 1e-4 * max(|ref|, 1) with a wide margin, plain TF32
+    misses it on every gradient."""
+    R = np.random.RandomState(6)
+    B, N, dq, dv = 1, 256, 8, 64
+    q, k = (torch.from_numpy((R.randn(B, dq, N) * 0.5).astype(np.float32))
+            for _ in range(2))
+    v, do = (torch.from_numpy(R.randn(B, dv, N).astype(np.float32))
+             for _ in range(2))
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+    s64 = torch.einsum("bci,bcj->bij", q64, k64)
+    lse64 = torch.logsumexp(s64, -1)
+    p64 = torch.exp(s64 - lse64[..., None])
+    delta64 = (do64 * torch.einsum("bij,bcj->bci", p64, v64)).sum(1)
+    refs = fa.attn_bwd_plain(q64, k64, v64, do64, lse64, delta64)
+
+    lse, delta = lse64.float(), delta64.float()
+    qt, kt, dot = (t.transpose(1, 2) for t in (q, k, do))  # (B, N, d)
+    p = torch.exp(_emulated_mm(qt, k, mode) - lse[..., None])
+    ds = p * (_emulated_mm(dot, v, mode) - delta[..., None])
+    got = (_emulated_mm(ds, kt, mode).transpose(1, 2),
+           _emulated_mm(ds.transpose(1, 2), qt, mode).transpose(1, 2),
+           _emulated_mm(p.transpose(1, 2), dot, mode).transpose(1, 2))
+    for name, a, b in zip(("dq", "dk", "dv"), got, refs):
+        err = float((a.double() - b).abs().max())
+        tol = 1e-4 * max(float(b.abs().max()), 1.0)
+        if mode == "tf32":
+            assert err > tol, f"{name}: plain TF32 err {err} within {tol}"
+        else:
+            assert err < tol / 10, f"{name}: {mode} err {err}, tol {tol}"
 
 
 @pytest.mark.parametrize("route", ["flash", "einsum"])
