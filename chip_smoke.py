@@ -9,22 +9,29 @@ Phases, each of which exits non-zero on failure:
   3. kernels  each stage kernel (B2-fwd, B2-bwd-pw, B2-bwd-dw) against its
               plain PyTorch version at the main path's teacher and student
               stage shapes, then the differentiable stage against autograd
-              through sep_stage_reference; CUDA-event times of the kernel,
-              the plain version and the cuDNN route of the same stage;
+              through sep_stage_reference (relu's mask from the kernel's
+              b-hat, the pixels where it differs from the plain forward's
+              counted and held to |b-hat| < 1e-4); CUDA-event times of the
+              kernel, the plain version and the cuDNN route of the stage at
+              teacher_relu and student_relu, and the device time of each
+              launch of one B2-fwd call (torch.profiler);
   4. main     the pix2pix GCC cooperative iteration (train_step + arch_step)
               at full width: resnet backbone with fused blocks, 256 px,
               teacher ngf 64 / ndf 128, the pruned student
               [24, 48, 112] + [72, 112] * 9 + [48, 24], batch 4; 1 warm-up and
               3 timed iterations and one generate, with the kernels' launch
-              counters checked against the engine's structure;
+              counters checked against the engine's structure, and one
+              profiled iteration: device time by group and by B1/B2 kernel;
   5. agree    fused against unfused engines (kernels vs cuDNN path) from the
               same weights on the same batches at a small width;
   6. attention each flash-attention kernel (B1-fwd, and B1-bwd: dq, dk and
               dv in one pass) against its plain PyTorch version at the SAGAN
               main path's teacher (B 64, N 1024, dq 8, dv 64) and student
               (dq 2, dv 16) shapes, a ragged case (B 2, N 1000, dq 25,
-              dv 200) and a many-tile case (B 2, N 4096, dq 8, dv 64), and
-              that two backward calls give the same bits; CUDA-event times
+              dv 200), a many-tile case (B 2, N 4096, dq 8, dv 64) and a
+              wide-logit case (q, k at scale 2, max |S| ~ 80); the backward
+              also on the kernel forward's own lse and O; that two forward
+              and two backward calls give the same bits; CUDA-event times
               of the kernel, the plain version and
               F.scaled_dot_product_attention(scale=1), forward and backward;
   7. sagan    the SAGAN GCC cooperative iteration (train_step + arch_step) at
@@ -63,10 +70,14 @@ TPU_KERNEL = {"stage_fwd": "gcc_tpu/ops/pallas/mobile_block.py:155",
               "attn_fwd": "gcc_tpu/ops/pallas/attention.py:44",
               "attn_bwd": "gcc_tpu/ops/pallas/attention.py:81, "
                           "gcc_tpu/ops/pallas/attention.py:110"}
-# (case, B, N, dq, dv): the main path's teacher and student attn2, then shapes
-# that exercise the ragged key tile and wide features, and many tiles
-ATTN_CASES = [("teacher", 64, 1024, 8, 64), ("student", 64, 1024, 2, 16),
-              ("ragged", 2, 1000, 25, 200), ("many_tile", 2, 4096, 8, 64)]
+# (case, B, N, dq, dv, scale of q and k): the main path's teacher and student
+# attn2, then shapes that exercise the ragged key tile and wide features, many
+# tiles, and wide logits (max |S| ~ 80), where an error in S weighs most
+ATTN_CASES = [("teacher", 64, 1024, 8, 64, 0.5),
+              ("student", 64, 1024, 2, 16, 0.5),
+              ("ragged", 2, 1000, 25, 200, 0.5),
+              ("many_tile", 2, 4096, 8, 64, 0.5),
+              ("wide_logit", 16, 1024, 8, 64, 2.0)]
 ATTN_PER_ITER = {"attn_fwd": 6, "attn_bwd": 2}
 # the student of scripts/sagan/train.sh (ngf 48) pruned to 0.016 GMACs
 SAGAN_STUDENT_CFG = [69, 34, 17, 16]
@@ -91,24 +102,67 @@ def cuda_ms(torch, fn, n=20, warmup=3):
     return start.elapsed_time(end) / n
 
 
-def bound_ms(nbytes, flops, peak=FP32_FLOPS):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+def bound_ms(nbytes, *work):
+    """Least time in ms for nbytes of device memory traffic and the work
+    given as (flops, peak of the units that do them) pairs: the largest of
+    the bytes' time and each unit's time (the units run side by side), and
+    which of bytes or operations sets it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(flops / peak for flops, peak in work)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def stage_bounds(B, C, M, HW, relu, res):
     """Least time for each wrapper's work at one shape: its inputs read once,
-    outputs written once (fp32), and its flops at the fp32 peak."""
+    outputs written once (fp32); its flops at the peak of the units they run
+    on: the forward's pointwise product on the tensor cores in split-TF32,
+    everything else on the fp32 CUDA cores. The forward's bytes are those of
+    the TPU kernel's function, y = stage(x): what the port also writes for
+    its backward is not the function's work. Printed beside it:
+    "stage_fwd_saved", the bound with those writes (a-hat, b-hat, 1/std of
+    a and b) counted, and "stage_fwd_fp32", with every flop on the fp32
+    cores."""
     act_c, act_m = B * C * HW, B * M * HW
-    fwd = bound_ms(4 * (act_c + 9 * C + M * C + act_m * (2 if res else 1)),
-                   2 * act_m * C + 18 * act_c + 5 * (act_c + act_m)
-                   + (act_m if relu or res else 0))
+    # inputs x, dwk, pwk, residual; output y
+    fwd_bytes = 4 * (act_c + 9 * C + M * C + (act_m if res else 0) + act_m)
+    saved_bytes = 4 * (act_c + act_m + B * C + B * M)
+    gemm = 2 * act_m * C
+    rest = 18 * act_c + 5 * (act_c + act_m) + (act_m if relu or res else 0)
     # inputs g, a-hat, b-hat, 1/std, pwk; outputs d a-hat, d pwk
     pw = bound_ms(4 * (2 * act_m + B * M + M * C + 2 * act_c + M * C),
-                  4 * act_m * C + 6 * act_m)
+                  (4 * act_m * C + 6 * act_m, FP32_FLOPS))
     # inputs d a-hat, a-hat, 1/std, x, dwk; outputs dx, d dwk
-    dw = bound_ms(4 * (4 * act_c + B * C + 18 * C), 42 * act_c)
-    return {"stage_fwd": fwd, "stage_bwd_pw": pw, "stage_bwd_dw": dw}
+    dw = bound_ms(4 * (4 * act_c + B * C + 18 * C), (42 * act_c, FP32_FLOPS))
+    return {"stage_fwd": bound_ms(fwd_bytes, (gemm, TF32X3_FLOPS),
+                                  (rest, FP32_FLOPS)),
+            "stage_fwd_saved": bound_ms(fwd_bytes + saved_bytes,
+                                        (gemm, TF32X3_FLOPS),
+                                        (rest, FP32_FLOPS)),
+            "stage_fwd_fp32": bound_ms(fwd_bytes, (gemm + rest, FP32_FLOPS)),
+            "stage_bwd_pw": pw, "stage_bwd_dw": dw}
+
+
+def short_name(kernel):
+    """A kernel's name without its namespace, return type and arguments."""
+    return kernel.replace("(anonymous namespace)::", "").replace(
+        "void ", "").split("(")[0]
+
+
+def launch_split(torch, fn, n=20):
+    """Device time per call (ms) of each kernel that fn launches, by kernel
+    name, from torch.profiler over n calls after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {short_name(e.key): e.self_device_time_total / n / 1e3
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0}
 
 
 def max_err(a, b):
@@ -168,23 +222,42 @@ def phase_kernels(torch, F):
         record["stage_bwd_dw"]["max_abs_err"] = max(
             record["stage_bwd_dw"]["max_abs_err"], *errs)
 
-        # the differentiable stage against autograd through the reference
+        # the differentiable stage against autograd through the reference.
+        # relu's derivative jumps at b-hat = 0, and two forwards inside their
+        # bound may put a pixel with |b-hat| < 1e-4 on opposite sides of it:
+        # there the two gradients differ by O(|g|) whichever is right. So
+        # the reference takes relu's mask from the kernel's b-hat (the
+        # forward repeats bit for bit), and both backwards see one forward;
+        # a pixel where the two masks differ must have |b-hat| < 1e-4 in both.
+        mask = out_k[2] > 0
+        if relu:
+            flips = mask != (out_p[2] > 0)
+            near = float(torch.maximum(out_k[2].abs(), out_p[2].abs())[flips]
+                         .max()) if bool(flips.any()) else 0.0
+            print(f"    relu mask: {int(flips.sum())} of {mask.numel()} "
+                  f"pixels differ from the plain forward's, max |b-hat| "
+                  f"there {near:.3e}")
+            if not near < 1e-4:
+                fail(f"{case}: relu mask differs at |b-hat| {near}")
         leaves = [t.clone().requires_grad_(True) for t in (x, dwk, pwk)]
         r_leaf = res.clone().requires_grad_(True) if has_res else None
         inputs = leaves + ([r_leaf] if has_res else [])
         y_f = mb.fused_sep_stage(leaves[0], leaves[1], leaves[2], r_leaf, relu)
         grads_f = torch.autograd.grad((y_f * g).sum(), inputs)
-        y_r = mb.sep_stage_reference(leaves[0], leaves[1], leaves[2], r_leaf,
-                                     relu)
+        y_r = mb.sep_stage_reference(leaves[0], leaves[1], leaves[2], None,
+                                     False)
+        y_r = y_r * mask if relu else y_r
+        y_r = y_r + r_leaf if has_res else y_r
         grads_r = torch.autograd.grad((y_r * g).sum(), inputs)
         check_close("stage y vs reference", y_f, y_r, 1e-4)
         for n, a, b in zip(("dx", "dW_dw", "dW_pw", "dres"), grads_f, grads_r):
             check_close(f"stage {n} vs reference", a, b,
                         1e-4 * max(float(b.abs().max()), 1.0))
 
-        if case not in ("teacher_relu",):
+        if case not in ("teacher_relu", "student_relu"):
             continue
-        # times at the teacher stage shape (the largest the main path runs)
+        # times at the main path's teacher and student stage shapes; the
+        # teacher's (the largest) go to the record
         bounds = stage_bounds(B, C, M, S * S, relu, has_res)
 
         def lib_fwd():
@@ -207,14 +280,26 @@ def phase_kernels(torch, F):
                 None),
         }
         for k, (kern, plain, lib) in timings.items():
-            rec = record[k]
-            rec["ms"] = cuda_ms(torch, kern)
-            rec["plain_ms"] = cuda_ms(torch, plain)
-            rec["library_ms"] = cuda_ms(torch, lib) if lib else None
+            rec = {"ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain),
+                   "library_ms": cuda_ms(torch, lib) if lib else None}
             rec["bound_ms"], rec["bound_by"] = bounds[k]
             print(f"    {k:<13} kernel {rec['ms']:.4f} ms  plain "
                   f"{rec['plain_ms']:.4f} ms  library {rec['library_ms']} ms  "
                   f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+            if case == "teacher_relu":
+                record[k].update(rec)
+        saved_ms, saved_by = bounds["stage_fwd_saved"]
+        print(f"    stage_fwd bound with a-hat, b-hat and both 1/std written "
+              f"for the backward {saved_ms:.4f} ms ({saved_by}): the cost of "
+              f"saving them, over the function's bound above")
+        fp32_ms, fp32_by = bounds["stage_fwd_fp32"]
+        print(f"    stage_fwd bound with every flop on the fp32 CUDA cores "
+              f"{fp32_ms:.4f} ms ({fp32_by}); the stage_fwd line puts the "
+              f"pointwise product on the tensor cores in split-TF32")
+        split = launch_split(torch, timings["stage_fwd"][0])
+        print("    one stage_fwd by launch (profiler): " + ", ".join(
+            f"{name} {ms:.4f} ms" for name, ms in
+            sorted(split.items(), key=lambda kv: -kv[1])))
 
         def cudnn_stage_fwd_bwd():
             xl = x.clone().requires_grad_(True)
@@ -329,16 +414,18 @@ def phase_main(torch, np):
                  PER_ITER, {"stage_fwd": 18}, "main path")
 
 
-STAGE_KERNELS = ("dw_in_fwd_kernel", "in_fwd_kernel", "in_bwd_kernel",
-                 "dw_bwd_kernel", "sgemm_kernel", "sum_partials_kernel")
+STAGE_KERNELS = ("dw_in_fwd_kernel", "pw_gemm_kernel", "in_fwd_kernel",
+                 "in_bwd_kernel", "dw_bwd_kernel", "sgemm_kernel",
+                 "sum_partials_kernel")
 ATTN_KERNELS = ("attn_fwd_kernel", "attn_bwd_kernel", "attn_dq_reduce_kernel")
 CONV_MARKS = ("conv", "cudnn", "xmma", "cutlass", "implicit", "wgrad", "dgrad")
 
 
 def profile_iteration(torch, engine, state, batch, val_batch, cfg):
-    """One more iteration under torch.profiler: device time by kernel group
-    and the device's busy share of the iteration's wall time (the profiler's
-    own overhead lengthens the wall time, so the busy share is a floor)."""
+    """One more iteration under torch.profiler: device time by kernel group,
+    by B1 and B2 kernel, and the device's busy share of the iteration's wall
+    time (the profiler's own overhead lengthens the wall time, so the busy
+    share is a floor)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -358,12 +445,15 @@ def profile_iteration(torch, engine, state, batch, val_batch, cfg):
         return
     groups = {"stage kernels (B2)": 0.0, "B1 attention kernels": 0.0,
               "convolutions (cuDNN)": 0.0, "other": 0.0}
-    for name, t, _ in kernels:
+    ours = []  # (name, us, calls) of every B1 and B2 kernel
+    for name, t, n in kernels:
         low = name.lower()
         if any(k in name for k in ATTN_KERNELS):
             groups["B1 attention kernels"] += t
+            ours.append((name, t, n))
         elif any(k in name for k in STAGE_KERNELS):
             groups["stage kernels (B2)"] += t
+            ours.append((name, t, n))
         elif any(k in low for k in CONV_MARKS):
             groups["convolutions (cuDNN)"] += t
         else:
@@ -372,6 +462,8 @@ def profile_iteration(torch, engine, state, batch, val_batch, cfg):
           f"wall {wall_us / 1e3:.3f} ms, device busy {total / wall_us:.3f}")
     for g, t in groups.items():
         print(f"    {g:<22} {t / 1e3:9.3f} ms  {t / total:.3f}")
+    for name, t, n in sorted(ours, key=lambda k: -k[1]):
+        print(f"      {t / 1e3:9.3f} ms {n:5d}x  {short_name(name)}")
     for name, t, n in sorted(kernels, key=lambda k: -k[1])[:12]:
         print(f"    {t / 1e3:9.3f} ms {n:5d}x  {name[:100]}")
 
@@ -410,16 +502,20 @@ def phase_agree(torch, np):
 def attn_bounds(B, N, dq, dv):
     """Least time for each B1 wrapper's work (fp32): its inputs read once and
     outputs written once; its multiply-adds (2 flops each) at the peak of
-    the units it runs on: the forward on the fp32 CUDA cores, the backward
-    on the tensor cores in split-TF32. "attn_bwd_fp32" is the backward's
-    bound on the fp32 CUDA cores, printed beside it."""
+    the units it runs on: the forward's S = q^T k on the fp32 CUDA cores and
+    its P V^T on the tensor cores in split-TF32, every product of the
+    backward in split-TF32. "attn_fwd_fp32" and "attn_bwd_fp32" are the
+    bounds with every flop on the fp32 CUDA cores, printed beside them."""
     pairs, bn = B * N * N, 4 * B * N
+    fwd_bytes = bn * (2 * dq + 2 * dv + 1)  # q, k, v in; O, lse out
     # q, k, v, dO, lse, delta in; dq, dk, dv out
     bwd_bytes, bwd_flops = bn * (4 * dq + 3 * dv + 2), 2 * pairs * (3 * dq + 2 * dv)
-    return {"attn_fwd": bound_ms(bn * (2 * dq + 2 * dv + 1),
-                                 2 * pairs * (dq + dv)),
-            "attn_bwd": bound_ms(bwd_bytes, bwd_flops, TF32X3_FLOPS),
-            "attn_bwd_fp32": bound_ms(bwd_bytes, bwd_flops)}
+    return {"attn_fwd": bound_ms(fwd_bytes, (2 * pairs * dq, FP32_FLOPS),
+                                 (2 * pairs * dv, TF32X3_FLOPS)),
+            "attn_fwd_fp32": bound_ms(fwd_bytes,
+                                      (2 * pairs * (dq + dv), FP32_FLOPS)),
+            "attn_bwd": bound_ms(bwd_bytes, (bwd_flops, TF32X3_FLOPS)),
+            "attn_bwd_fp32": bound_ms(bwd_bytes, (bwd_flops, FP32_FLOPS))}
 
 
 def phase_attention(torch, F):
@@ -429,16 +525,17 @@ def phase_attention(torch, F):
           "(fp32, TF32 off)")
     record = {k: {"max_abs_err": 0.0} for k in ATTN_PER_ITER}
     gen = torch.Generator().manual_seed(0)
-    for case, B, N, dq, dv in ATTN_CASES:
-        print(f"  {case}: B={B} N={N} dq={dq} dv={dv}")
+    for case, B, N, dq, dv, qk_scale in ATTN_CASES:
+        print(f"  {case}: B={B} N={N} dq={dq} dv={dv} q, k scale {qk_scale}")
 
         def rnd(*shape, scale=1.0):
             return (torch.randn(*shape, generator=gen) * scale).cuda()
 
-        q, k = rnd(B, dq, N, scale=0.5), rnd(B, dq, N, scale=0.5)
+        q, k = rnd(B, dq, N, scale=qk_scale), rnd(B, dq, N, scale=qk_scale)
         v, do = rnd(B, dv, N), rnd(B, dv, N)
         o, lse = fa.attn_fwd(q, k, v)
         o_p, lse_p = fa.attn_fwd_plain(q, k, v)
+        print(f"    max |S| {float(torch.einsum('bci,bcj->bij', q, k).abs().max()):.1f}")
         errs = [check_close(f"fwd {n}", a, b,
                             1e-5 * max(float(b.abs().max()), 1.0))
                 for n, a, b in (("O", o, o_p), ("lse", lse, lse_p))]
@@ -449,15 +546,24 @@ def phase_attention(torch, F):
         delta = (do * o_p).sum(1)
         args = (q, k, v, do, lse_p, delta)
         got = fa.attn_bwd(*args)
+        plain = fa.attn_bwd_plain(*args)
         errs = [check_close(f"bwd {n}", a, b,
                             1e-4 * max(float(b.abs().max()), 1.0))
-                for n, a, b in zip(("dq", "dk", "dv"), got,
-                                   fa.attn_bwd_plain(*args))]
+                for n, a, b in zip(("dq", "dk", "dv"), got, plain)]
+        # the backward on the kernel forward's own lse and O, as autograd
+        # runs it, against the plain backward on the plain forward's
+        errs += [check_close(f"bwd on kernel lse {n}", a, b,
+                             1e-4 * max(float(b.abs().max()), 1.0))
+                 for n, a, b in zip(("dq", "dk", "dv"), fa.attn_bwd(
+                     q, k, v, do, lse, (do * o).sum(1)), plain)]
         record["attn_bwd"]["max_abs_err"] = max(
             record["attn_bwd"]["max_abs_err"], *errs)
         # no float atomics: a second call gives the same bits
         if not all(torch.equal(a, b) for a, b in zip(got, fa.attn_bwd(*args))):
             fail(f"{case}: two attn_bwd calls differ")
+        if not all(torch.equal(a, b)
+                   for a, b in zip((o, lse), fa.attn_fwd(q, k, v))):
+            fail(f"{case}: two attn_fwd calls differ")
         if case not in ("teacher", "student"):
             continue
         # times at the main path's shapes; the teacher's go to the record
@@ -490,10 +596,11 @@ def phase_attention(torch, F):
                   f"ms  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
             if case == "teacher":
                 record[key].update(rec)
-        fp32_ms, fp32_by = bounds["attn_bwd_fp32"]
-        print(f"    attn_bwd bound on the fp32 CUDA cores {fp32_ms:.4f} ms "
-              f"({fp32_by}); the line above is the split-TF32 tensor-core "
-              f"bound")
+        for key in ("attn_fwd", "attn_bwd"):
+            fp32_ms, fp32_by = bounds[f"{key}_fp32"]
+            print(f"    {key} bound on the fp32 CUDA cores {fp32_ms:.4f} ms "
+                  f"({fp32_by}); the line above counts its products on the "
+                  f"tensor cores in split-TF32")
     return record
 
 

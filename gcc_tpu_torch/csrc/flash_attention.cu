@@ -17,23 +17,59 @@
 // computes it outside its kernel), ds_ij = p_ij (dO_i . v_j - delta_i),
 // dq = ds k, dk = ds^T q, dv = p^T dO.
 //
-// Forward. Per (sample, query, key) pair it does 2(dq + dv) flops and one
-// exp; the main path's shapes (N = 1024, dq 8 / dv 64 teacher, dq 2 / dv 16
-// student) give 70-150 flops per byte of q/k/v/O, so the work is bound by
-// fp32 operations (67 TFLOP/s outside the tensor cores), not by the
-// 3.35 TB/s of HBM. No N x N matrix ever reaches device memory.
+// Products run on the tensor cores in split-TF32 (tf32_mma.cuh: operands
+// x = hi + lo, three mma.sync.m16n8k8 .tf32 per product, 165 TFLOP/s against
+// 67 on the fp32 CUDA cores). [channel][token] tiles have a row stride of
+// LDT = 72 floats, so every fragment load of a warp hits 32 distinct banks.
+//
+// Forward (FlashAttention-2 style). Per (sample, query, key) pair it does
+// 2(dq + dv) flops and one exp; the main path's shapes (N = 1024, dq 8 /
+// dv 64 teacher, dq 2 / dv 16 student) give 70-150 flops per byte of
+// q/k/v/O, so the work is bound by operations, not by the 3.35 TB/s of HBM.
+// No N x N matrix ever reaches device memory.
 //  * The TPU kernel carries m, l and the accumulator across a sequential
 //    innermost grid axis. CUDA blocks run in no order, so each block owns a
-//    64-query tile of O and walks the key tiles itself.
-//  * Tiles are 64 x 64 (rows x streamed columns) in shared memory, 256
-//    threads, each owning a 4-row x (4 | JW)-column register micro-tile of
-//    the score tile and of its output tile, on the fp32 CUDA cores. Features
-//    are reduced in chunks of 16 and output widths are covered in chunks of
-//    16 * JW columns (JW = 1, 2, 4 by width, extra chunks as a grid axis), so
-//    any N, dq and dv run: a ragged key tile is masked by index, rows past N
-//    are not written. The TPU's 128-lane padding of dq/dv and its -1e30
-//    sentinel feature column (attention.py:155-176) are not carried over, nor
-//    the lane-replicated (B, N, 128) lse/delta tiles: they are plain (B, N).
+//    128-query tile of O (8 warps, 16 queries each; the tile's q resident in
+//    shared memory) and walks the 64-key tiles itself, fetching tile j + 1
+//    of k and v with cp.async into the second of two shared-memory stages
+//    while tile j computes.
+//  * S = q^T k stays in fp32 on the CUDA cores, computed directly in the
+//    m16n8 accumulator layout (a thread holds queries g and g + 8 of its
+//    warp against keys 8 nt + 2t, + 1). The error of a split-TF32 S is
+//    absolute and grows with |S|, and at q, k scale 2 (max |S| ~ 80) it
+//    would take much of O's bound of 1e-5 max(|ref|, 1); with S in fp32
+//    the kernel's arithmetic stays within half the bound
+//    (tests/test_torch_attention.py::test_fwd_precision emulates it). S is
+//    dq / (dq + dv) of the flops: 1/9 at both main-path widths.
+//  * Online softmax on the fragments: row max and sum over the 4 lanes of a
+//    quad (shfl_xor 1, 2); p = 2^(s log2 e - m log2 e) as one FMA and
+//    ex2.approx (relative error ~2^-22; the rounding of m log2 e shifts a
+//    whole row alike and cancels in O).
+//  * O = alpha O + P V^T, the product on the tensor cores in split-TF32. P
+//    is taken from the S accumulators as the A operand with the k index
+//    (keys) permuted: column t is key 2t and t + 4 is key 2t + 1, which is
+//    where the accumulator holds them, so V's B fragment is one ld2 of
+//    Vs[channel][8 kk + 2t]. The backward forms dV the same way. The
+//    tensor cores truncate as they accumulate, so each tile's product goes
+//    into a zeroed partial that is added to O in fp32 (one FMA with the
+//    rescale factor alpha). Summed straight into O, the truncations of 16
+//    tiles x 24 mma all lean one way; emulated at q, k scale 2 they exceed
+//    O's bound.
+//  * Widths: dv is covered in chunks of 8 VT channels (VT = 1, 2, 4, 8 by
+//    dv; V rows past dv zero in shared memory) on a grid axis, and each
+//    chunk recomputes S; only chunk 0 writes lse. Any N: a ragged key tile
+//    is masked by index, rows past N are not written. Widths whose two
+//    stages do not fit in shared memory run with one; past that (dq above
+//    about 260) the entry point returns cudaErrorInvalidValue. The TPU's
+//    128-lane padding of dq/dv, its -1e30 sentinel feature column
+//    (attention.py:155-176) and its lane-replicated (B, N, 128) lse/delta
+//    tiles are not carried over: they are plain (B, N).
+//  * O is stored from the accumulators: each store of a warp writes four
+//    channels x 8 consecutive queries, whole 32-byte sectors.
+//  * Registers (nvcc -Xptxas -v, sm_90a, CUDA 12.8): two blocks of 256
+//    threads allow 128; <VT 8> (dv 64) uses them and spills 48 B of stores,
+//    <4> and <2> use 128 and 122 without spilling, <1> 109. Dynamic shared
+//    memory (fwd_smem): 45,568 B at dq 8 / dv 64, 11,392 B at dq 2 / dv 16.
 //
 // Backward, one pass. Per pair it needs S = q.k, p = exp(S - lse), dP =
 // dO.v, ds, and three products into dq, dk, dv: 2(3 dq + 2 dv) flops, one
@@ -46,27 +82,22 @@
 //    written as per-key-tile partials (B, ceil(N/64), dq, N) and summed in
 //    key-tile order by attn_dq_reduce_kernel: no float atomics, so two calls
 //    on the same inputs give the same bits.
-//  * Every product runs on the tensor cores: mma.sync.aligned.m16n8k8 .tf32,
-//    8 warps. Warp w owns keys 16 (w % 4).. and queries 32 (w / 4).. of a
-//    tile: 4 m16n8 accumulator fragments each for S^T and dP^T. P^T and dS^T
-//    stay in those fragments and are the A operands of dV += P^T dO^T and
-//    dK += dS^T q^T (the k index permuted to where the accumulator holds
-//    each query); the two warps of a key group sum their dK, dV halves at
-//    the end. dS goes through shared memory once for dQ = dS k^T (warps
-//    0-3, 16 queries each). [channel][token] tiles have a row stride of 72
-//    floats, so every fragment load of a warp hits 32 distinct banks. Eight
-//    warps of at most 128 registers (__launch_bounds__(256, 2)) put two
-//    blocks, 16 warps, on an SM to hide the latency of the mma chains.
-//  * Split-TF32 ("3xTF32"): x = hi + lo, hi = x with the low 13 bits masked,
-//    lo = (x - hi) masked the same way; a b = lo*hi + hi*lo + hi*hi in fp32
-//    accumulators. Plain TF32 keeps 10 mantissa bits and misses the port's
-//    gradient bound of 1e-4 max(|ref|, 1). test_split_tf32_precision
-//    (tests/test_torch_attention.py) emulates these products at B 1, N 256,
-//    dq 8, dv 64 against float64: dq/dk/dv err 4.7e-3 / 4.6e-3 / 1.1e-3 with
-//    TF32 operands (tolerances 1.5e-4 / 1.4e-4 / 1.0e-4), 1.8e-6 / 2.0e-6 /
-//    5.2e-7 split, 4.8e-7 / 3.1e-7 / 8.0e-8 fp32. Its rate, a third of the
-//    495 TFLOP/s TF32 peak, is 165 TFLOP/s against 67 on the fp32 CUDA
-//    cores.
+//  * Every product runs on the tensor cores in split-TF32, 8 warps. Warp w
+//    owns keys 16 (w % 4).. and queries 32 (w / 4).. of a tile: 4 m16n8
+//    accumulator fragments each for S^T and dP^T. P^T and dS^T stay in those
+//    fragments and are the A operands of dV += P^T dO^T and dK += dS^T q^T
+//    (the k index permuted to where the accumulator holds each query); the
+//    two warps of a key group sum their dK, dV halves at the end. dS goes
+//    through shared memory once for dQ = dS k^T (warps 0-3, 16 queries
+//    each). Eight warps of at most 128 registers (__launch_bounds__(256, 2))
+//    put two blocks, 16 warps, on an SM to hide the latency of the mma
+//    chains.
+//  * Split-TF32 keeps the gradients inside 1e-4 max(|ref|, 1), plain TF32
+//    does not: test_split_tf32_precision (tests/test_torch_attention.py)
+//    emulates these products at B 1, N 256, dq 8, dv 64 against float64:
+//    dq/dk/dv err 4.7e-3 / 4.6e-3 / 1.1e-3 with TF32 operands (tolerances
+//    1.5e-4 / 1.4e-4 / 1.0e-4), 1.8e-6 / 2.0e-6 / 5.2e-7 split, 4.8e-7 /
+//    3.1e-7 / 8.0e-8 fp32.
 //  * exp is __expf (ex2.approx), less exact than expf in its last bits; the
 //    gradients stay far inside their bound (chip_smoke.py phase 6).
 //  * Widths: dq and dv are padded with zero rows to multiples of 8 in shared
@@ -92,172 +123,232 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16: thread (ty, tx) = (t / 16, t % 16)
-constexpr int BR = 64;         // rows of the block's own output tile
-constexpr int BC = 64;         // columns of the streamed tile
-constexpr int DK = 16;         // features per reduction chunk
+using namespace tf32x3;
 
-// Max / sum over the 16 threads of one row group (a half-warp). The xor
-// butterfly gives every lane the same bits.
-__device__ __forceinline__ float group_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+constexpr int kThreads = 256;     // 8 warps, every kernel but the reduction
+constexpr int BT = 64;            // keys (forward) or queries (backward) of a
+                                  // streamed tile
+constexpr int LDT = BT + 8;       // row stride of a [channel][token] tile
+constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
 
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// dst[c * ldd + t] = src[(d0 + c) * N + n0 + t] for c < nd, t < nt: a
-// feature-major tile of a (D, N) matrix, zero past D or N.
-__device__ __forceinline__ void load_fm(float* dst, int ldd, const float* src,
-                                        int N, int D, int d0, int nd, int n0,
-                                        int nt) {
-  for (int e = threadIdx.x; e < nd * nt; e += kThreads) {
-    const int c = e / nt, t = e - c * nt, d = d0 + c, n = n0 + t;
-    dst[c * ldd + t] = (d < D && n < N) ? src[(size_t)d * N + n] : 0.f;
+// dst[c * LD + t] = src[c * N + n0 + t] for c < D, t < TW, zero past N:
+// 16-byte copies when vec (N % 4 == 0, aligned bases), else 4-byte ones.
+template <int TW = BT, int LD = LDT>
+__device__ __forceinline__ void cp_tile(float* dst, const float* src, int D,
+                                        int N, int n0, bool vec) {
+  if (vec) {
+    for (int e = threadIdx.x; e < D * (TW / 4); e += kThreads) {
+      const int c = e / (TW / 4), t = 4 * (e % (TW / 4)), n = n0 + t;
+      cp_async(dst + c * LD + t, src + (size_t)c * N + (n < N ? n : 0),
+               n < N ? 16 : 0, true);
+    }
+  } else {
+    for (int e = threadIdx.x; e < D * TW; e += kThreads) {
+      const int c = e / TW, t = e % TW, n = n0 + t;
+      cp_async(dst + c * LD + t, src + (size_t)c * N + (n < N ? n : 0),
+               n < N ? 4 : 0, false);
+    }
   }
 }
 
-// dst[t * ldd + c]: the same tile stored token-major (ldd odd, so the
-// transposing stores do not collide in shared-memory banks).
-__device__ __forceinline__ void load_tm(float* dst, int ldd, const float* src,
-                                        int N, int D, int d0, int nd, int n0,
-                                        int nt) {
-  for (int e = threadIdx.x; e < nd * nt; e += kThreads) {
-    const int c = e / nt, t = e - c * nt, d = d0 + c, n = n0 + t;
-    dst[t * ldd + c] = (d < D && n < N) ? src[(size_t)d * N + n] : 0.f;
-  }
+__device__ __forceinline__ void zero_rows(float* dst, int from, int to) {
+  for (int e = threadIdx.x; e < (to - from) * LDT; e += kThreads)
+    dst[from * LDT + e] = 0.f;
 }
 
-// acc[i][j] += sum_{kk < K} A(ty*4 + i, kk) * B[kk * ldb + tx + 16 j], with
-// A stored k-major (A[kk * lda + r]) when AK, else row-major (A[r * lda + kk]).
-template <int JW, bool AK>
-__device__ __forceinline__ void mma(float (&acc)[4][JW], const float* A,
-                                    int lda, const float* B, int ldb, int K) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  for (int kk = 0; kk < K; ++kk) {
-    float a[4], b[JW];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = AK ? A[kk * lda + ty * 4 + i] : A[(ty * 4 + i) * lda + kk];
-#pragma unroll
-    for (int j = 0; j < JW; ++j) b[j] = B[kk * ldb + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < JW; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
+// ---------------------------------------------------------------------------
+// Forward: S in fp32 on the CUDA cores, O += P V^T on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int BQ = 128;  // queries of a forward block, 16 a warp
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x, ex2.approx
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// Scores of one (64 x 64) tile: s[i][j] = sum_c a[c, r0 + ty*4 + i] *
-// b[c, n0 + tx + 16 j] over the D features of two channel-major matrices.
-__device__ __forceinline__ void scores(float (&s)[4][4], float* As, float* Bs,
-                                       const float* a, const float* b, int N,
-                                       int D, int r0, int n0) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-  for (int d0 = 0; d0 < D; d0 += DK) {
-    const int nd = min(DK, D - d0);
-    __syncthreads();  // the previous readers of As/Bs are done
-    load_fm(As, BR, a, N, D, d0, nd, r0, BR);
-    load_fm(Bs, BC, b, N, D, d0, nd, n0, BC);
-    __syncthreads();
-    mma<4, true>(s, As, BR, Bs, BC, nd);
-  }
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-// Forward. Block (query tile, dv chunk, sample): online softmax over the key
-// tiles; O for its dv chunk, and lse from the chunk-0 blocks.
-template <int JW>
-__global__ void __launch_bounds__(kThreads) attn_fwd_kernel(
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Block (query tile of BQ, dv chunk y of 8 VT channels, sample b). Warp w
+// owns queries qw = 16 w .. qw + 15 of the tile; per key tile j:
+//   S = q^T k_j (fp32), m, l and O rescaled by the online softmax,
+//   O += P V_j^T  (split-TF32, P from S's accumulator fragments).
+// Lane (g, t) holds rows qw + g and qw + g + 8: m[0], l[0] and O[nt][0..1]
+// for the first, m[1], l[1] and O[nt][2..3] for the second.
+template <int VT>
+__global__ void __launch_bounds__(kThreads, 2) attn_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o,
-    float* __restrict__ lse, int N, int dq, int dv) {
-  constexpr int W = 16 * JW;
-  __shared__ float As[DK * BR], Bs[DK * BC];
-  __shared__ float Ps[BR * (BC + 1)], Vs[BC * (W + 1)];
-  const int b = blockIdx.z, r0 = blockIdx.x * BR, c0 = blockIdx.y * W;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const float* qb = q + (size_t)b * dq * N;
+    float* __restrict__ lse, int N, int dq, int dv, int nbuf, int vec) {
+  constexpr int CW = 8 * VT;  // channels of a chunk
+  extern __shared__ __align__(16) float sm[];
+  const int stage = (dq + CW) * LDT;  // k tile [dq][LDT], v tile [CW][LDT]
+  float* Qs = sm;                     // [dq][BQ] the block's queries, resident
+  float* st0 = Qs + dq * BQ;          // nbuf stages
+
+  const int b = blockIdx.z, c0 = blockIdx.y * CW, r0 = blockIdx.x * BQ;
+  const int cw = min(CW, dv - c0);  // channels of the chunk that exist
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2,
+            t = lane & 3, qw = 16 * warp;
   const float* kb = k + (size_t)b * dq * N;
-  const float* vb = v + (size_t)b * dv * N;
-  float m[4], l[4], acc[4][JW];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < JW; ++j) acc[i][j] = 0.f;
-  }
-  for (int n0 = 0; n0 < N; n0 += BC) {
-    float s[4][4];
-    scores(s, As, Bs, qb, kb, N, dq, r0, n0);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (n0 + tx + 16 * j >= N) s[i][j] = -INFINITY;  // ragged key tile
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // key n0 < N is in every tile, so the row max is finite
-      const float mn = fmaxf(m[i], group_max(mx));
-      const float alpha = expf(m[i] - mn);  // 0 on the first tile
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - mn);
-        ps += s[i][j];
-      }
-      l[i] = l[i] * alpha + group_sum(ps);
-      m[i] = mn;
-#pragma unroll
-      for (int j = 0; j < JW; ++j) acc[i][j] *= alpha;
+  const float* vb = v + ((size_t)b * dv + c0) * N;
+
+  for (int s = 0; s < nbuf; ++s) zero_rows(st0 + s * stage + dq * LDT, cw, CW);
+  cp_tile<BQ, BQ>(Qs, q + (size_t)b * dq * N, dq, N, r0, vec);
+  auto fetch = [&](int j, int s) {
+    float* Ks = st0 + s * stage;
+    cp_tile(Ks, kb, dq, N, j * BT, vec);
+    cp_tile(Ks + dq * LDT, vb, cw, N, j * BT, vec);
+  };
+  fetch(0, 0);
+  cp_commit();
+
+  float O[VT][4] = {}, m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const int nkt = (N + BT - 1) / BT;
+  for (int j = 0; j < nkt; ++j) {
+    const int s = nbuf == 2 ? (j & 1) : 0, n0 = j * BT;
+    if (nbuf == 2 && j + 1 < nkt) {  // fetch tile j + 1 while j computes
+      fetch(j + 1, s ^ 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
-    __syncthreads();  // the previous tile's readers of Ps/Vs are done
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Ps[(ty * 4 + i) * (BC + 1) + tx + 16 * j] = s[i][j];
-    load_tm(Vs, W + 1, vb, N, dv, c0, W, n0, BC);
     __syncthreads();
-    mma<JW, false>(acc, Ps, BC + 1, Vs, W + 1, BC);
-  }
+    const float* Ks = st0 + s * stage;
+    const float* Vs = Ks + dq * LDT;
+
+    // S (16 queries x 64 keys a warp): fragment nt holds keys 8 nt + 2t, + 1
+    float S[8][4] = {};
+    for (int c = 0; c < dq; ++c) {
+      const float qa = Qs[c * BQ + qw + g], qb = Qs[c * BQ + qw + g + 8];
+      const float* kr = Ks + c * LDT + 2 * t;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty * 4 + i;
-    if (r >= N) continue;
-    const float inv = 1.f / l[i];
-#pragma unroll
-    for (int j = 0; j < JW; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (c < dv) o[((size_t)b * dv + c) * N + r] = acc[i][j] * inv;
+      for (int nt = 0; nt < 8; ++nt) {
+        const float2 x = ld2(kr + 8 * nt);
+        S[nt][0] = fmaf(qa, x.x, S[nt][0]);
+        S[nt][1] = fmaf(qa, x.y, S[nt][1]);
+        S[nt][2] = fmaf(qb, x.x, S[nt][2]);
+        S[nt][3] = fmaf(qb, x.y, S[nt][3]);
+      }
     }
-    if (blockIdx.y == 0 && tx == 0) lse[(size_t)b * N + r] = m[i] + logf(l[i]);
+    if (n0 + BT > N) {  // ragged key tile
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int key = n0 + 8 * nt + 2 * t;
+        if (key >= N) S[nt][0] = S[nt][2] = -INFINITY;
+        if (key + 1 >= N) S[nt][1] = S[nt][3] = -INFINITY;
+      }
+    }
+    // online softmax; key n0 < N is in every tile, so the row max is finite
+    float mx0 = m[0], mx1 = m[1];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      mx0 = fmaxf(mx0, fmaxf(S[nt][0], S[nt][1]));
+      mx1 = fmaxf(mx1, fmaxf(S[nt][2], S[nt][3]));
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    const float ml0 = mx0 * kLog2e, ml1 = mx1 * kLog2e;
+    const float a0 = ex2(fmaf(m[0], kLog2e, -ml0));  // 0 on the first tile
+    const float a1 = ex2(fmaf(m[1], kLog2e, -ml1));
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      S[nt][0] = ex2(fmaf(S[nt][0], kLog2e, -ml0));
+      S[nt][1] = ex2(fmaf(S[nt][1], kLog2e, -ml0));
+      S[nt][2] = ex2(fmaf(S[nt][2], kLog2e, -ml1));
+      S[nt][3] = ex2(fmaf(S[nt][3], kLog2e, -ml1));
+      ps0 += S[nt][0] + S[nt][1];
+      ps1 += S[nt][2] + S[nt][3];
+    }
+    l[0] = l[0] * a0 + quad_sum(ps0);
+    l[1] = l[1] * a1 + quad_sum(ps1);
+    m[0] = mx0;
+    m[1] = mx1;
+
+    // The tile's P V^T (k = its keys; k column t is key 2t, t + 4 is
+    // 2t + 1) into a zeroed partial, then O = alpha O + partial in fp32.
+    // The tensor cores' accumulation truncates: summed straight into O,
+    // each mma would cost up to an ulp of |O|, all one way; the partial's
+    // truncations are relative to one tile's sum.
+    float T[VT][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const FragA a = frag_a(S[kk][0], S[kk][2], S[kk][1], S[kk][3]);
+#pragma unroll
+      for (int nt = 0; nt < VT; ++nt) {
+        if (8 * nt >= cw) break;
+        const float2 x = ld2(Vs + (8 * nt + g) * LDT + 8 * kk + 2 * t);
+        mma3(T[nt], a, frag_b(x.x, x.y));
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < VT; ++nt) {
+      O[nt][0] = fmaf(O[nt][0], a0, T[nt][0]);
+      O[nt][1] = fmaf(O[nt][1], a0, T[nt][1]);
+      O[nt][2] = fmaf(O[nt][2], a1, T[nt][2]);
+      O[nt][3] = fmaf(O[nt][3], a1, T[nt][3]);
+    }
+    __syncthreads();  // readers of stage s are done
+    if (nbuf == 1 && j + 1 < nkt) {
+      fetch(j + 1, 0);
+      cp_commit();
+    }
+  }
+
+  // rows qw + g (r < 2) and qw + g + 8, channels 8 nt + 2t + (r & 1)
+  const int n_lo = r0 + qw + g, n_hi = n_lo + 8;
+  const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
+  float* ob = o + ((size_t)b * dv + c0) * N;
+#pragma unroll
+  for (int nt = 0; nt < VT; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int c = 8 * nt + 2 * t + (r & 1), n = r < 2 ? n_lo : n_hi;
+      if (c < cw && n < N)
+        ob[(size_t)c * N + n] = O[nt][r] * (r < 2 ? inv0 : inv1);
+    }
+  if (blockIdx.y == 0 && t == 0) {
+    if (n_lo < N) lse[(size_t)b * N + n_lo] = m[0] + logf(l[0]);
+    if (n_hi < N) lse[(size_t)b * N + n_hi] = m[1] + logf(l[1]);
   }
 }
 
-// Columns of a block's output chunk for an output of width w: 16, 32 or 64.
-int chunk_jw(int w) { return w <= 16 ? 1 : (w <= 32 ? 2 : 4); }
-
-dim3 grid_of(int N, int w, int jw, int B) {
-  return dim3((N + BR - 1) / BR, (w + 16 * jw - 1) / (16 * jw), B);
+// Shared memory of attn_fwd_kernel<VT> with nbuf stages, in bytes.
+size_t fwd_smem(int dq, int vt, int nbuf) {
+  return 4 * ((size_t)dq * BQ + (size_t)nbuf * (dq + 8 * vt) * LDT);
 }
 
-template <int JW>
+template <int VT>
 int fwd(const float* q, const float* k, const float* v, float* o, float* lse,
         int B, int N, int dq, int dv, cudaStream_t st) {
-  attn_fwd_kernel<JW><<<grid_of(N, dv, JW, B), kThreads, 0, st>>>(
-      q, k, v, o, lse, N, dq, dv);
+  const int nbuf = fwd_smem(dq, VT, 2) <= kMaxSmem ? 2 : 1;
+  const size_t smem = fwd_smem(dq, VT, nbuf);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      attn_fwd_kernel<VT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const uintptr_t bases = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
+  const int vec = N % 4 == 0 && bases % 16 == 0;
+  const dim3 grid((N + BQ - 1) / BQ, (dv + 8 * VT - 1) / (8 * VT), B);
+  attn_fwd_kernel<VT><<<grid, kThreads, smem, st>>>(q, k, v, o, lse, N, dq,
+                                                    dv, nbuf, vec);
   return (int)cudaGetLastError();
 }
 
@@ -265,103 +356,7 @@ int fwd(const float* q, const float* k, const float* v, float* o, float* lse,
 // Backward: one pass over the (query, key) pairs on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int kBwdThreads = 256;  // 8 warps, see attn_bwd_kernel
-constexpr int BT = 64;            // keys of a block; queries of a streamed tile
-constexpr int BH = BT / 2;        // queries of a warp in a tile
-constexpr int LDT = BT + 8;       // row stride of a [channel][token] tile
-constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
-
-// x's top 19 bits as a tf32 operand (the low 13 bits of the fp32 masked off)
-__device__ __forceinline__ uint32_t tf32_bits(float x) {
-  return __float_as_uint(x) & 0xffffe000u;
-}
-
-// The split-TF32 operands of an mma: x = hi + lo, each exact in tf32 up to
-// lo's own 13 dropped bits (|lo| < 2^-10 |x|, so the error is < 2^-20 |x|).
-struct FragA { uint32_t hi[4], lo[4]; };
-struct FragB { uint32_t hi[2], lo[2]; };
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_bits(x);
-  lo = tf32_bits(x - __uint_as_float(hi));
-}
-
-// A fragment of m16n8k8 (16 x 8, row-major): a0 (g, t), a1 (g + 8, t),
-// a2 (g, t + 4), a3 (g + 8, t + 4) for lane = 4 g + t.
-__device__ __forceinline__ FragA frag_a(float a0, float a1, float a2,
-                                        float a3) {
-  FragA f;
-  split(a0, f.hi[0], f.lo[0]);
-  split(a1, f.hi[1], f.lo[1]);
-  split(a2, f.hi[2], f.lo[2]);
-  split(a3, f.hi[3], f.lo[3]);
-  return f;
-}
-
-// B fragment (8 x 8, column-major): b0 (t, g), b1 (t + 4, g).
-__device__ __forceinline__ FragB frag_b(float b0, float b1) {
-  FragB f;
-  split(b0, f.hi[0], f.lo[0]);
-  split(b1, f.hi[1], f.lo[1]);
-  return f;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a b in split-TF32: lo*hi + hi*lo + hi*hi (lo*lo, < 2^-20 |ab|, is
-// dropped), small terms first. The accumulator d (16 x 8): d0 (g, 2t),
-// d1 (g, 2t + 1), d2 (g + 8, 2t), d3 (g + 8, 2t + 1).
-__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
-                                     const FragB& b) {
-  mma_tf32(d, a.lo, b.hi);
-  mma_tf32(d, a.hi, b.lo);
-  mma_tf32(d, a.hi, b.hi);
-}
-
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         int bytes, bool vec) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  if (vec)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                 "l"(src), "r"(bytes));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-                 "l"(src), "r"(bytes));
-}
-
-// dst[c * LDT + t] = src[c * N + n0 + t] for c < D, t < BT, zero past N:
-// 16-byte copies when vec (N % 4 == 0, aligned bases), else 4-byte ones.
-__device__ __forceinline__ void cp_tile(float* dst, const float* src, int D,
-                                        int N, int n0, bool vec) {
-  if (vec) {
-    for (int e = threadIdx.x; e < D * (BT / 4); e += kBwdThreads) {
-      const int c = e / (BT / 4), t = 4 * (e % (BT / 4)), n = n0 + t;
-      cp_async(dst + c * LDT + t, src + (size_t)c * N + (n < N ? n : 0),
-               n < N ? 16 : 0, true);
-    }
-  } else {
-    for (int e = threadIdx.x; e < D * BT; e += kBwdThreads) {
-      const int c = e / BT, t = e % BT, n = n0 + t;
-      cp_async(dst + c * LDT + t, src + (size_t)c * N + (n < N ? n : 0),
-               n < N ? 4 : 0, false);
-    }
-  }
-}
-
-__device__ __forceinline__ void zero_rows(float* dst, int from, int to) {
-  for (int e = threadIdx.x; e < (to - from) * LDT; e += kBwdThreads)
-    dst[from * LDT + e] = 0.f;
-}
-
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
+constexpr int BH = BT / 2;  // queries of a warp in a tile
 
 // Block (key tile j, output chunk y, sample b). Warp w owns keys
 // kw = 16 (w % 4) .. kw + 15 of the tile and queries qh = 32 (w / 4) ..
@@ -379,7 +374,7 @@ __device__ __forceinline__ float2 ld2(const float* p) {
 // two warps of a key group hold partial dK and dV over their query halves;
 // they are summed (w + (w + 4), in that order) at the end.
 template <int QT, int VT>
-__global__ void __launch_bounds__(kBwdThreads, 2) attn_bwd_kernel(
+__global__ void __launch_bounds__(kThreads, 2) attn_bwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dO,
     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -424,7 +419,7 @@ __global__ void __launch_bounds__(kBwdThreads, 2) attn_bwd_kernel(
   cp_tile(Ks, k + oq, dq, N, j0, vec);
   cp_tile(Vs, v + ov, dv, N, j0, vec);
   fetch(0, 0);
-  asm volatile("cp.async.commit_group;\n");
+  cp_commit();
 
   float dK[QT][4] = {}, dV[VT][4] = {};
   const int nqt = (N + BT - 1) / BT;
@@ -432,10 +427,10 @@ __global__ void __launch_bounds__(kBwdThreads, 2) attn_bwd_kernel(
     const int s = nbuf == 2 ? (i & 1) : 0, n0 = i * BT;
     if (nbuf == 2 && i + 1 < nqt) {  // fetch tile i + 1 while i computes
       fetch(i + 1, s ^ 1);
-      asm volatile("cp.async.commit_group;\n");
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      cp_commit();
+      cp_wait<1>();
     } else {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      cp_wait<0>();
     }
     __syncthreads();
     const float* Qs = st0 + s * stage;
@@ -549,7 +544,7 @@ __global__ void __launch_bounds__(kBwdThreads, 2) attn_bwd_kernel(
     __syncthreads();  // readers of stage s and of Ss are done
     if (nbuf == 1 && i + 1 < nqt) {
       fetch(i + 1, 0);
-      asm volatile("cp.async.commit_group;\n");
+      cp_commit();
     }
   }
 
@@ -625,7 +620,7 @@ int bwd(const float* q, const float* k, const float* v, const float* dO,
   const int vec = N % 4 == 0 && bases % 16 == 0;
   const int nkt = (N + BT - 1) / BT;
   const int nyk = (dq + 8 * QT - 1) / (8 * QT), nyv = (dv + 8 * VT - 1) / (8 * VT);
-  attn_bwd_kernel<QT, VT><<<dim3(nkt, nyk > nyv ? nyk : nyv, B), kBwdThreads,
+  attn_bwd_kernel<QT, VT><<<dim3(nkt, nyk > nyv ? nyk : nyv, B), kThreads,
                             smem, st>>>(
       q, k, v, dO, lse, delta, dk_out, dv_out, dq_part, N, dq, dv, nbuf, vec);
   const int e = (int)cudaGetLastError();
@@ -644,11 +639,10 @@ extern "C" {
 int gcc_attn_fwd(const float* q, const float* k, const float* v, float* o,
                  float* lse, int B, int N, int dq, int dv, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (chunk_jw(dv)) {
-    case 1: return fwd<1>(q, k, v, o, lse, B, N, dq, dv, st);
-    case 2: return fwd<2>(q, k, v, o, lse, B, N, dq, dv, st);
-    default: return fwd<4>(q, k, v, o, lse, B, N, dq, dv, st);
-  }
+  if (dv <= 8) return fwd<1>(q, k, v, o, lse, B, N, dq, dv, st);
+  if (dv <= 16) return fwd<2>(q, k, v, o, lse, B, N, dq, dv, st);
+  if (dv <= 32) return fwd<4>(q, k, v, o, lse, B, N, dq, dv, st);
+  return fwd<8>(q, k, v, o, lse, B, N, dq, dv, st);
 }
 
 // Backward, one pass: q, k (B,dq,N), v and dO (B,dv,N), lse and

@@ -105,7 +105,9 @@ def _check_qkv(q, k, v):
 
 
 def attn_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward: (O (B, dv, N), lse (B, N))."""
+    """Forward: (O (B, dv, N), lse (B, N)). On the card the launch fails
+    (RuntimeError) for widths whose tiles do not fit in shared memory: dq
+    above about 260."""
     if not q.is_cuda:
         return attn_fwd_plain(q, k, v)
     B, N, dq, dv = _check_qkv(q, k, v)

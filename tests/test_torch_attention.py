@@ -14,6 +14,8 @@
 * The precision argument of the CUDA backward: its products emulated with
   TF32 operands (float32 bits masked to 10 mantissa bits) miss the port's
   gradient bound of 1e-4 * max(|ref|, 1); split-TF32 ("3xTF32") holds it.
+  The same for the CUDA forward (S in fp32, P V^T split-TF32) against O's
+  bound of 1e-5 * max(|ref|, 1), up to logits of ~80.
 * SelfAttention against the JAX module through both of the port's routes,
   with gamma non-zero: at gamma = 0 attention adds nothing and its q/k/v
   gradients vanish, so a broken backward would pass.
@@ -47,6 +49,7 @@ from gcc_tpu_torch.ops.spectral import (  # noqa: E402
 from gcc_tpu_torch.utils.weights import (  # noqa: E402
     export_jax_variables, load_jax_variables,
 )
+from torch_tf32 import mma_partial, tf32  # noqa: E402
 
 # (B, N, dq, dv): multi-tile with a ragged tail, the JAX package's own case,
 # the student's main-path shape, and widths past one feature/output chunk
@@ -165,21 +168,15 @@ def test_function_backward_runs_fused_plain(monkeypatch):
         torch.testing.assert_close(a, b, atol=tol, rtol=0, msg=name)
 
 
-def _tf32(x):
-    """float32 -> TF32 by masking the 13 low mantissa bits, as the CUDA
-    kernel forms its operands."""
-    return (x.contiguous().view(torch.int32) & -8192).view(torch.float32)
-
-
 def _emulated_mm(a, b, mode):
     """a @ b with the operands as the kernel would feed the tensor cores,
     each product exact and summed in float64."""
     if mode == "fp32":
         return (a.double() @ b.double()).float()
-    ah, bh = _tf32(a), _tf32(b)
+    ah, bh = tf32(a), tf32(b)
     if mode == "tf32":
         return (ah.double() @ bh.double()).float()
-    al, bl = _tf32(a - ah), _tf32(b - bh)  # split-TF32: x = hi + lo
+    al, bl = tf32(a - ah), tf32(b - bh)  # split-TF32: x = hi + lo
     return (al.double() @ bh.double() + ah.double() @ bl.double()
             + ah.double() @ bh.double()).float()
 
@@ -218,6 +215,48 @@ def test_split_tf32_precision(mode):
             assert err > tol, f"{name}: plain TF32 err {err} within {tol}"
         else:
             assert err < tol / 10, f"{name}: {mode} err {err}, tol {tol}"
+
+
+# (dq, dv) of the SAGAN main path's attn2: teacher, student
+FWD_WIDTHS = {"teacher": (8, 64), "student": (2, 16)}
+
+
+@pytest.mark.parametrize("mode", ["kernel", "tf32"])
+@pytest.mark.parametrize("scale", [0.5, 2.0])
+@pytest.mark.parametrize("width", sorted(FWD_WIDTHS))
+def test_fwd_precision(width, scale, mode):
+    """The CUDA forward emulated at N 1024 against float64, q and k at scale
+    0.5 (max |S| ~ 5) and 2.0 (max |S| ~ 60-80): "kernel" does what
+    gcc_attn_fwd does, S = q^T k in fp32, the online softmax over 64-key
+    tiles, each tile's P V^T from split-TF32 operands into a zeroed partial
+    (truncating accumulation) and O = alpha O + partial in fp32; it holds O
+    within half the port's bound of 1e-5 * max(|ref|, 1). Plain TF32
+    operands in both products miss the bound."""
+    dq, dv = FWD_WIDTHS[width]
+    R = np.random.RandomState(7)
+    N = 1024
+    q, k = (torch.from_numpy((R.randn(dq, N) * scale).astype(np.float32))
+            for _ in range(2))
+    v = torch.from_numpy(R.randn(dv, N).astype(np.float32))
+    ref = torch.softmax(q.double().T @ k.double(), -1) @ v.double().T
+
+    s = _emulated_mm(q.T, k, "fp32" if mode == "kernel" else mode)
+    o = torch.zeros(N, dv)
+    m = torch.full((N, 1), -float("inf"))
+    l = torch.zeros(N, 1)
+    for j in range(0, N, 64):
+        st = s[:, j:j + 64]
+        mn = torch.maximum(m, st.max(-1, keepdim=True).values)
+        alpha, p = torch.exp(m - mn), torch.exp(st - mn)
+        l, m = l * alpha + p.sum(-1, keepdim=True), mn
+        o = o * alpha + mma_partial(p, v[:, j:j + 64].T.contiguous(),
+                                    "split" if mode == "kernel" else mode)
+    err = float(((o / l).double() - ref).abs().max())
+    tol = 1e-5 * max(float(ref.abs().max()), 1.0)
+    if mode == "tf32":
+        assert err > tol, f"plain TF32 err {err} within {tol}"
+    else:
+        assert err < tol / 2, f"kernel's arithmetic: err {err}, tol {tol}"
 
 
 @pytest.mark.parametrize("route", ["flash", "einsum"])

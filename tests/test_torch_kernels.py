@@ -6,14 +6,20 @@ imports no JAX, so it runs on a machine with the card alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
+One test runs on the CPU: a library's name follows its source, the shared
+headers in csrc/ and the flags, so an edited header is rebuilt.
+
 Shapes are small and ragged (widths off every tile multiple, non-square and
-minimum planes, a plane larger than one split-k chunk; N off the 64-row
+minimum planes, a plane larger than one split-k chunk and one larger than
+the 64x64 that the forward's norms hold in registers; N off the 64-row
 tile, feature widths past one 16-wide chunk and one 64-wide output chunk,
 widths whose backward tiles fit only one shared-memory stage), complementing
-the main-path shapes that chip_smoke.py checks. fp32 with TF32 off; B2
+the main-path shapes that chip_smoke.py checks, and logits up to ~80
+(q, k at scale 2). fp32 with TF32 off; B2
 forward within 1e-4, B1 forward within 1e-5 * max(|ref|, 1), gradients
-within 1e-4 * max(|ref|, 1) (reduction order; the B1 backward's split-TF32
-products are as accurate as fp32 ones, tests/test_torch_attention.py).
+within 1e-4 * max(|ref|, 1) (reduction order; the split-TF32 products of
+the B2 forward and of B1 stay within a few fp32 roundings of fp32 ones,
+tests/test_torch_attention.py, tests/test_torch_mobile_block.py).
 """
 
 import pytest
@@ -21,11 +27,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from gcc_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from gcc_tpu_torch.ops import kernels  # noqa: E402
 from gcc_tpu_torch.ops import mobile_block as mb  # noqa: E402
 
 # (B, C, M, H, W, relu, residual)
 CASES = [(2, 5, 7, 8, 12, True, False), (1, 3, 4, 5, 5, False, True),
-         (3, 130, 70, 9, 33, True, True), (2, 24, 48, 40, 40, False, True)]
+         (3, 130, 70, 9, 33, True, True), (2, 24, 48, 40, 40, False, True),
+         (2, 72, 112, 20, 20, True, False), (1, 3, 5, 70, 66, True, True)]
 
 
 @pytest.fixture
@@ -91,21 +99,24 @@ def test_wrapper_rejects_bad_input(cuda):
         mb.stage_fwd(x, dwk.cpu(), pwk)
 
 
-# (B, N, dq, dv)
-ATTN_CASES = [(1, 1, 1, 1), (2, 65, 3, 5), (3, 130, 25, 200), (2, 1024, 2, 16),
-              (1, 200, 40, 33), (1, 70, 40, 280)]
+# (B, N, dq, dv, scale of q and k): scale 2 gives logits up to ~80, where
+# an error in S weighs most
+ATTN_CASES = [(1, 1, 1, 1, 0.5), (2, 65, 3, 5, 0.5), (3, 130, 25, 200, 0.5),
+              (2, 1024, 2, 16, 0.5), (1, 200, 40, 33, 0.5),
+              (1, 70, 40, 280, 0.5), (2, 1024, 8, 64, 2.0),
+              (2, 1000, 2, 16, 2.0)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ATTN_CASES)
 def test_attention_kernels_match_plain(cuda, case):
-    B, N, dq, dv = case
+    B, N, dq, dv, scale = case
     gen = torch.Generator().manual_seed(1)
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(cuda)
 
-    q, k = rnd(B, dq, N, scale=0.5), rnd(B, dq, N, scale=0.5)
+    q, k = rnd(B, dq, N, scale=scale), rnd(B, dq, N, scale=scale)
     v, do = rnd(B, dv, N), rnd(B, dv, N)
     before = dict(fa.LAUNCHES)
     o, lse = fa.attn_fwd(q, k, v)
@@ -116,12 +127,16 @@ def test_attention_kernels_match_plain(cuda, case):
     delta = (do * o_p).sum(1)
     args = (q, k, v, do, lse_p.contiguous(), delta)
     grads = fa.attn_bwd(*args)
-    for a, b in zip(grads, fa.attn_bwd_plain(*args)):
+    plain = fa.attn_bwd_plain(*args)
+    for a, b in zip(grads, plain):
+        _close(a, b, scale=True)
+    # the backward on the kernel forward's own lse and O, as autograd runs it
+    for a, b in zip(fa.attn_bwd(q, k, v, do, lse, (do * o).sum(1)), plain):
         _close(a, b, scale=True)
     assert {k_: fa.LAUNCHES[k_] - before[k_] for k_ in before} == \
-        {"attn_fwd": 1, "attn_bwd": 1}
+        {"attn_fwd": 1, "attn_bwd": 2}
     # no float atomics: a second call gives the same bits
-    assert torch.equal(o, fa.attn_fwd(q, k, v)[0])
+    assert all(torch.equal(a, b) for a, b in zip((o, lse), fa.attn_fwd(q, k, v)))
     assert all(torch.equal(a, b) for a, b in zip(grads, fa.attn_bwd(*args)))
 
 
@@ -162,3 +177,16 @@ def test_attention_wrapper_rejects_bad_input(cuda):
                     lse, delta)
     with pytest.raises(ValueError):
         fa.attn_bwd(q, q, v, v, torch.zeros(1, 9, device=cuda), delta)
+
+
+def test_library_name_follows_headers(monkeypatch, tmp_path):
+    """Editing a header in csrc/ renames every library, so a stale one is
+    never loaded; the name is stable while nothing changes."""
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    first = kernels._lib_path("a")
+    assert kernels._lib_path("a") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert kernels._lib_path("a") != first
+    assert kernels._lib_path("a").parent == kernels.BUILD_DIR

@@ -8,7 +8,9 @@ numpy inputs (NHWC for JAX, NCHW for the port), with the bounds of
 tests/test_mobile_block.py: 2e-5 forward, 3e-5 * max(|ref|, 1) for each
 gradient (fp32; the Pallas stage takes one-pass InstanceNorm statistics, the
 port two-pass). The kernels themselves are held against these plain versions
-on the card (tests/test_torch_kernels.py, chip_smoke.py).
+on the card (tests/test_torch_kernels.py, chip_smoke.py). test_pw_precision
+holds the precision argument of the forward's split-TF32 tensor-core
+product: plain TF32 operands would miss b-hat's bound.
 """
 
 import numpy as np
@@ -24,6 +26,7 @@ from gcc_tpu_torch.models import generators  # noqa: E402
 from gcc_tpu_torch.models.generators import MobileResnetGenerator  # noqa: E402
 from gcc_tpu_torch.ops import mobile_block as mb  # noqa: E402
 from gcc_tpu_torch.ops.layers import init_params  # noqa: E402
+from torch_tf32 import mma_partial  # noqa: E402
 
 
 def nchw(a):
@@ -89,6 +92,37 @@ def test_stage_forward_and_grads(case):
     # the inert biases get exact zero gradients, as on the TPU path
     for g in tgrads[-2:]:
         assert float(g.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("mode", ["split", "tf32"])
+@pytest.mark.parametrize("C,M", [(256, 256), (112, 72), (72, 112)],
+                         ids=["teacher", "student_112_72", "student_72_112"])
+def test_pw_precision(C, M, mode):
+    """The stage forward's pointwise product b = pw . a-hat (64x64 plane,
+    a-hat unit-normal, pw at scale 0.2 as chip_smoke.py draws it), then IN,
+    emulated as pw_gemm_kernel computes it: per k step of 8, the mma
+    products of the operands (split-TF32: lo*hi, hi*lo, hi*hi; or plain
+    TF32) into a zeroed accumulator that rounds toward zero after each mma,
+    added to b in fp32. Split-TF32 holds b-hat within half the port's bound
+    of 1e-4 against float64; plain TF32 misses it at the teacher's and the
+    student's widths."""
+    R = np.random.RandomState(0)
+    a = torch.from_numpy(R.randn(C, 4096).astype(np.float32))
+    a = (a - a.mean(-1, keepdim=True)) / a.std(-1, keepdim=True)
+    w = torch.from_numpy((R.randn(M, C) * 0.2).astype(np.float32))
+
+    def inorm(b):
+        b = b - b.mean(-1, keepdim=True)
+        return b / torch.sqrt(b.square().mean(-1, keepdim=True) + mb.EPS)
+
+    b = torch.zeros(M, 4096)
+    for k0 in range(0, C, 8):
+        b = b + mma_partial(w[:, k0:k0 + 8], a[k0:k0 + 8], mode)
+    err = float((inorm(b.double()) - inorm(w.double() @ a.double())).abs().max())
+    if mode == "tf32":
+        assert err > 1e-4, f"plain TF32 err {err} within 1e-4"
+    else:
+        assert err < 0.5e-4, f"split-TF32 err {err}"
 
 
 def test_fused_block_equals_unfused_generator():
