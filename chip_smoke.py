@@ -11,10 +11,13 @@ Phases, each of which exits non-zero on failure:
               stage shapes, then the differentiable stage against autograd
               through sep_stage_reference (relu's mask from the kernel's
               b-hat, the pixels where it differs from the plain forward's
-              counted and held to |b-hat| < 1e-4); CUDA-event times of the
-              kernel, the plain version and the cuDNN route of the stage at
-              teacher_relu and student_relu, and the device time of each
-              launch of one B2-fwd call (torch.profiler);
+              counted and held to |b-hat| < 1e-4); that two calls of each
+              give the same bits; CUDA-event times of the kernel, the plain
+              version and the cuDNN route of the stage at teacher_relu and
+              student_relu, cuDNN's convolution backward of the two
+              backward kernels' convolution parts (a partial yardstick),
+              and the device time of each launch of one call of each
+              (torch.profiler);
   4. main     the pix2pix GCC cooperative iteration (train_step + arch_step)
               at full width: resnet backbone with fused blocks, 256 px,
               teacher ngf 64 / ndf 128, the pruned student
@@ -115,31 +118,44 @@ def bound_ms(nbytes, *work):
 def stage_bounds(B, C, M, HW, relu, res):
     """Least time for each wrapper's work at one shape: its inputs read once,
     outputs written once (fp32); its flops at the peak of the units they run
-    on: the forward's pointwise product on the tensor cores in split-TF32,
-    everything else on the fp32 CUDA cores. The forward's bytes are those of
-    the TPU kernel's function, y = stage(x): what the port also writes for
-    its backward is not the function's work. Printed beside it:
-    "stage_fwd_saved", the bound with those writes (a-hat, b-hat, 1/std of
-    a and b) counted, and "stage_fwd_fp32", with every flop on the fp32
-    cores."""
+    on: the pointwise products (forward b, backward d a-hat and dW) on the
+    tensor cores in split-TF32, everything else on the fp32 CUDA cores. The
+    bytes are those of the TPU kernel's function (forward: x in, y out;
+    backward: x and the upstream gradient in, the gradients out): what the
+    port also saves in the forward and reads back in the backward is not the
+    function's work. Printed beside them: "*_saved", the bounds with those
+    tensors (a-hat, b-hat, 1/std of a and b) counted, and "*_fp32", with
+    every flop on the fp32 cores."""
     act_c, act_m = B * C * HW, B * M * HW
     # inputs x, dwk, pwk, residual; output y
     fwd_bytes = 4 * (act_c + 9 * C + M * C + (act_m if res else 0) + act_m)
     saved_bytes = 4 * (act_c + act_m + B * C + B * M)
     gemm = 2 * act_m * C
     rest = 18 * act_c + 5 * (act_c + act_m) + (act_m if relu or res else 0)
-    # inputs g, a-hat, b-hat, 1/std, pwk; outputs d a-hat, d pwk
-    pw = bound_ms(4 * (2 * act_m + B * M + M * C + 2 * act_c + M * C),
-                  (4 * act_m * C + 6 * act_m, FP32_FLOPS))
-    # inputs d a-hat, a-hat, 1/std, x, dwk; outputs dx, d dwk
-    dw = bound_ms(4 * (4 * act_c + B * C + 18 * C), (42 * act_c, FP32_FLOPS))
+    # backward, pointwise side: inputs x, dwk, pwk, g; outputs d a-hat, d pwk;
+    # the port reads g, a-hat, b-hat, 1/std of b and pwk
+    pw_bytes = 4 * (act_c + 9 * C + M * C + act_m + act_c + M * C)
+    pw_saved = 4 * (2 * act_m + B * M + M * C + 2 * act_c + M * C)
+    pw_prod, pw_rest = 4 * act_m * C, 6 * act_m
+    # backward, depthwise side: inputs x, dwk, d a-hat; outputs dx, d dwk;
+    # the port also reads a-hat and 1/std of a
+    dw_bytes = 4 * (3 * act_c + 18 * C)
+    dw_work = (42 * act_c, FP32_FLOPS)
     return {"stage_fwd": bound_ms(fwd_bytes, (gemm, TF32X3_FLOPS),
                                   (rest, FP32_FLOPS)),
             "stage_fwd_saved": bound_ms(fwd_bytes + saved_bytes,
                                         (gemm, TF32X3_FLOPS),
                                         (rest, FP32_FLOPS)),
             "stage_fwd_fp32": bound_ms(fwd_bytes, (gemm + rest, FP32_FLOPS)),
-            "stage_bwd_pw": pw, "stage_bwd_dw": dw}
+            "stage_bwd_pw": bound_ms(pw_bytes, (pw_prod, TF32X3_FLOPS),
+                                     (pw_rest, FP32_FLOPS)),
+            "stage_bwd_pw_saved": bound_ms(pw_saved, (pw_prod, TF32X3_FLOPS),
+                                           (pw_rest, FP32_FLOPS)),
+            "stage_bwd_pw_fp32": bound_ms(pw_bytes,
+                                          (pw_prod + pw_rest, FP32_FLOPS)),
+            "stage_bwd_dw": bound_ms(dw_bytes, dw_work),
+            "stage_bwd_dw_saved": bound_ms(dw_bytes + 4 * (act_c + B * C),
+                                           dw_work)}
 
 
 def short_name(kernel):
@@ -221,6 +237,14 @@ def phase_kernels(torch, F):
                 for n, a, b in zip(("dx", "dW_dw"), dw_k, dw_p)]
         record["stage_bwd_dw"]["max_abs_err"] = max(
             record["stage_bwd_dw"]["max_abs_err"], *errs)
+        # no float atomics: a second call of each backward gives the same bits
+        for name, first, again in (
+                ("stage_bwd_pw", pw_k,
+                 mb.stage_bwd_pw(g, ahat, bhat, rstd_b, pwk, relu)),
+                ("stage_bwd_dw", dw_k,
+                 mb.stage_bwd_dw(gah, ahat, rstd_a, x, dwk))):
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                fail(f"{case}: two {name} calls differ")
 
         # the differentiable stage against autograd through the reference.
         # relu's derivative jumps at b-hat = 0, and two forwards inside their
@@ -296,10 +320,38 @@ def phase_kernels(torch, F):
         print(f"    stage_fwd bound with every flop on the fp32 CUDA cores "
               f"{fp32_ms:.4f} ms ({fp32_by}); the stage_fwd line puts the "
               f"pointwise product on the tensor cores in split-TF32")
-        split = launch_split(torch, timings["stage_fwd"][0])
-        print("    one stage_fwd by launch (profiler): " + ", ".join(
-            f"{name} {ms:.4f} ms" for name, ms in
-            sorted(split.items(), key=lambda kv: -kv[1])))
+        for k, saved in (("stage_bwd_pw", "a-hat, b-hat and 1/std of b"),
+                         ("stage_bwd_dw", "a-hat and 1/std of a")):
+            saved_ms, saved_by = bounds[f"{k}_saved"]
+            print(f"    {k} bound with the saved {saved} read in place of x "
+                  f"{saved_ms:.4f} ms ({saved_by})")
+        fp32_ms, fp32_by = bounds["stage_bwd_pw_fp32"]
+        print(f"    stage_bwd_pw bound with every flop on the fp32 CUDA cores "
+              f"{fp32_ms:.4f} ms ({fp32_by}); the stage_bwd_pw line puts its "
+              f"two products on the tensor cores in split-TF32")
+        for k in ("stage_fwd", "stage_bwd_pw", "stage_bwd_dw"):
+            split = launch_split(torch, timings[k][0])
+            print(f"    one {k} by launch (profiler): " + ", ".join(
+                f"{name} {ms:.4f} ms" for name, ms in
+                sorted(split.items(), key=lambda kv: -kv[1])))
+
+        # cuDNN on the convolution part of each backward kernel alone, from
+        # the gradient at the conv's output (IN's backward left out): a
+        # partial yardstick, not library_ms
+        g_in = torch.where(bhat > 0, g, torch.zeros_like(g)) if relu else g
+        gb = mb._inorm_bwd(g_in, bhat, rstd_b).contiguous()
+        ga = mb._inorm_bwd(gah, ahat, rstd_a).contiguous()
+        xpad = F.pad(x, (1, 1, 1, 1), mode="reflect")
+        conv_bwd = torch.ops.aten.convolution_backward
+        cudnn_pw = cuda_ms(torch, lambda: conv_bwd(
+            gb, ahat, pwk, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1,
+            [True, True, False]))
+        cudnn_dw = cuda_ms(torch, lambda: conv_bwd(
+            ga, xpad, dwk, None, [1, 1], [0, 0], [1, 1], False, [0, 0], C,
+            [True, True, False]))
+        print(f"    cuDNN convolution backward alone (partial yardstick): "
+              f"1x1 conv from gb (d a-hat, dW) {cudnn_pw:.4f} ms; depthwise "
+              f"conv from ga (d x-padded, dW_dw) {cudnn_dw:.4f} ms")
 
         def cudnn_stage_fwd_bwd():
             xl = x.clone().requires_grad_(True)
@@ -415,8 +467,7 @@ def phase_main(torch, np):
 
 
 STAGE_KERNELS = ("dw_in_fwd_kernel", "pw_gemm_kernel", "in_fwd_kernel",
-                 "in_bwd_kernel", "dw_bwd_kernel", "sgemm_kernel",
-                 "sum_partials_kernel")
+                 "in_bwd_kernel", "dw_bwd_plane_kernel", "sum_partials_kernel")
 ATTN_KERNELS = ("attn_fwd_kernel", "attn_bwd_kernel", "attn_dq_reduce_kernel")
 CONV_MARKS = ("conv", "cudnn", "xmma", "cutlass", "implicit", "wgrad", "dgrad")
 

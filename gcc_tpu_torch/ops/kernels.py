@@ -27,12 +27,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes of every C entry point, by source name (pointers and the stream
-# as c_void_p, ints as c_int); every entry point returns cudaError_t as int
+# as c_void_p, ints as c_int); every entry point returns cudaError_t as int,
+# but gcc_stage_bwd_pw_partials, which returns a count and takes no stream
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "mobile_block": {
         "gcc_stage_fwd": [_P] * 9 + [_I] * 6 + [_P],
+        "gcc_stage_bwd_pw_partials": [_I] * 6,
         "gcc_stage_bwd_pw": [_P] * 9 + [_I] * 7 + [_P],
-        "gcc_stage_bwd_dw": [_P] * 9 + [_I] * 4 + [_P],
+        "gcc_stage_bwd_dw": [_P] * 8 + [_I] * 4 + [_P],
     },
     "flash_attention": {
         "gcc_attn_fwd": [_P] * 5 + [_I] * 4 + [_P],

@@ -28,6 +28,7 @@ them, as the TPU path does.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -36,7 +37,6 @@ import torch.nn.functional as F
 from gcc_tpu_torch.ops import kernels
 
 EPS = 1e-5  # torch InstanceNorm2d default
-K_CHUNK = 512  # pixels per split-k partial of the pointwise weight gradient
 
 LAUNCHES = {"stage_fwd": 0, "stage_bwd_pw": 0, "stage_bwd_dw": 0}
 
@@ -127,6 +127,15 @@ def _dims(x, pwk):
     return b, c, pwk.shape[0], h, w
 
 
+@functools.lru_cache(maxsize=None)
+def _pw_grad_partials(B: int, C: int, M: int, H: int, W: int,
+                      sms: int) -> int:
+    """Partials of the pointwise weight gradient's ordered split-k sum, as
+    the kernel library sizes the split for the shape and the SM count."""
+    return kernels.library("mobile_block").gcc_stage_bwd_pw_partials(
+        B, C, M, H, W, sms)
+
+
 def stage_fwd(x, dwk, pwk, residual=None, relu=False):
     """Forward of one stage: (y, a-hat, b-hat, 1/std of a, 1/std of b)."""
     if not x.is_cuda:
@@ -164,16 +173,17 @@ def stage_bwd_pw(g, ahat, bhat, rstd_b, pwk, relu):
     kernels.check(dev, "bhat", bhat, (B, M, H, W))
     kernels.check(dev, "rstd_b", rstd_b, (B, M))
     kernels.check(dev, "pwk", pwk, (M, C, 1, 1))
-    splits = -(-H * W // K_CHUNK)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     with torch.cuda.device(g.device):
         gb = torch.empty_like(g)
         gah = torch.empty_like(ahat)
-        gpw_part = torch.empty(B * splits, M, C, device=g.device)
+        gpw_part = torch.empty(_pw_grad_partials(B, C, M, H, W, sms), M, C,
+                               device=g.device)
         gpw = torch.empty_like(pwk)
         p = kernels.ptr
         kernels.launch("mobile_block", "gcc_stage_bwd_pw", p(g), p(ahat),
                        p(bhat), p(rstd_b), p(pwk), p(gb), p(gah), p(gpw_part),
-                       p(gpw), B, C, M, H, W, int(relu), K_CHUNK)
+                       p(gpw), B, C, M, H, W, int(relu), sms)
     LAUNCHES["stage_bwd_pw"] += 1
     return gah, gpw
 
@@ -191,13 +201,12 @@ def stage_bwd_dw(gah, ahat, rstd_a, x, dwk):
     kernels.check(dev, "x", x, (B, C, H, W))
     kernels.check(dev, "dwk", dwk, (C, 1, 3, 3))
     with torch.cuda.device(x.device):
-        ga = torch.empty_like(gah)
         gx = torch.empty_like(x)
         gdw_part = torch.empty(B, C, 9, device=x.device)
         gdw = torch.empty_like(dwk)
         p = kernels.ptr
         kernels.launch("mobile_block", "gcc_stage_bwd_dw", p(gah), p(ahat),
-                       p(rstd_a), p(x), p(dwk), p(ga), p(gx), p(gdw_part),
+                       p(rstd_a), p(x), p(dwk), p(gx), p(gdw_part),
                        p(gdw), B, C, H, W)
     LAUNCHES["stage_bwd_dw"] += 1
     return gx, gdw

@@ -9,16 +9,18 @@ imports no JAX, so it runs on a machine with the card alone:
 One test runs on the CPU: a library's name follows its source, the shared
 headers in csrc/ and the flags, so an edited header is rebuilt.
 
-Shapes are small and ragged (widths off every tile multiple, non-square and
-minimum planes, a plane larger than one split-k chunk and one larger than
-the 64x64 that the forward's norms hold in registers; N off the 64-row
+Shapes are small and ragged (widths off every tile multiple and past one
+128-wide GEMM tile, non-square and minimum planes, H*W off a multiple of 4
+(4-byte copies), pointwise weight gradients split into many chunks and into
+one, a plane larger than the 64x64 that the norms hold in registers and one
+whose tiles pass the depthwise backward's shared memory; N off the 64-row
 tile, feature widths past one 16-wide chunk and one 64-wide output chunk,
 widths whose backward tiles fit only one shared-memory stage), complementing
 the main-path shapes that chip_smoke.py checks, and logits up to ~80
 (q, k at scale 2). fp32 with TF32 off; B2
 forward within 1e-4, B1 forward within 1e-5 * max(|ref|, 1), gradients
 within 1e-4 * max(|ref|, 1) (reduction order; the split-TF32 products of
-the B2 forward and of B1 stay within a few fp32 roundings of fp32 ones,
+B2 and B1 stay within a few fp32 roundings of fp32 ones,
 tests/test_torch_attention.py, tests/test_torch_mobile_block.py).
 """
 
@@ -33,7 +35,9 @@ from gcc_tpu_torch.ops import mobile_block as mb  # noqa: E402
 # (B, C, M, H, W, relu, residual)
 CASES = [(2, 5, 7, 8, 12, True, False), (1, 3, 4, 5, 5, False, True),
          (3, 130, 70, 9, 33, True, True), (2, 24, 48, 40, 40, False, True),
-         (2, 72, 112, 20, 20, True, False), (1, 3, 5, 70, 66, True, True)]
+         (2, 72, 112, 20, 20, True, False), (1, 3, 5, 70, 66, True, True),
+         (2, 136, 200, 24, 24, True, False), (48, 136, 200, 8, 8, False, True),
+         (1, 3, 5, 80, 80, True, False)]
 
 
 @pytest.fixture
@@ -73,8 +77,8 @@ def test_kernels_match_plain(cuda, case):
     for a, b in zip(pw_k, pw_p):
         _close(a, b, scale=True)
     gah = pw_p[0].contiguous()
-    for a, b in zip(mb.stage_bwd_dw(gah, ahat, rstd_a, x, dwk),
-                    mb.stage_bwd_dw_plain(gah, ahat, rstd_a, x, dwk)):
+    dw_k = mb.stage_bwd_dw(gah, ahat, rstd_a, x, dwk)
+    for a, b in zip(dw_k, mb.stage_bwd_dw_plain(gah, ahat, rstd_a, x, dwk)):
         _close(a, b, scale=True)
     assert {k: mb.LAUNCHES[k] - before[k] for k in before} == \
         {"stage_fwd": 1, "stage_bwd_pw": 1, "stage_bwd_dw": 1}
@@ -82,7 +86,23 @@ def test_kernels_match_plain(cuda, case):
     assert all(torch.equal(a, b) for a, b in zip(
         pw_k, mb.stage_bwd_pw(g, ahat, bhat, rstd_b, pwk, relu)))
     assert all(torch.equal(a, b) for a, b in zip(
+        dw_k, mb.stage_bwd_dw(gah, ahat, rstd_a, x, dwk)))
+    assert all(torch.equal(a, b) for a, b in zip(
         out_k, mb.stage_fwd(x, dwk, pwk, res, relu)))
+
+
+@pytest.mark.cuda
+def test_pw_grad_chunk(cuda):
+    """The dW split: output tiles x (sample, chunk) partials make about two
+    blocks an SM at the main path's shapes, several chunks at a small batch
+    and one where the batch and tiles fill the card already."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    partials = kernels.library("mobile_block").gcc_stage_bwd_pw_partials
+    for B, C, M in [(4, 256, 256), (4, 112, 72), (4, 72, 112)]:
+        blocks = -(-M // 128) * -(-C // 128) * partials(B, C, M, 64, 64, sms)
+        assert 0.9 * 2 * sms <= blocks <= 2 * sms
+    assert partials(2, 136, 200, 24, 24, sms) > 2
+    assert partials(48, 136, 200, 8, 8, sms) == 48
 
 
 @pytest.mark.cuda

@@ -125,6 +125,66 @@ def test_pw_precision(C, M, mode):
         assert err < 0.5e-4, f"split-TF32 err {err}"
 
 
+def _held(err, ref, mode):
+    """Split-TF32 holds half the gradients' bound 1e-4 max(|ref|, 1);
+    plain TF32 misses the whole bound."""
+    tol = 1e-4 * max(float(ref.abs().max()), 1.0)
+    if mode == "tf32":
+        assert err > tol, f"plain TF32 err {err} within {tol}"
+    else:
+        assert err < 0.5 * tol, f"split-TF32 err {err} against {tol}"
+
+
+@pytest.mark.parametrize("mode", ["split", "tf32"])
+@pytest.mark.parametrize("C,M", [(256, 256), (112, 72), (72, 112)],
+                         ids=["teacher", "student_112_72", "student_72_112"])
+def test_pw_grad_input_precision(C, M, mode):
+    """The backward's d a-hat = pw^T . gb (K = M; a 64x64 plane, pw at scale
+    0.2, gb unit-normal), emulated as pw_gemm_kernel<1,0> computes it: per
+    k step of 8, the mma products into a zeroed, truncating fragment, added
+    in fp32."""
+    R = np.random.RandomState(1)
+    wt = torch.from_numpy((R.randn(M, C) * 0.2).astype(np.float32)).t()
+    gb = torch.from_numpy(R.randn(M, 4096).astype(np.float32))
+    got = torch.zeros(C, 4096)
+    for k0 in range(0, M, 8):
+        got = got + mma_partial(wt[:, k0:k0 + 8], gb[k0:k0 + 8], mode)
+    ref = wt.double() @ gb.double()
+    _held(float((got.double() - ref).abs().max()), ref, mode)
+
+
+@pytest.mark.parametrize("mode", ["split", "tf32"])
+def test_pw_grad_weight_precision(mode):
+    """The backward's dW = sum_b gb[b] . a-hat[b]^T over 4 samples of 64x64
+    (K = 4 * 4096) at M = C = 64 (the error grows with K, not the width), gb
+    at scale 0.05 and a-hat unit-normal, emulated as pw_gemm_kernel<0,1> and
+    sum_partials_kernel compute it: one partial per (sample, chunk of 64
+    pixels, the kernel library's split of this shape on 132 SMs), each the
+    fp32 sum of per-k-step truncating fragments; the partials summed in 8
+    contiguous ranges, then in order."""
+    R = np.random.RandomState(2)
+    B, MC, n = 4, 64, 4096
+    gb = torch.from_numpy((R.randn(B, MC, n) * 0.05).astype(np.float32))
+    ahat = torch.from_numpy(R.randn(B, MC, n).astype(np.float32))
+    chunk = 64
+    parts = []
+    for b in range(B):
+        for c0 in range(0, n, chunk):
+            acc = torch.zeros(MC, MC)
+            for k0 in range(c0, min(n, c0 + chunk), 8):
+                acc = acc + mma_partial(gb[b, :, k0:k0 + 8],
+                                        ahat[b, :, k0:k0 + 8].t(), mode)
+            parts.append(acc)
+    Z, got = len(parts), torch.zeros(MC, MC)
+    for w in range(8):
+        s = torch.zeros(MC, MC)
+        for z in range(w * Z // 8, (w + 1) * Z // 8):
+            s = s + parts[z]
+        got = got + s
+    ref = torch.einsum("bmk,bck->mc", gb.double(), ahat.double())
+    _held(float((got.double() - ref).abs().max()), ref, mode)
+
+
 def test_fused_block_equals_unfused_generator():
     """Same parameters, same forward, same kernel grads through the whole
     port MobileResnetGenerator with and without the fused stages."""
