@@ -31,12 +31,18 @@ Phases, each of which exits non-zero on failure:
               dv in one pass) against its plain PyTorch version at the SAGAN
               main path's teacher (B 64, N 1024, dq 8, dv 64) and student
               (dq 2, dv 16) shapes, a ragged case (B 2, N 1000, dq 25,
-              dv 200), a many-tile case (B 2, N 4096, dq 8, dv 64) and a
-              wide-logit case (q, k at scale 2, max |S| ~ 80); the backward
-              also on the kernel forward's own lse and O; that two forward
-              and two backward calls give the same bits; CUDA-event times
-              of the kernel, the plain version and
-              F.scaled_dot_product_attention(scale=1), forward and backward;
+              dv 200), a many-tile case (B 2, N 4096, dq 8, dv 64), a
+              wide-logit case (q, k at scale 2, max |S| ~ 80), SAGAN D's
+              attn2 at threshold 16 (B 64, N 16, dq 64, dv 512), a wide q
+              (B 4, N 1024, dq 320, dv 320) and a long N (B 1, N 16384,
+              dq 8, dv 64); the backward also on the kernel forward's own
+              lse and O; that two forward and two backward calls give the
+              same bits; the backward's dq scratch in bytes; CUDA-event
+              times of the kernel and the plain version (and, at the main
+              path's shapes, F.scaled_dot_product_attention(scale=1)),
+              forward and backward; then N 65536 (B 1, dq 8, dv 64) on the
+              kernels alone: finite outputs, and the peak device memory
+              above the inputs and outputs;
   7. sagan    the SAGAN GCC cooperative iteration (train_step + arch_step) at
               full width (scripts/sagan/train.sh): 64 px, batch 64, z_dim
               128, teacher ngf/ndf 64, the pruned student [69, 34, 17, 16]
@@ -45,8 +51,20 @@ Phases, each of which exits non-zero on failure:
               generators' attn2 at N = 1024: three teacher and three student
               forwards, two backwards);
   8. agree    the kernel route of attention against the einsum route
-              (pallas_attn_threshold 1024 vs 2^30) from the same weights on
-              the same batches at a small width, gamma non-zero.
+              (pallas_attn_threshold 1024, and 16, which sends D's attn1 and
+              attn2 and G's attn1 through the kernels too, vs 2^30) from the
+              same weights on the same batches at a small width, gamma
+              non-zero;
+  9. unet     the default pix2pix path, the U-Net GCC cooperative iteration
+              at full width (the shapes of bench.py:170-186): 256 px, 8
+              downs, teacher ngf 64 / ndf 128, the student UnetGenerator(32)
+              pruned to 3.0 GMACs by the port's prune_unet from the bench's
+              spread weights, ndf 128, online distillation, DARTS, hinge,
+              dropout on; 1 warm-up and 3 timed iterations, no B1 or B2
+              launch, and one profiled iteration;
+ 10. agree    the U-Net engine on the card against the same engine on the
+              CPU, same weights and batches, no dropout, tiny widths,
+              3 iterations.
 The run is fp32 throughout: TF32 is off for cuDNN and matmul. The last two
 lines are the kernels' JSON record and {"ok": true, "device": ...}.
 """
@@ -80,10 +98,17 @@ ATTN_CASES = [("teacher", 64, 1024, 8, 64, 0.5),
               ("student", 64, 1024, 2, 16, 0.5),
               ("ragged", 2, 1000, 25, 200, 0.5),
               ("many_tile", 2, 4096, 8, 64, 0.5),
-              ("wide_logit", 16, 1024, 8, 64, 2.0)]
+              ("wide_logit", 16, 1024, 8, 64, 2.0),
+              ("d_attn2_wide", 64, 16, 64, 512, 0.5),
+              ("wide_q", 4, 1024, 320, 320, 0.5),
+              ("long_n", 1, 16384, 8, 64, 0.5)]
+# timed beside the main path's shapes: the widths and the length that the
+# backward's wide kernel and its grouped dq partials serve
+TIMED_WIDE = ("d_attn2_wide", "wide_q", "long_n")
 ATTN_PER_ITER = {"attn_fwd": 6, "attn_bwd": 2}
 # the student of scripts/sagan/train.sh (ngf 48) pruned to 0.016 GMACs
 SAGAN_STUDENT_CFG = [69, 34, 17, 16]
+UNET_BATCH = 128  # bench.py's
 
 
 def fail(msg):
@@ -615,6 +640,19 @@ def phase_attention(torch, F):
         if not all(torch.equal(a, b)
                    for a, b in zip((o, lse), fa.attn_fwd(q, k, v))):
             fail(f"{case}: two attn_fwd calls differ")
+        print(f"    attn_bwd dq scratch {B * fa.dq_groups(N) * dq * N * 4} B "
+              f"({fa.dq_groups(N)} key-tile groups)")
+        if case in TIMED_WIDE:
+            bounds = attn_bounds(B, N, dq, dv)
+            for key, kern, plain in (
+                    ("attn_fwd", lambda: fa.attn_fwd(q, k, v),
+                     lambda: fa.attn_fwd_plain(q, k, v)),
+                    ("attn_bwd", lambda: fa.attn_bwd(*args),
+                     lambda: fa.attn_bwd_plain(*args))):
+                b_ms, b_by = bounds[key]
+                print(f"    {key:<13} kernel {cuda_ms(torch, kern, n=5):.4f} ms"
+                      f"  plain {cuda_ms(torch, plain, n=5):.4f} ms  bound "
+                      f"{b_ms:.4f} ms ({b_by})")
         if case not in ("teacher", "student"):
             continue
         # times at the main path's shapes; the teacher's go to the record
@@ -652,7 +690,37 @@ def phase_attention(torch, F):
             print(f"    {key} bound on the fp32 CUDA cores {fp32_ms:.4f} ms "
                   f"({fp32_by}); the line above counts its products on the "
                   f"tensor cores in split-TF32")
+    attn_long_kernel_only(torch, fa, gen)
     return record
+
+
+def attn_long_kernel_only(torch, fa, gen, B=1, N=65536, dq=8, dv=64):
+    """B1 at a length whose plain version would need an N x N matrix of
+    16 GiB: the kernels alone, forward and backward; finite outputs, and
+    the peak device memory above the inputs and outputs (the backward's
+    dq scratch, delta and the allocator's rounding)."""
+    print(f"  long_n_kernel_only: B={B} N={N} dq={dq} dv={dv}, kernels alone")
+    q, k = ((torch.randn(B, dq, N, generator=gen) * 0.5).cuda()
+            for _ in range(2))
+    v, do = (torch.randn(B, dv, N, generator=gen).cuda() for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    o, lse = fa.attn_fwd(q, k, v)
+    grads = fa.attn_bwd(q, k, v, do, lse, (do * o).sum(1))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    outs = 4 * (B * dv * N + B * N + 2 * B * dq * N + B * dv * N)
+    above = torch.cuda.max_memory_allocated() - base - outs
+    if not all(bool(torch.isfinite(t).all()) for t in (o, lse, *grads)):
+        fail("long_n_kernel_only: non-finite output")
+    print(f"    finite; forward + backward {dt * 1e3:.1f} ms (host clock); "
+          f"peak device memory above inputs and outputs {above} B "
+          f"({above / 2**20:.1f} MiB; dq scratch "
+          f"{B * fa.dq_groups(N) * dq * N * 4} B)")
+    if not above < 2**27:
+        fail(f"long_n_kernel_only: {above} B above inputs and outputs")
 
 
 def sagan_config(Config, **kw):
@@ -697,11 +765,13 @@ def phase_sagan_agree(torch, np):
     from gcc_tpu_torch.ops.attention import SelfAttention
 
     print("== phase 8: attention kernels against the einsum route, same "
-          "weights and batches, SAGAN 64px, 2 iterations, gamma non-zero")
+          "weights and batches, SAGAN 64px, 2 iterations, gamma non-zero, "
+          "thresholds 1024 and 16")
     metrics, outs, launched = {}, {}, {}
     torch.backends.cudnn.deterministic = True  # only attention may differ
     try:
-        for route, thr in (("kernels", 1024), ("einsum", 2 ** 30)):
+        for route, thr in (("kernels", 1024), ("kernels16", 16),
+                           ("einsum", 2 ** 30)):
             cfg = sagan_config(Config, ngf=16, ndf=16, teacher_ngf=16,
                                teacher_ndf=16, z_dim=16,
                                pallas_attn_threshold=thr)
@@ -725,16 +795,100 @@ def phase_sagan_agree(torch, np):
             launched[route] = fa.LAUNCHES["attn_fwd"] - before
     finally:
         torch.backends.cudnn.deterministic = False
-    if launched["kernels"] == 0 or launched["einsum"] != 0:
+    if not 0 < launched["kernels"] < launched["kernels16"] \
+            or launched["einsum"] != 0:
         fail(f"attn_fwd launches by route: {launched}")
-    for i, (a, b) in enumerate(zip(metrics["kernels"], metrics["einsum"])):
-        for k in a:
+    for route in ("kernels", "kernels16"):
+        for i, (a, b) in enumerate(zip(metrics[route], metrics["einsum"])):
+            for k in a:
+                tol = 1e-4 + 2e-3 * abs(b[k])
+                if not abs(a[k] - b[k]) < tol:
+                    fail(f"iter {i} {k}: {route} {a[k]} vs einsum {b[k]}")
+        err = max_err(outs[route], outs["einsum"])
+        print(f"  {route}: losses agree with the einsum route within 1e-4 + "
+              f"2e-3|t|; generate max|d| {err:.3e}")
+        if not err < 1e-3:
+            fail(f"{route}: generate differs by {err}")
+    print(f"  attn_fwd launches by route {launched}")
+
+
+def spread_tree(np, tree, rng):
+    """bench.py:176-182's spread over a JAX-layout params tree, leaves in
+    the JAX tree order (sorted keys): rand * exp(U(-6, 2)) per last-axis
+    channel, emulating sparsity pretraining."""
+    if isinstance(tree, dict):
+        return {k: spread_tree(np, tree[k], rng) for k in sorted(tree)}
+    return (rng.rand(*tree.shape).astype(np.float32)
+            * np.exp(rng.uniform(-6, 2, tree.shape[-1])).astype(np.float32))
+
+
+def unet_config(Config, **kw):
+    return main_config(Config, **{"backbone": "unet",
+                                  "fused_resblock": "auto", **kw})
+
+
+def phase_unet(torch, np):
+    from gcc_tpu_torch.compress import prune_unet
+    from gcc_tpu_torch.config import Config
+    from gcc_tpu_torch.engines.pix2pix import Pix2PixEngine
+    from gcc_tpu_torch.models.generators import UnetGenerator
+    from gcc_tpu_torch.ops import flash_attention as fa
+    from gcc_tpu_torch.ops import mobile_block as mb
+    from gcc_tpu_torch.utils.weights import export_jax_variables
+
+    batch, size, n_timed = UNET_BATCH, 256, 3
+    print(f"== phase 9: default pix2pix path, U-Net GCC iteration, {size}px, "
+          f"batch {batch}, 1 warm-up + {n_timed} timed; cudnn.benchmark "
+          f"{torch.backends.cudnn.benchmark}")
+    # the bench's student: UnetGenerator(32) at spread weights, pruned to
+    # 3.0 GMACs (bench.py:170-186)
+    t0 = time.perf_counter()
+    tree = export_jax_variables(UnetGenerator(ngf=32))["params"]
+    fc, cc, gmacs = prune_unet(spread_tree(np, tree, np.random.RandomState(0)),
+                               mode="scale", ngf=32, target_budget_g=3.0,
+                               tolerance_g=0.1)
+    print(f"  pruned student filter_cfgs {fc}, channel_cfgs {cc}: "
+          f"{gmacs:.4f} GMACs ({time.perf_counter() - t0:.2f} s)")
+    cfg = unet_config(Config, ngf=32, ndf=128, teacher_ngf=64,
+                      teacher_ndf=128, crop_size=size, batch_size=batch)
+    engine = Pix2PixEngine(cfg, filter_cfgs=fc, channel_cfgs=cc)  # the card
+    batches = make_batches(torch, np, 2 * (n_timed + 1), batch, size, 0,
+                           engine.device)
+    for k in fa.LAUNCHES:
+        fa.LAUNCHES[k] = 0
+    drive(torch, engine, cfg, batches, batches[0]["A"], mb.LAUNCHES,
+          {k: 0 for k in mb.LAUNCHES}, {}, "unet path")
+    if any(fa.LAUNCHES.values()):
+        fail(f"unet path launched B1: {fa.LAUNCHES}")
+
+
+def phase_unet_agree(torch, np):
+    from gcc_tpu_torch.config import Config
+    from gcc_tpu_torch.engines.pix2pix import Pix2PixEngine
+
+    print("== phase 10: U-Net engine on the card against the same engine on "
+          "the CPU, same weights and batches, no dropout, 32px, 3 iterations")
+    cfg = unet_config(Config, ngf=4, ndf=8, teacher_ngf=8, teacher_ndf=8,
+                      crop_size=32, num_downs=5, no_dropout=True)
+    hist, outs = {}, {}
+    for dev in ("cuda", "cpu"):
+        engine = Pix2PixEngine(cfg, device=dev)
+        state = engine.init_state(seed=1)  # the same numbers on every device
+        batches = make_batches(torch, np, 6, 2, 32, 1, engine.device)
+        hist[dev] = []
+        for i in range(3):
+            state, m = engine.train_arch_step(state, batches[2 * i],
+                                              batches[2 * i + 1], cfg.lr, 0.9)
+            hist[dev].append({k: float(v) for k, v in m.items()})
+        outs[dev] = engine.generate(state, batches[0]["A"]).cpu()
+    for i, (a, b) in enumerate(zip(hist["cuda"], hist["cpu"])):
+        for k in b:
             tol = 1e-4 + 2e-3 * abs(b[k])
             if not abs(a[k] - b[k]) < tol:
-                fail(f"iter {i} {k}: kernels {a[k]} vs einsum {b[k]}")
-    err = max_err(outs["kernels"], outs["einsum"])
-    print(f"  losses agree within 1e-4 + 2e-3|t|; generate max|d| {err:.3e}; "
-          f"attn_fwd launches {launched}")
+                fail(f"iter {i} {k}: card {a[k]} vs CPU {b[k]}")
+    err = max_err(outs["cuda"], outs["cpu"])
+    print(f"  losses agree within 1e-4 + 2e-3|t| over 3 iterations; generate "
+          f"max|d| {err:.3e}")
     if not err < 1e-3:
         fail(f"generate differs by {err}")
 
@@ -770,6 +924,8 @@ def main():
     record.update(phase_attention(torch, F))
     launches.update(phase_sagan(torch, np))
     phase_sagan_agree(torch, np)
+    phase_unet(torch, np)
+    phase_unet_agree(torch, np)
 
     entries = []
     for k, rec in record.items():

@@ -58,30 +58,42 @@
 //  * Widths: dv is covered in chunks of 8 VT channels (VT = 1, 2, 4, 8 by
 //    dv; V rows past dv zero in shared memory) on a grid axis, and each
 //    chunk recomputes S; only chunk 0 writes lse. Any N: a ragged key tile
-//    is masked by index, rows past N are not written. Widths whose two
-//    stages do not fit in shared memory run with one; past that (dq above
-//    about 260) the entry point returns cudaErrorInvalidValue. The TPU's
-//    128-lane padding of dq/dv, its -1e30 sentinel feature column
-//    (attention.py:155-176) and its lane-replicated (B, N, 128) lse/delta
-//    tiles are not carried over: they are plain (B, N).
+//    is masked by index, rows past N are not written. Any dq: where the
+//    resident q tile and two k/v stages fit two blocks an SM (fwd_smem, dq
+//    up to 72 at dv > 32: the main path's dq 8 / dv 64 and dq 2 / dv 16,
+//    and SAGAN D's attn2 at dq 64 / dv 512), the block keeps its q; wider
+//    (dq 320 of chip_smoke.py's wide_q) it runs attn_fwd_kernel<8, true>,
+//    which streams q and k through shared memory in 64-channel chunks for
+//    each key tile (88 KB whatever dq is). The TPU's 128-lane padding of
+//    dq/dv, its -1e30 sentinel feature column (attention.py:155-176) and
+//    its lane-replicated (B, N, 128) lse/delta tiles are not carried over:
+//    they are plain (B, N).
 //  * O is stored from the accumulators: each store of a warp writes four
 //    channels x 8 consecutive queries, whole 32-byte sectors.
 //  * Registers (nvcc -Xptxas -v, sm_90a, CUDA 12.8): two blocks of 256
-//    threads allow 128; <VT 8> (dv 64) uses them and spills 48 B of stores,
-//    <4> and <2> use 128 and 122 without spilling, <1> 109. Dynamic shared
-//    memory (fwd_smem): 45,568 B at dq 8 / dv 64, 11,392 B at dq 2 / dv 16.
+//    threads allow 128; <VT 8> (dv 64) uses them and spills 44 B of stores,
+//    <4>, <2> and <1> use 123, 109 and 111 without spilling; the wide
+//    <8, true> spills 436 B. Dynamic shared memory (fwd_smem): 45,568 B at
+//    dq 8 / dv 64, 11,392 B at dq 2 / dv 16, 88,064 B wide.
 //
 // Backward, one pass. Per pair it needs S = q.k, p = exp(S - lse), dP =
 // dO.v, ds, and three products into dq, dk, dv: 2(3 dq + 2 dv) flops, one
 // exp. Split as the TPU's two kernels are, S and dP are computed twice.
-//  * Block (key tile j of 64 keys, output chunk, sample): k_j and v_j are
-//    loaded once; the block walks the query tiles i, fetching tile i + 1
+//  * Block (key-tile group, output chunk, sample); for each key tile j of
+//    64 keys of its group, k_j and v_j are loaded once and the block walks
+//    the query tiles i, fetching tile i + 1
 //    (q, dO, lse, delta) with cp.async into the second of two shared-memory
-//    stages while tile i computes, and keeps dK_j and dV_j in registers.
-//    Each product is computed once per pair. dq, a sum over key tiles, is
-//    written as per-key-tile partials (B, ceil(N/64), dq, N) and summed in
-//    key-tile order by attn_dq_reduce_kernel: no float atomics, so two calls
-//    on the same inputs give the same bits.
+//    stages while tile i computes, keeping dK_j and dV_j in registers.
+//    Each product is computed once per pair. dq, a sum over key tiles, goes
+//    through partials of a bounded number of key-tile groups: G =
+//    ceil(nkt / per) groups of per = ceil(nkt / min(nkt, 16)) consecutive
+//    key tiles (dq_groups; G = nkt = 16 at N = 1024). Block x walks the
+//    key tiles of group x in order and adds each tile's dQ into its
+//    group's partial (B, G, dq, N) itself; attn_dq_reduce_kernel sums the
+//    G partials in group order. No float atomics, so two calls on the same
+//    inputs give the same bits, and the scratch is at most 16 dq N floats
+//    a sample (33.5 MB at N = 65 536, dq 8) where per-key-tile partials
+//    took nkt dq N (2.1 GB).
 //  * Every product runs on the tensor cores in split-TF32, 8 warps. Warp w
 //    owns keys 16 (w % 4).. and queries 32 (w / 4).. of a tile: 4 m16n8
 //    accumulator fragments each for S^T and dP^T. P^T and dS^T stay in those
@@ -104,17 +116,25 @@
 //    memory (dq 2 runs as 8). dK chunks of 8 QT channels (QT = 1, 4, 8 by
 //    dq) and dV chunks of 8 VT (VT = 2, 8 by dv) live in registers; wider
 //    outputs take more chunks as a grid axis, whose blocks past the first
-//    recompute P (and dS where they hold a dK chunk). Widths whose two
-//    stages do not fit in shared memory run with one stage; wider still
-//    (dq + dv past about 370) the entry point returns cudaErrorInvalidValue.
+//    recompute P (and dS where they hold a dK chunk). Where the resident
+//    k/v tile and two q/dO stages fit two blocks an SM (bwd_smem: dq + dv
+//    up to 112 after padding, the main path's dq 8 / dv 64 and dq 2 /
+//    dv 16) the block runs as above; wider (SAGAN D's attn2 at dq 64 /
+//    dv 512, chip_smoke.py's ragged dq 25 / dv 200 and wide_q dq 320 /
+//    dv 320) attn_bwd_wide_kernel holds nothing resident: per (key tile,
+//    query tile) it streams k/q, then v/dO, in 64-channel chunks through
+//    two [64][LDT] buffers, and the rows of its dK, dV and dQ chunks as
+//    it needs them (56 KB whatever the widths; 64-channel dK and dV chunks,
+//    one stage, no prefetch). No width is refused: dq and dv are ints, and
+//    the grid's y axis takes up to 65 535 chunks of 64 channels.
 //  * Registers and shared memory (nvcc -Xptxas -v, sm_90a, CUDA 12.8): the
 //    instantiations use the 128 registers that two blocks of 256 threads
-//    allow (125 for <QT 4, VT 2>). <1, 8> (the teacher's dq 8 / dv 64)
-//    spills 76 B of stores to a 40-byte stack frame, <1, 2> (the student's
-//    dq 2 / dv 16) 172 B to 176, <8, 8> 392 B to 152; the others do not
+//    allow. <1, 8> (the teacher's dq 8 / dv 64) spills 32 B of stores to a
+//    24-byte stack frame, <1, 2> (the student's dq 2 / dv 16) 60 B to 48,
+//    <8, 8> 200 B to 144, the wide kernel 568 B to 272; the others do not
 //    spill. Dynamic shared memory (bwd_smem): 81,664 B at dq 8 / dv 64 and
-//    40,192 B at dq 2 / dv 16, two stages each. The dq reduction uses 32
-//    registers.
+//    40,192 B at dq 2 / dv 16, two stages each; 55,808 B wide. The dq
+//    reduction uses 32 registers.
 //
 // Every entry point returns cudaGetLastError() as an int; the Python wrapper
 // raises when it is not 0. Nothing here allocates or synchronises.
@@ -183,36 +203,62 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// S (16 queries x 64 keys a warp; fragment nt holds keys 8 nt + 2t, + 1)
+// += q^T k over the n channels of a [n][BQ] q tile and a [n][LDT] k tile.
+__device__ __forceinline__ void s_rows(float (&S)[8][4], const float* Qs,
+                                       const float* Ks, int n, int qw, int g,
+                                       int t) {
+  for (int c = 0; c < n; ++c) {
+    const float qa = Qs[c * BQ + qw + g], qb = Qs[c * BQ + qw + g + 8];
+    const float* kr = Ks + c * LDT + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float2 x = ld2(kr + 8 * nt);
+      S[nt][0] = fmaf(qa, x.x, S[nt][0]);
+      S[nt][1] = fmaf(qa, x.y, S[nt][1]);
+      S[nt][2] = fmaf(qb, x.x, S[nt][2]);
+      S[nt][3] = fmaf(qb, x.y, S[nt][3]);
+    }
+  }
+}
+
+constexpr int DC = 64;  // channels of a streamed chunk on the wide paths
+
 // Block (query tile of BQ, dv chunk y of 8 VT channels, sample b). Warp w
 // owns queries qw = 16 w .. qw + 15 of the tile; per key tile j:
 //   S = q^T k_j (fp32), m, l and O rescaled by the online softmax,
 //   O += P V_j^T  (split-TF32, P from S's accumulator fragments).
 // Lane (g, t) holds rows qw + g and qw + g + 8: m[0], l[0] and O[nt][0..1]
 // for the first, m[1], l[1] and O[nt][2..3] for the second.
-template <int VT>
+// WIDE: the q tile is not resident; each key tile's S streams q and k in
+// DC-channel chunks through Qs and Kc, and the two stages hold v alone.
+template <int VT, bool WIDE>
 __global__ void __launch_bounds__(kThreads, 2) attn_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o,
-    float* __restrict__ lse, int N, int dq, int dv, int nbuf, int vec) {
+    float* __restrict__ lse, int N, int dq, int dv, int vec) {
   constexpr int CW = 8 * VT;  // channels of a chunk
   extern __shared__ __align__(16) float sm[];
-  const int stage = (dq + CW) * LDT;  // k tile [dq][LDT], v tile [CW][LDT]
-  float* Qs = sm;                     // [dq][BQ] the block's queries, resident
-  float* st0 = Qs + dq * BQ;          // nbuf stages
+  const int kd = WIDE ? 0 : dq;       // k rows of a stage
+  const int stage = (kd + CW) * LDT;  // k tile [kd][LDT], v tile [CW][LDT]
+  float* Qs = sm;  // [dq][BQ] the block's queries, resident; WIDE: [DC][BQ]
+  float* Kc = Qs + (WIDE ? DC : dq) * BQ;  // WIDE: a k chunk [DC][LDT]
+  float* st0 = Kc + (WIDE ? DC * LDT : 0);  // two stages
 
   const int b = blockIdx.z, c0 = blockIdx.y * CW, r0 = blockIdx.x * BQ;
   const int cw = min(CW, dv - c0);  // channels of the chunk that exist
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2,
             t = lane & 3, qw = 16 * warp;
+  const float* qb = q + (size_t)b * dq * N;
   const float* kb = k + (size_t)b * dq * N;
   const float* vb = v + ((size_t)b * dv + c0) * N;
 
-  for (int s = 0; s < nbuf; ++s) zero_rows(st0 + s * stage + dq * LDT, cw, CW);
-  cp_tile<BQ, BQ>(Qs, q + (size_t)b * dq * N, dq, N, r0, vec);
+  for (int s = 0; s < 2; ++s) zero_rows(st0 + s * stage + kd * LDT, cw, CW);
+  if (!WIDE) cp_tile<BQ, BQ>(Qs, qb, dq, N, r0, vec);
   auto fetch = [&](int j, int s) {
     float* Ks = st0 + s * stage;
-    cp_tile(Ks, kb, dq, N, j * BT, vec);
-    cp_tile(Ks + dq * LDT, vb, cw, N, j * BT, vec);
+    if (!WIDE) cp_tile(Ks, kb, dq, N, j * BT, vec);
+    cp_tile(Ks + kd * LDT, vb, cw, N, j * BT, vec);
   };
   fetch(0, 0);
   cp_commit();
@@ -220,8 +266,8 @@ __global__ void __launch_bounds__(kThreads, 2) attn_fwd_kernel(
   float O[VT][4] = {}, m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   const int nkt = (N + BT - 1) / BT;
   for (int j = 0; j < nkt; ++j) {
-    const int s = nbuf == 2 ? (j & 1) : 0, n0 = j * BT;
-    if (nbuf == 2 && j + 1 < nkt) {  // fetch tile j + 1 while j computes
+    const int s = j & 1, n0 = j * BT;
+    if (j + 1 < nkt) {  // fetch tile j + 1 while j computes
       fetch(j + 1, s ^ 1);
       cp_commit();
       cp_wait<1>();
@@ -230,21 +276,22 @@ __global__ void __launch_bounds__(kThreads, 2) attn_fwd_kernel(
     }
     __syncthreads();
     const float* Ks = st0 + s * stage;
-    const float* Vs = Ks + dq * LDT;
+    const float* Vs = Ks + kd * LDT;
 
-    // S (16 queries x 64 keys a warp): fragment nt holds keys 8 nt + 2t, + 1
     float S[8][4] = {};
-    for (int c = 0; c < dq; ++c) {
-      const float qa = Qs[c * BQ + qw + g], qb = Qs[c * BQ + qw + g + 8];
-      const float* kr = Ks + c * LDT + 2 * t;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const float2 x = ld2(kr + 8 * nt);
-        S[nt][0] = fmaf(qa, x.x, S[nt][0]);
-        S[nt][1] = fmaf(qa, x.y, S[nt][1]);
-        S[nt][2] = fmaf(qb, x.x, S[nt][2]);
-        S[nt][3] = fmaf(qb, x.y, S[nt][3]);
+    if (WIDE) {
+      for (int cq = 0; cq < dq; cq += DC) {
+        const int n = min(DC, dq - cq);
+        __syncthreads();  // readers of the previous chunk are done
+        cp_tile<BQ, BQ>(Qs, qb + (size_t)cq * N, n, N, r0, vec);
+        cp_tile(Kc, kb + (size_t)cq * N, n, N, n0, vec);
+        cp_commit();
+        cp_wait<0>();
+        __syncthreads();
+        s_rows(S, Qs, Kc, n, qw, g, t);
       }
+    } else {
+      s_rows(S, Qs, Ks, dq, qw, g, t);
     }
     if (n0 + BT > N) {  // ragged key tile
 #pragma unroll
@@ -305,10 +352,6 @@ __global__ void __launch_bounds__(kThreads, 2) attn_fwd_kernel(
       O[nt][3] = fmaf(O[nt][3], a1, T[nt][3]);
     }
     __syncthreads();  // readers of stage s are done
-    if (nbuf == 1 && j + 1 < nkt) {
-      fetch(j + 1, 0);
-      cp_commit();
-    }
   }
 
   // rows qw + g (r < 2) and qw + g + 8, channels 8 nt + 2t + (r & 1)
@@ -329,26 +372,25 @@ __global__ void __launch_bounds__(kThreads, 2) attn_fwd_kernel(
   }
 }
 
-// Shared memory of attn_fwd_kernel<VT> with nbuf stages, in bytes.
-size_t fwd_smem(int dq, int vt, int nbuf) {
-  return 4 * ((size_t)dq * BQ + (size_t)nbuf * (dq + 8 * vt) * LDT);
+// Shared memory of attn_fwd_kernel<VT, wide>, in bytes.
+size_t fwd_smem(int dq, int vt, bool wide) {
+  const size_t q = wide ? (size_t)DC * (BQ + LDT) : (size_t)dq * BQ;
+  return 4 * (q + 2 * (size_t)((wide ? 0 : dq) + 8 * vt) * LDT);
 }
 
-template <int VT>
+template <int VT, bool WIDE>
 int fwd(const float* q, const float* k, const float* v, float* o, float* lse,
         int B, int N, int dq, int dv, cudaStream_t st) {
-  const int nbuf = fwd_smem(dq, VT, 2) <= kMaxSmem ? 2 : 1;
-  const size_t smem = fwd_smem(dq, VT, nbuf);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const size_t smem = fwd_smem(dq, VT, WIDE);
   const cudaError_t attr = cudaFuncSetAttribute(
-      attn_fwd_kernel<VT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_fwd_kernel<VT, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   const uintptr_t bases = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
   const int vec = N % 4 == 0 && bases % 16 == 0;
   const dim3 grid((N + BQ - 1) / BQ, (dv + 8 * VT - 1) / (8 * VT), B);
-  attn_fwd_kernel<VT><<<grid, kThreads, smem, st>>>(q, k, v, o, lse, N, dq,
-                                                    dv, nbuf, vec);
+  attn_fwd_kernel<VT, WIDE><<<grid, kThreads, smem, st>>>(q, k, v, o, lse, N,
+                                                          dq, dv, vec);
   return (int)cudaGetLastError();
 }
 
@@ -356,200 +398,130 @@ int fwd(const float* q, const float* k, const float* v, float* o, float* lse,
 // Backward: one pass over the (query, key) pairs on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int BH = BT / 2;  // queries of a warp in a tile
+constexpr int BH = BT / 2;     // queries of a warp in a tile
+constexpr int kDqGroups = 16;  // most key-tile groups of the dq partials
 
-// Block (key tile j, output chunk y, sample b). Warp w owns keys
-// kw = 16 (w % 4) .. kw + 15 of the tile and queries qh = 32 (w / 4) ..
-// qh + 31 of each query tile i it walks:
-//   S^T = k_j^T q_i,  P^T = exp(S^T - lse_i),  dP^T = v_j^T dO_i,
-//   dS^T = P^T (dP^T - delta_i),  dV_j += P^T dO_i^T,  dK_j += dS^T q_i^T,
-//   dQ_i^(j) = dS k_j^T  (a partial, to dq_part; attn_dq_reduce_kernel sums
-//   it).
-// P^T and dS^T stay in the accumulator fragments they were computed in and
-// are the A operands of the dV and dK products: the product's k index
-// (queries) is permuted so that k column t is query 2t and t + 4 is 2t + 1,
-// which is where the accumulator holds them. Chunk y accumulates dK channels
-// [8 QT y, 8 QT (y + 1)) and dV channels [8 VT y, 8 VT (y + 1)); only
-// blocks with a dK chunk compute dP and dS, and only y = 0 writes dQ. The
-// two warps of a key group hold partial dK and dV over their query halves;
-// they are summed (w + (w + 4), in that order) at the end.
+// A[nt] += X^T Y over rows [0, n) (n a multiple of 8) of two [n][LDT]
+// tiles: X's columns kw.. (keys) are the product's 16 rows, Y's columns
+// qh + 8 nt.. (queries) its columns. S^T from k and q, dP^T from v and dO.
+__device__ __forceinline__ void kq_product(float (&A)[4][4], const float* X,
+                                           const float* Y, int n, int kw,
+                                           int qh, int g, int t) {
+  for (int c0 = 0; c0 < n; c0 += 8) {
+    const float* kr = X + (c0 + t) * LDT + kw + g;
+    const FragA a = frag_a(kr[0], kr[8], kr[4 * LDT], kr[4 * LDT + 8]);
+    const float* qr = Y + (c0 + t) * LDT + qh + g;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+      mma3(A[nt], a, frag_b(qr[8 * nt], qr[4 * LDT + 8 * nt]));
+  }
+}
+
+// P^T = exp(S^T - lse) in place; 0 for keys or queries past N.
+__device__ __forceinline__ void softmax_p(float (&P)[4][4], const float* Ls,
+                                          int n0, int N, int qh, int t,
+                                          bool key_lo, bool key_hi) {
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int qi = qh + 8 * nt + 2 * t;
+    const float2 l = ld2(Ls + qi);
+    const bool q0 = n0 + qi < N, q1 = n0 + qi + 1 < N;
+    P[nt][0] = key_lo && q0 ? __expf(P[nt][0] - l.x) : 0.f;
+    P[nt][1] = key_lo && q1 ? __expf(P[nt][1] - l.y) : 0.f;
+    P[nt][2] = key_hi && q0 ? __expf(P[nt][2] - l.x) : 0.f;
+    P[nt][3] = key_hi && q1 ? __expf(P[nt][3] - l.y) : 0.f;
+  }
+}
+
+// D[nt] += A R^T for the channels 8 nt.. (8 nt < n) of R, a [channel][LDT]
+// tile over the query tile: A is P^T or dS^T in its accumulator fragments,
+// taken as the A operand with the k index (queries) permuted so that k
+// column t is query 2t and t + 4 is 2t + 1. dV from dO, dK from q.
+template <int T>
+__device__ __forceinline__ void pt_product(float (&D)[T][4],
+                                           const float (&A)[4][4],
+                                           const float* R, int n, int qh,
+                                           int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const FragA a = frag_a(A[kk][0], A[kk][2], A[kk][1], A[kk][3]);
+#pragma unroll
+    for (int nt = 0; nt < T; ++nt) {
+      if (8 * nt >= n) break;
+      const float2 x = ld2(R + (8 * nt + g) * LDT + qh + 8 * kk + 2 * t);
+      mma3(D[nt], a, frag_b(x.x, x.y));
+    }
+  }
+}
+
+// dS^T = P^T (dP^T - delta) in place in G, and dS[query][key] to Ss.
+__device__ __forceinline__ void ds_store(float (&G)[4][4],
+                                         const float (&P)[4][4],
+                                         const float* Ds, float* Ss, int kw,
+                                         int qh, int g, int t) {
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int qi = qh + 8 * nt + 2 * t;
+    const float2 d = ld2(Ds + qi);
+    G[nt][0] = P[nt][0] * (G[nt][0] - d.x);
+    G[nt][1] = P[nt][1] * (G[nt][1] - d.y);
+    G[nt][2] = P[nt][2] * (G[nt][2] - d.x);
+    G[nt][3] = P[nt][3] * (G[nt][3] - d.y);
+    float* sr = Ss + qi * LDT + kw + g;
+    sr[0] = G[nt][0];
+    sr[LDT] = G[nt][1];
+    sr[8] = G[nt][2];
+    sr[LDT + 8] = G[nt][3];
+  }
+}
+
+// Warp w < 4: dQ of the tile's queries 16 w.. for channels c0 + 8 nt..
+// (below dqp) = dS k^T, k's rows from Kr, a [channel][LDT] tile whose row 0
+// is channel c0, over the block's keys (k permuted as in pt_product: k
+// column t is key 2t, t + 4 is 2t + 1). Written into the group's partial
+// on the group's first key tile, added to it on the others.
+template <int QT>
+__device__ __forceinline__ void dq_chunk(const float* Ss, const float* Kr,
+                                         int c0, int dqp, int dq, float* part,
+                                         int n0, int N, bool first, int warp,
+                                         int g, int t) {
+  const int qw = 16 * warp;
+  float acc[QT][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const float2 r0 = ld2(Ss + (qw + g) * LDT + 8 * kk + 2 * t);
+    const float2 r1 = ld2(Ss + (qw + g + 8) * LDT + 8 * kk + 2 * t);
+    const FragA a = frag_a(r0.x, r1.x, r0.y, r1.y);
+#pragma unroll
+    for (int nt = 0; nt < QT; ++nt) {
+      if (c0 + 8 * nt >= dqp) break;
+      const float2 x = ld2(Kr + (8 * nt + g) * LDT + 8 * kk + 2 * t);
+      mma3(acc[nt], a, frag_b(x.x, x.y));
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < QT; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int c = c0 + 8 * nt + 2 * t + (r & 1);
+      const int n = n0 + qw + g + 8 * (r >> 1);
+      if (c < dq && n < N) {
+        float* out = part + (size_t)c * N + n;
+        *out = first ? acc[nt][r] : *out + acc[nt][r];
+      }
+    }
+}
+
+// The two warps of a key group hold dK and dV over their query halves:
+// warp w + 4's go through shared memory at sm (free when this is called)
+// and are added to warp w's, in that order, which write keys kw + g and
+// kw + g + 8 of dK channels ck0.. and dV channels cv0...
 template <int QT, int VT>
-__global__ void __launch_bounds__(kThreads, 2) attn_bwd_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ dO,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dk_out, float* __restrict__ dv_out,
-    float* __restrict__ dq_part, int N, int dq, int dv, int nbuf, int vec) {
-  extern __shared__ __align__(16) float sm[];
-  const int dqp = (dq + 7) & ~7, dvp = (dv + 7) & ~7;  // zero rows to 8
-  const int stage = (dqp + dvp) * LDT + 2 * BT;  // q, dO, lse, delta tiles
-  float* Ks = sm;                  // [dqp][LDT] the block's keys, resident
-  float* Vs = Ks + dqp * LDT;      // [dvp][LDT]
-  float* Ss = Vs + dvp * LDT;      // [BT][LDT] dS[query][key]
-  float* st0 = Ss + BT * LDT;      // nbuf stages
-
-  const int b = blockIdx.z, y = blockIdx.y, nkt = gridDim.x;
-  const int j0 = blockIdx.x * BT, ck0 = 8 * QT * y, cv0 = 8 * VT * y;
-  const bool with_ds = ck0 < dq, with_dv = cv0 < dv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2,
-            t = lane & 3, kw = 16 * (warp & 3), qh = BH * (warp >> 2);
-  const size_t oq = (size_t)b * dq * N, ov = (size_t)b * dv * N;
-  const float* lb = lse + (size_t)b * N;
-  const float* db = delta + (size_t)b * N;
-  const bool key_lo = j0 + kw + g < N, key_hi = j0 + kw + g + 8 < N;
-
-  zero_rows(Ks, dq, dqp);
-  zero_rows(Vs, dv, dvp);
-  for (int s = 0; s < nbuf; ++s) {
-    zero_rows(st0 + s * stage, dq, dqp);
-    zero_rows(st0 + s * stage + dqp * LDT, dv, dvp);
-  }
-  auto fetch = [&](int i, int s) {
-    float* Qs = st0 + s * stage;
-    float* Os = Qs + dqp * LDT;
-    const int n0 = i * BT, n = n0 + (threadIdx.x & (BT - 1));
-    cp_tile(Qs, q + oq, dq, N, n0, vec);
-    cp_tile(Os, dO + ov, dv, N, n0, vec);
-    if (threadIdx.x < 2 * BT) {
-      const float* src = threadIdx.x < BT ? lb : db;
-      cp_async(Os + dvp * LDT + threadIdx.x, src + (n < N ? n : 0),
-               n < N ? 4 : 0, false);
-    }
-  };
-  cp_tile(Ks, k + oq, dq, N, j0, vec);
-  cp_tile(Vs, v + ov, dv, N, j0, vec);
-  fetch(0, 0);
-  cp_commit();
-
-  float dK[QT][4] = {}, dV[VT][4] = {};
-  const int nqt = (N + BT - 1) / BT;
-  for (int i = 0; i < nqt; ++i) {
-    const int s = nbuf == 2 ? (i & 1) : 0, n0 = i * BT;
-    if (nbuf == 2 && i + 1 < nqt) {  // fetch tile i + 1 while i computes
-      fetch(i + 1, s ^ 1);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const float* Qs = st0 + s * stage;
-    const float* Os = Qs + dqp * LDT;
-    const float* Ls = Os + dvp * LDT;
-    const float* Ds = Ls + BT;
-
-    // P^T (16 keys x 32 queries a warp): fragment nt holds queries qh + 8 nt..
-    float P[4][4] = {};
-    for (int c0 = 0; c0 < dqp; c0 += 8) {
-      const float* kr = Ks + (c0 + t) * LDT + kw + g;
-      const FragA a = frag_a(kr[0], kr[8], kr[4 * LDT], kr[4 * LDT + 8]);
-      const float* qr = Qs + (c0 + t) * LDT + qh + g;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-        mma3(P[nt], a, frag_b(qr[8 * nt], qr[4 * LDT + 8 * nt]));
-    }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int qi = qh + 8 * nt + 2 * t;
-      const float2 l = ld2(Ls + qi);
-      const bool q0 = n0 + qi < N, q1 = n0 + qi + 1 < N;
-      P[nt][0] = key_lo && q0 ? __expf(P[nt][0] - l.x) : 0.f;
-      P[nt][1] = key_lo && q1 ? __expf(P[nt][1] - l.y) : 0.f;
-      P[nt][2] = key_hi && q0 ? __expf(P[nt][2] - l.x) : 0.f;
-      P[nt][3] = key_hi && q1 ? __expf(P[nt][3] - l.y) : 0.f;
-    }
-
-    if (with_dv) {  // dV += P^T dO^T, k = the tile's queries
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const FragA a = frag_a(P[kk][0], P[kk][2], P[kk][1], P[kk][3]);
-#pragma unroll
-        for (int nt = 0; nt < VT; ++nt) {
-          if (cv0 + 8 * nt >= dvp) break;
-          const float2 o =
-              ld2(Os + (cv0 + 8 * nt + g) * LDT + qh + 8 * kk + 2 * t);
-          mma3(dV[nt], a, frag_b(o.x, o.y));
-        }
-      }
-    }
-
-    if (with_ds) {
-      float G[4][4] = {};  // dP^T, then dS^T
-      for (int c0 = 0; c0 < dvp; c0 += 8) {
-        const float* vr = Vs + (c0 + t) * LDT + kw + g;
-        const FragA a = frag_a(vr[0], vr[8], vr[4 * LDT], vr[4 * LDT + 8]);
-        const float* orow = Os + (c0 + t) * LDT + qh + g;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma3(G[nt], a, frag_b(orow[8 * nt], orow[4 * LDT + 8 * nt]));
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int qi = qh + 8 * nt + 2 * t;
-        const float2 d = ld2(Ds + qi);
-        G[nt][0] = P[nt][0] * (G[nt][0] - d.x);
-        G[nt][1] = P[nt][1] * (G[nt][1] - d.y);
-        G[nt][2] = P[nt][2] * (G[nt][2] - d.x);
-        G[nt][3] = P[nt][3] * (G[nt][3] - d.y);
-        float* sr = Ss + qi * LDT + kw + g;  // dS[query][key]
-        sr[0] = G[nt][0];
-        sr[LDT] = G[nt][1];
-        sr[8] = G[nt][2];
-        sr[LDT + 8] = G[nt][3];
-      }
-      // dK += dS^T q^T, k = the tile's queries
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const FragA a = frag_a(G[kk][0], G[kk][2], G[kk][1], G[kk][3]);
-#pragma unroll
-        for (int nt = 0; nt < QT; ++nt) {
-          if (ck0 + 8 * nt >= dqp) break;
-          const float2 x =
-              ld2(Qs + (ck0 + 8 * nt + g) * LDT + qh + 8 * kk + 2 * t);
-          mma3(dK[nt], a, frag_b(x.x, x.y));
-        }
-      }
-      __syncthreads();  // dS of all eight warps is in Ss
-
-      // dQ_i^(j) = dS k^T: warp w < 4 takes queries 16w.., k = the block's
-      // keys (permuted as above: k column t is key 2t, t + 4 is 2t + 1)
-      if (y == 0 && warp < 4) {
-        const int qw = 16 * warp;
-        for (int cq0 = 0; cq0 < dqp; cq0 += 8 * QT) {
-          float acc[QT][4] = {};
-#pragma unroll
-          for (int kk = 0; kk < 8; ++kk) {
-            const float2 r0 = ld2(Ss + (qw + g) * LDT + 8 * kk + 2 * t);
-            const float2 r1 = ld2(Ss + (qw + g + 8) * LDT + 8 * kk + 2 * t);
-            const FragA a = frag_a(r0.x, r1.x, r0.y, r1.y);
-#pragma unroll
-            for (int nt = 0; nt < QT; ++nt) {
-              if (cq0 + 8 * nt >= dqp) break;
-              const float2 x = ld2(Ks + (cq0 + 8 * nt + g) * LDT + 8 * kk + 2 * t);
-              mma3(acc[nt], a, frag_b(x.x, x.y));
-            }
-          }
-          float* out = dq_part + ((size_t)b * nkt + blockIdx.x) * dq * N;
-#pragma unroll
-          for (int nt = 0; nt < QT; ++nt)
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              const int c = cq0 + 8 * nt + 2 * t + (r & 1);
-              const int n = n0 + qw + g + 8 * (r >> 1);
-              if (c < dq && n < N) out[(size_t)c * N + n] = acc[nt][r];
-            }
-        }
-      }
-    }
-    __syncthreads();  // readers of stage s and of Ss are done
-    if (nbuf == 1 && i + 1 < nqt) {
-      fetch(i + 1, 0);
-      cp_commit();
-    }
-  }
-
-  // dK and dV of warp w + 4 to shared memory (free now), then added to
-  // warp w's
+__device__ __forceinline__ void write_dkdv(
+    float (&dK)[QT][4], float (&dV)[VT][4], float* sm, float* dk_out,
+    float* dv_out, int key0, int ck0, int cv0, int dq, int dv, int N,
+    bool with_ds, bool with_dv) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   float* red = sm + (warp & 3) * (QT + VT) * 4 * 32 + lane;
   if (warp >= 4) {
 #pragma unroll
@@ -562,45 +534,286 @@ __global__ void __launch_bounds__(kThreads, 2) attn_bwd_kernel(
   }
   __syncthreads();
   if (warp >= 4) return;
-  // rows are keys: (kw + g, kw + g + 8), columns channels (2t, 2t + 1)
+  // rows are keys: (key0, key0 + 8), columns channels (2t, 2t + 1)
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
 #pragma unroll
     for (int nt = 0; nt < QT; ++nt) dK[nt][r] += red[(nt * 4 + r) * 32];
 #pragma unroll
     for (int nt = 0; nt < VT; ++nt) dV[nt][r] += red[((QT + nt) * 4 + r) * 32];
-    const int key = j0 + kw + g + 8 * (r >> 1);
+    const int key = key0 + 8 * (r >> 1);
     if (key >= N) continue;
 #pragma unroll
     for (int nt = 0; nt < QT; ++nt) {
       const int c = ck0 + 8 * nt + 2 * t + (r & 1);
-      if (with_ds && c < dq) dk_out[oq + (size_t)c * N + key] = dK[nt][r];
+      if (with_ds && c < dq) dk_out[(size_t)c * N + key] = dK[nt][r];
     }
 #pragma unroll
     for (int nt = 0; nt < VT; ++nt) {
       const int c = cv0 + 8 * nt + 2 * t + (r & 1);
-      if (with_dv && c < dv) dv_out[ov + (size_t)c * N + key] = dV[nt][r];
+      if (with_dv && c < dv) dv_out[(size_t)c * N + key] = dV[nt][r];
     }
   }
 }
 
-// dq[b, c, n] = sum_j dq_part[b, j, c, n], j in order: no float atomics.
+// Block (key-tile group x, output chunk y, sample b). It walks the key
+// tiles j of its group in order; for each, warp w owns keys
+// kw = 16 (w % 4) .. kw + 15 of the tile and queries qh = 32 (w / 4) ..
+// qh + 31 of each query tile i it walks:
+//   S^T = k_j^T q_i,  P^T = exp(S^T - lse_i),  dP^T = v_j^T dO_i,
+//   dS^T = P^T (dP^T - delta_i),  dV_j += P^T dO_i^T,  dK_j += dS^T q_i^T,
+//   dQ_i += dS k_j^T  (into the group's partial; attn_dq_reduce_kernel sums
+//   the groups).
+// P^T and dS^T stay in the accumulator fragments they were computed in and
+// are the A operands of the dV and dK products. Chunk y accumulates dK
+// channels [8 QT y, 8 QT (y + 1)) and dV channels [8 VT y, 8 VT (y + 1));
+// only blocks with a dK chunk compute dP and dS, and only y = 0 writes dQ.
+template <int QT, int VT>
+__global__ void __launch_bounds__(kThreads, 2) attn_bwd_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dO,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk_out, float* __restrict__ dv_out,
+    float* __restrict__ dq_part, int N, int dq, int dv, int per, int vec) {
+  extern __shared__ __align__(16) float sm[];
+  const int dqp = (dq + 7) & ~7, dvp = (dv + 7) & ~7;  // zero rows to 8
+  const int stage = (dqp + dvp) * LDT + 2 * BT;  // q, dO, lse, delta tiles
+  float* Ks = sm;                  // [dqp][LDT] the key tile's k, resident
+  float* Vs = Ks + dqp * LDT;      // [dvp][LDT]
+  float* Ss = Vs + dvp * LDT;      // [BT][LDT] dS[query][key]
+  float* st0 = Ss + BT * LDT;      // two stages
+
+  const int b = blockIdx.z, y = blockIdx.y, ck0 = 8 * QT * y, cv0 = 8 * VT * y;
+  const bool with_ds = ck0 < dq, with_dv = cv0 < dv;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2,
+            t = lane & 3, kw = 16 * (warp & 3), qh = BH * (warp >> 2);
+  const size_t oq = (size_t)b * dq * N, ov = (size_t)b * dv * N;
+  const float* lb = lse + (size_t)b * N;
+  const float* db = delta + (size_t)b * N;
+  const int nkt = (N + BT - 1) / BT, j_first = blockIdx.x * per;
+  float* part = dq_part + ((size_t)b * gridDim.x + blockIdx.x) * dq * N;
+
+  auto fetch = [&](int i, int s) {
+    float* Qs = st0 + s * stage;
+    float* Os = Qs + dqp * LDT;
+    const int n0 = i * BT, n = n0 + (threadIdx.x & (BT - 1));
+    cp_tile(Qs, q + oq, dq, N, n0, vec);
+    cp_tile(Os, dO + ov, dv, N, n0, vec);
+    if (threadIdx.x < 2 * BT) {
+      const float* src = threadIdx.x < BT ? lb : db;
+      cp_async(Os + dvp * LDT + threadIdx.x, src + (n < N ? n : 0),
+               n < N ? 4 : 0, false);
+    }
+  };
+
+  for (int jt = j_first; jt < min(nkt, j_first + per); ++jt) {
+    const int j0 = jt * BT;
+    const bool key_lo = j0 + kw + g < N, key_hi = j0 + kw + g + 8 < N;
+    zero_rows(Ks, dq, dqp);
+    zero_rows(Vs, dv, dvp);
+    for (int s = 0; s < 2; ++s) {
+      zero_rows(st0 + s * stage, dq, dqp);
+      zero_rows(st0 + s * stage + dqp * LDT, dv, dvp);
+    }
+    cp_tile(Ks, k + oq, dq, N, j0, vec);
+    cp_tile(Vs, v + ov, dv, N, j0, vec);
+    fetch(0, 0);
+    cp_commit();
+
+    float dK[QT][4] = {}, dV[VT][4] = {};
+    for (int i = 0; i < nkt; ++i) {
+      const int s = i & 1, n0 = i * BT;
+      if (i + 1 < nkt) {  // fetch tile i + 1 while i computes
+        fetch(i + 1, s ^ 1);
+        cp_commit();
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
+      }
+      __syncthreads();
+      const float* Qs = st0 + s * stage;
+      const float* Os = Qs + dqp * LDT;
+      const float* Ls = Os + dvp * LDT;
+      const float* Ds = Ls + BT;
+
+      // P^T (16 keys x 32 queries a warp): fragment nt holds queries qh + 8 nt..
+      float P[4][4] = {};
+      kq_product(P, Ks, Qs, dqp, kw, qh, g, t);
+      softmax_p(P, Ls, n0, N, qh, t, key_lo, key_hi);
+      if (with_dv) pt_product<VT>(dV, P, Os + cv0 * LDT, dvp - cv0, qh, g, t);
+      if (with_ds) {
+        float G[4][4] = {};  // dP^T, then dS^T
+        kq_product(G, Vs, Os, dvp, kw, qh, g, t);
+        ds_store(G, P, Ds, Ss, kw, qh, g, t);
+        pt_product<QT>(dK, G, Qs + ck0 * LDT, dqp - ck0, qh, g, t);
+        __syncthreads();  // dS of all eight warps is in Ss
+        if (y == 0 && warp < 4)
+          for (int cq0 = 0; cq0 < dqp; cq0 += 8 * QT)
+            dq_chunk<QT>(Ss, Ks + cq0 * LDT, cq0, dqp, dq, part, n0, N,
+                         jt == j_first, warp, g, t);
+      }
+      __syncthreads();  // readers of stage s and of Ss are done
+    }
+    write_dkdv<QT, VT>(dK, dV, sm, dk_out + oq, dv_out + ov, j0 + kw + g,
+                       ck0, cv0, dq, dv, N, with_ds, with_dv);
+    __syncthreads();  // the next key tile's loads overwrite sm
+  }
+}
+
+// Wide widths: nothing resident. Per (key tile, query tile) the block
+// streams DC-channel chunks of k and q (for S), then the dO rows of its dV
+// chunk, chunks of v and dO (for dP), the q rows of its dK chunk and, for
+// y = 0, chunks of k (for dQ) through two [DC][LDT] buffers; one stage, no
+// prefetch. dK and dV chunks are DC channels (QT = VT = 8).
+__global__ void __launch_bounds__(kThreads, 2) attn_bwd_wide_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dO,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk_out, float* __restrict__ dv_out,
+    float* __restrict__ dq_part, int N, int dq, int dv, int per, int vec) {
+  constexpr int QT = DC / 8, VT = DC / 8;
+  extern __shared__ __align__(16) float sm[];
+  float* Xs = sm;              // [DC][LDT] k or v rows of the key tile
+  float* Ys = Xs + DC * LDT;   // [DC][LDT] q or dO rows of the query tile
+  float* Ss = Ys + DC * LDT;   // [BT][LDT] dS[query][key]
+  float* Ls = Ss + BT * LDT;   // [BT] lse, then [BT] delta
+  const float* Ds = Ls + BT;
+  const int dqp = (dq + 7) & ~7, dvp = (dv + 7) & ~7;
+
+  const int b = blockIdx.z, y = blockIdx.y, ck0 = DC * y, cv0 = DC * y;
+  const bool with_ds = ck0 < dq, with_dv = cv0 < dv;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2,
+            t = lane & 3, kw = 16 * (warp & 3), qh = BH * (warp >> 2);
+  const size_t oq = (size_t)b * dq * N, ov = (size_t)b * dv * N;
+  const int nkt = (N + BT - 1) / BT, j_first = blockIdx.x * per;
+  float* part = dq_part + ((size_t)b * gridDim.x + blockIdx.x) * dq * N;
+
+  // rows [c0, c0 + DC) of a (D, N) tensor's tile at n0, rows past D zero up
+  // to the multiple of 8
+  auto load = [&](float* dst, const float* src, int D, int c0, int n0) {
+    const int r = min(DC, D - c0), rp = min(DC, ((D + 7) & ~7) - c0);
+    cp_tile(dst, src + (size_t)c0 * N, r, N, n0, vec);
+    zero_rows(dst, r, rp);
+  };
+  auto land = []() {  // the copies and zero rows, visible to every warp
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+  };
+
+  for (int jt = j_first; jt < min(nkt, j_first + per); ++jt) {
+    const int j0 = jt * BT;
+    const bool key_lo = j0 + kw + g < N, key_hi = j0 + kw + g + 8 < N;
+    float dK[QT][4] = {}, dV[VT][4] = {};
+    for (int i = 0; i < nkt; ++i) {
+      const int n0 = i * BT;
+      __syncthreads();  // readers of the buffers are done
+      if (threadIdx.x < 2 * BT) {
+        const int n = n0 + (threadIdx.x & (BT - 1));
+        const float* src = (threadIdx.x < BT ? lse : delta) + (size_t)b * N;
+        cp_async(Ls + threadIdx.x, src + (n < N ? n : 0), n < N ? 4 : 0,
+                 false);
+      }
+      float P[4][4] = {};
+      for (int c0 = 0; c0 < dq; c0 += DC) {
+        if (c0 > 0) __syncthreads();
+        load(Xs, k + oq, dq, c0, j0);
+        load(Ys, q + oq, dq, c0, n0);
+        land();
+        kq_product(P, Xs, Ys, min(DC, dqp - c0), kw, qh, g, t);
+      }
+      softmax_p(P, Ls, n0, N, qh, t, key_lo, key_hi);
+      if (with_dv) {
+        __syncthreads();
+        load(Ys, dO + ov, dv, cv0, n0);
+        land();
+        pt_product<VT>(dV, P, Ys, dvp - cv0, qh, g, t);
+      }
+      if (with_ds) {
+        float G[4][4] = {};
+        for (int c0 = 0; c0 < dv; c0 += DC) {
+          __syncthreads();
+          load(Xs, v + ov, dv, c0, j0);
+          load(Ys, dO + ov, dv, c0, n0);
+          land();
+          kq_product(G, Xs, Ys, min(DC, dvp - c0), kw, qh, g, t);
+        }
+        ds_store(G, P, Ds, Ss, kw, qh, g, t);
+        __syncthreads();
+        load(Ys, q + oq, dq, ck0, n0);
+        land();  // dS of all eight warps is in Ss too
+        pt_product<QT>(dK, G, Ys, dqp - ck0, qh, g, t);
+        if (y == 0) {
+          for (int cq0 = 0; cq0 < dq; cq0 += DC) {
+            __syncthreads();
+            load(Xs, k + oq, dq, cq0, j0);
+            land();
+            if (warp < 4)
+              dq_chunk<QT>(Ss, Xs, cq0, dqp, dq, part, n0, N, jt == j_first,
+                           warp, g, t);
+          }
+        }
+      }
+    }
+    __syncthreads();  // readers of the buffers are done: sm is reused
+    write_dkdv<QT, VT>(dK, dV, sm, dk_out + oq, dv_out + ov, j0 + kw + g,
+                       ck0, cv0, dq, dv, N, with_ds, with_dv);
+    __syncthreads();  // before the next key tile's loads
+  }
+}
+
+// dq[b, c, n] = sum_x dq_part[b, x, c, n] over the groups x in order: no
+// float atomics.
 __global__ void __launch_bounds__(256) attn_dq_reduce_kernel(
-    const float* __restrict__ dq_part, float* __restrict__ dq_out, int nkt,
+    const float* __restrict__ dq_part, float* __restrict__ dq_out, int ng,
     int dqn, int total) {
   const int e = blockIdx.x * 256 + threadIdx.x;
   if (e >= total) return;
   const int b = e / dqn;
-  const float* p = dq_part + (size_t)b * nkt * dqn + (e - b * dqn);
+  const float* p = dq_part + (size_t)b * ng * dqn + (e - b * dqn);
   float s = 0.f;
-  for (int j = 0; j < nkt; ++j) s += p[(size_t)j * dqn];
+  for (int j = 0; j < ng; ++j) s += p[(size_t)j * dqn];
   dq_out[e] = s;
 }
 
-// Shared memory of attn_bwd_kernel with nbuf stages, in bytes.
-size_t bwd_smem(int dq, int dv, int nbuf) {
+// The key-tile groups of the dq partials for N keys: per =
+// ceil(nkt / min(nkt, kDqGroups)) consecutive key tiles a group; returns the
+// number of groups, ceil(nkt / per) <= kDqGroups.
+int dq_groups(int N, int* per) {
+  const int nkt = (N + BT - 1) / BT, p = (nkt + kDqGroups - 1) / kDqGroups;
+  if (per) *per = p;
+  return (nkt + p - 1) / p;
+}
+
+// Shared memory of attn_bwd_kernel (two stages) and attn_bwd_wide_kernel.
+size_t bwd_smem(int dq, int dv) {
   const size_t rows = ((dq + 7) & ~7) + ((dv + 7) & ~7);
-  return 4 * (rows * LDT * (1 + nbuf) + 2 * BT * nbuf + BT * LDT);
+  return 4 * (rows * LDT * 3 + 2 * BT * 2 + BT * LDT);
+}
+constexpr size_t kWideBwdSmem = 4 * ((2 * DC + BT) * LDT + 2 * BT);
+
+template <typename Kernel>
+int bwd_launch(Kernel kernel, size_t smem, int ny, const float* q,
+               const float* k, const float* v, const float* dO,
+               const float* lse, const float* delta, float* dq_out,
+               float* dk_out, float* dv_out, float* dq_part, int B, int N,
+               int dq, int dv, cudaStream_t st) {
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const uintptr_t bases = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                          (uintptr_t)dO;
+  const int vec = N % 4 == 0 && bases % 16 == 0;
+  int per;
+  const int ng = dq_groups(N, &per);
+  kernel<<<dim3(ng, ny, B), kThreads, smem, st>>>(
+      q, k, v, dO, lse, delta, dk_out, dv_out, dq_part, N, dq, dv, per, vec);
+  const int e = (int)cudaGetLastError();
+  if (e) return e;
+  const int total = B * dq * N;
+  attn_dq_reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(
+      dq_part, dq_out, ng, dq * N, total);
+  return (int)cudaGetLastError();
 }
 
 template <int QT, int VT>
@@ -608,27 +821,19 @@ int bwd(const float* q, const float* k, const float* v, const float* dO,
         const float* lse, const float* delta, float* dq_out, float* dk_out,
         float* dv_out, float* dq_part, int B, int N, int dq, int dv,
         cudaStream_t st) {
-  const int nbuf = bwd_smem(dq, dv, 2) <= kMaxSmem ? 2 : 1;
-  const size_t smem = bwd_smem(dq, dv, nbuf);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      attn_bwd_kernel<QT, VT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (attr != cudaSuccess) return (int)attr;
-  const uintptr_t bases = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
-                          (uintptr_t)dO;
-  const int vec = N % 4 == 0 && bases % 16 == 0;
-  const int nkt = (N + BT - 1) / BT;
   const int nyk = (dq + 8 * QT - 1) / (8 * QT), nyv = (dv + 8 * VT - 1) / (8 * VT);
-  attn_bwd_kernel<QT, VT><<<dim3(nkt, nyk > nyv ? nyk : nyv, B), kThreads,
-                            smem, st>>>(
-      q, k, v, dO, lse, delta, dk_out, dv_out, dq_part, N, dq, dv, nbuf, vec);
-  const int e = (int)cudaGetLastError();
-  if (e) return e;
-  const int total = B * dq * N;
-  attn_dq_reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(
-      dq_part, dq_out, nkt, dq * N, total);
-  return (int)cudaGetLastError();
+  return bwd_launch(attn_bwd_kernel<QT, VT>, bwd_smem(dq, dv),
+                    nyk > nyv ? nyk : nyv, q, k, v, dO, lse, delta, dq_out,
+                    dk_out, dv_out, dq_part, B, N, dq, dv, st);
+}
+
+int bwd_wide(const float* q, const float* k, const float* v, const float* dO,
+             const float* lse, const float* delta, float* dq_out,
+             float* dk_out, float* dv_out, float* dq_part, int B, int N,
+             int dq, int dv, cudaStream_t st) {
+  const int ny = ((dq > dv ? dq : dv) + DC - 1) / DC;
+  return bwd_launch(attn_bwd_wide_kernel, kWideBwdSmem, ny, q, k, v, dO, lse,
+                    delta, dq_out, dk_out, dv_out, dq_part, B, N, dq, dv, st);
 }
 
 }  // namespace
@@ -639,25 +844,33 @@ extern "C" {
 int gcc_attn_fwd(const float* q, const float* k, const float* v, float* o,
                  float* lse, int B, int N, int dq, int dv, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dv <= 8) return fwd<1>(q, k, v, o, lse, B, N, dq, dv, st);
-  if (dv <= 16) return fwd<2>(q, k, v, o, lse, B, N, dq, dv, st);
-  if (dv <= 32) return fwd<4>(q, k, v, o, lse, B, N, dq, dv, st);
-  return fwd<8>(q, k, v, o, lse, B, N, dq, dv, st);
+  const int vt = dv <= 8 ? 1 : (dv <= 16 ? 2 : (dv <= 32 ? 4 : 8));
+  if (fwd_smem(dq, vt, false) > kMaxSmem / 2)
+    return fwd<8, true>(q, k, v, o, lse, B, N, dq, dv, st);
+  if (vt == 1) return fwd<1, false>(q, k, v, o, lse, B, N, dq, dv, st);
+  if (vt == 2) return fwd<2, false>(q, k, v, o, lse, B, N, dq, dv, st);
+  if (vt == 4) return fwd<4, false>(q, k, v, o, lse, B, N, dq, dv, st);
+  return fwd<8, false>(q, k, v, o, lse, B, N, dq, dv, st);
 }
+
+// Key-tile groups of gcc_attn_bwd's dq partials for N keys (at most 16).
+int gcc_attn_bwd_groups(int N) { return dq_groups(N, nullptr); }
 
 // Backward, one pass: q, k (B,dq,N), v and dO (B,dv,N), lse and
 // delta = sum_c dO * O (B,N). Writes dq_out, dk_out (B,dq,N) and dv_out
-// (B,dv,N); dq_part is scratch of B * ceil(N / 64) * dq * N floats.
+// (B,dv,N); dq_part is scratch of B * gcc_attn_bwd_groups(N) * dq * N
+// floats.
 int gcc_attn_bwd(const float* q, const float* k, const float* v,
                  const float* dO, const float* lse, const float* delta,
                  float* dq_out, float* dk_out, float* dv_out, float* dq_part,
                  int B, int N, int dq, int dv, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int qt = dq <= 8 ? 1 : (dq <= 32 ? 4 : 8);
   auto run = [&](auto f) {
     return f(q, k, v, dO, lse, delta, dq_out, dk_out, dv_out, dq_part, B, N,
              dq, dv, st);
   };
+  if (bwd_smem(dq, dv) > kMaxSmem / 2) return run(bwd_wide);
+  const int qt = dq <= 8 ? 1 : (dq <= 32 ? 4 : 8);
   if (dv <= 16) {
     if (qt == 1) return run(bwd<1, 2>);
     return qt == 4 ? run(bwd<4, 2>) : run(bwd<8, 2>);

@@ -11,6 +11,7 @@ part of the JAX package's parameter partitions: nothing accumulates in
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -24,12 +25,27 @@ from gcc_tpu_torch.ops.layers import BatchNorm, Conv, ConvTranspose
 @dataclasses.dataclass
 class GANState:
     """One engine's training state: nets (name -> module, updated in place),
-    their Adam states, the teacher-discrepancy EMA scalars and the step."""
+    their Adam states, the teacher-discrepancy EMA scalars, the step, and
+    the generator that seeds dropout masks (the JAX state's ``rng``)."""
 
     step: int
     nets: Dict[str, nn.Module]
     opts: Dict[str, "Adam"]
     ema: Dict[str, torch.Tensor]
+    rng: Optional[torch.Generator] = None
+
+
+@contextlib.contextmanager
+def eval_mode(*nets: nn.Module):
+    """The nets in eval mode for the block (running BatchNorm stats, no
+    dropout, nothing updated), back in train mode after it; yields them."""
+    for net in nets:
+        net.eval()
+    try:
+        yield nets
+    finally:
+        for net in nets:
+            net.train()
 
 
 def weight_params(net: nn.Module) -> List[nn.Parameter]:

@@ -12,10 +12,17 @@ and the arch step on a validation batch (:300-350):
 
 Semantics kept from the JAX engine: D-then-G order; the teacher trains
 online at constant LR (never scheduled); both teacher and student get the
-sparsity injection; every discriminator forward in train mode moves the
-BatchNorm running stats exactly where the JAX engine's does.
+sparsity injection; every train-mode forward moves the BatchNorm running
+stats exactly where the JAX engine's does. Under normal distillation the
+teacher is frozen: its targets come from eval-mode forwards that update
+nothing (engines/pix2pix.py:157-168), and it has no optimizers.
 
-This slice has the resnet backbone; the U-Net comes with the next slice.
+Backbones: the U-Net (the default) and the MobileResnet. U-Net dropout
+masks come from ``torch.Generator``s seeded from the state's ``rng``, one
+seed for both student forwards of a train step and one for both teacher
+forwards (the JAX engine's ``drng`` and ``tdrng``), fresh seeds in the arch
+step.
+
 Batches are NCHW tensors on the engine's device: {"A": ..., "B": ...}.
 """
 
@@ -30,12 +37,13 @@ from gcc_tpu_torch.config import Config
 from gcc_tpu_torch.device import resolve_device
 from gcc_tpu_torch.engines.common import (
     Adam, CombinedStepMixin, GANState, add_sign_sparsity, arch_params,
-    d_pair, discrepancy, distill_losses, ema_update, grads_of, weight_params,
+    d_pair, discrepancy, distill_losses, ema_update, eval_mode, grads_of,
+    weight_params,
 )
 from gcc_tpu_torch.losses import gan_loss, l1
 from gcc_tpu_torch.models.discriminators import PatchGAN
 from gcc_tpu_torch.models.generators import (
-    MobileResnetGenerator, mobile_resnet_default_cfg,
+    MobileResnetGenerator, UnetGenerator, mobile_resnet_default_cfg,
 )
 from gcc_tpu_torch.ops.layers import Conv, init_params
 from gcc_tpu_torch.ops.mask import clip_alphas
@@ -55,50 +63,59 @@ class TransformConvs(nn.Module):
 
 class Pix2PixEngine(CombinedStepMixin):
     """Engine surface of the JAX package's Pix2PixEngine: init_state,
-    train_step, arch_step, train_arch_step, generate."""
+    train_step, arch_step, train_arch_step, generate. ``channel_cfgs`` (the
+    U-Net's input widths) is carried, not used to build, as in JAX."""
 
-    def __init__(self, cfg: Config, filter_cfgs=None, device=None):
-        if cfg.backbone != "resnet":
-            raise NotImplementedError(
-                "the PyTorch port has the resnet backbone only; the U-Net "
-                "comes with the next slice")
-        if cfg.normal_distillation and not cfg.online_distillation:
-            raise NotImplementedError(
-                "normal_distillation is not part of this slice")
+    def __init__(self, cfg: Config, filter_cfgs=None, device=None,
+                 channel_cfgs=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.filter_cfgs = filter_cfgs
-        self.distill = cfg.online_distillation
+        self.filter_cfgs, self.channel_cfgs = filter_cfgs, channel_cfgs
+        self.distill = cfg.online_distillation or cfg.normal_distillation
+        self.online = cfg.online_distillation
         self.darts = cfg.darts_discriminator
         self.gan_mode = cfg.gan_mode
         self.fused_d = cfg.fused_d_batch
         self.fused_blocks = {"auto": None, "on": True,
                              "off": False}[cfg.fused_resblock]
+        self.dropout = cfg.backbone != "resnet" and not cfg.no_dropout
 
     # ------------------------------------------------------------------ init
 
     def build_nets(self) -> Dict[str, nn.Module]:
         """The engine's nets with uninitialised parameters, on the CPU."""
         cfg = self.cfg
-        s_cfg = list(self.filter_cfgs) if self.filter_cfgs is not None \
-            else mobile_resnet_default_cfg(cfg.ngf)
         d_in = cfg.input_nc + cfg.output_nc
-        nets = {
-            "g": MobileResnetGenerator(cfg.input_nc, cfg.output_nc, cfg.ngf,
-                                       cfg=s_cfg,
-                                       use_fused_blocks=self.fused_blocks),
-            "d": PatchGAN(d_in, cfg.ndf, norm="batch", masked=self.darts,
-                          threshold=cfg.threshold),
-        }
-        if self.distill:
-            nets["tg"] = MobileResnetGenerator(
-                cfg.input_nc, cfg.output_nc, cfg.teacher_ngf,
-                use_fused_blocks=self.fused_blocks)
-            nets["td"] = PatchGAN(d_in, cfg.teacher_ndf, norm="batch")
+        if cfg.backbone == "resnet":
+            s_cfg = list(self.filter_cfgs) if self.filter_cfgs is not None \
+                else mobile_resnet_default_cfg(cfg.ngf)
+            g = MobileResnetGenerator(cfg.input_nc, cfg.output_nc, cfg.ngf,
+                                      cfg=s_cfg,
+                                      use_fused_blocks=self.fused_blocks)
             # every captured student feature has the width of down2 (residual
             # adds keep it); the teacher's are teacher_ngf * 4
-            nets["tf"] = TransformConvs((s_cfg[2],) * 4,
-                                        (cfg.teacher_ngf * 4,) * 4)
+            s_widths = (s_cfg[2],) * 4
+        else:
+            g = UnetGenerator(cfg.input_nc, cfg.output_nc, cfg.num_downs,
+                              cfg.ngf, self.dropout, self.filter_cfgs,
+                              self.channel_cfgs)
+            s_widths = g.feature_widths
+        nets = {"g": g, "d": PatchGAN(d_in, cfg.ndf, norm="batch",
+                                      masked=self.darts,
+                                      threshold=cfg.threshold)}
+        if self.distill:
+            tngf = cfg.teacher_ngf
+            if cfg.backbone == "resnet":
+                nets["tg"] = MobileResnetGenerator(
+                    cfg.input_nc, cfg.output_nc, tngf,
+                    use_fused_blocks=self.fused_blocks)
+                t_widths = (tngf * 4,) * 4
+            else:
+                nets["tg"] = UnetGenerator(cfg.input_nc, cfg.output_nc,
+                                           cfg.num_downs, tngf, self.dropout)
+                t_widths = (tngf * 2, tngf * 8, tngf * 16, tngf * 4)
+            nets["td"] = PatchGAN(d_in, cfg.teacher_ndf, norm="batch")
+            nets["tf"] = TransformConvs(s_widths, t_widths)
         return nets
 
     def init_state(self, seed: int = 0) -> GANState:
@@ -108,19 +125,22 @@ class Pix2PixEngine(CombinedStepMixin):
         gen = torch.Generator().manual_seed(seed)
         nets = {k: init_params(v, gen).to(self.device).train()
                 for k, v in self.build_nets().items()}
-        return self.state_for(nets)
+        return self.state_for(nets, seed)
 
-    def state_for(self, nets: Dict[str, nn.Module]) -> GANState:
-        """A step-0 state around already-initialised nets."""
+    def state_for(self, nets: Dict[str, nn.Module], seed: int = 0
+                  ) -> GANState:
+        """A step-0 state around already-initialised nets; ``seed`` seeds
+        the dropout masks' generator."""
         opts = {"g": Adam(self._g_bundle(nets), 0.5, 0.999),
                 "d": Adam(weight_params(nets["d"]), 0.5, 0.999)}
-        if self.distill:
+        if self.online:
             opts["td"] = Adam(weight_params(nets["td"]), 0.5, 0.999)
             opts["tg"] = Adam(weight_params(nets["tg"]), 0.5, 0.999)
         if self.darts:
             opts["arch"] = Adam(arch_params(nets["d"]), 0.9, 0.999)
         ema = {"d_arch": torch.zeros((), device=self.device)}
-        return GANState(step=0, nets=nets, opts=opts, ema=ema)
+        return GANState(step=0, nets=nets, opts=opts, ema=ema,
+                        rng=torch.Generator().manual_seed(seed))
 
     def _g_bundle(self, nets):
         """The student G update's parameters: G, plus the transforms when
@@ -129,6 +149,15 @@ class Pix2PixEngine(CombinedStepMixin):
         if self.distill:
             bundle += weight_params(nets["tf"])
         return bundle
+
+    def _masks(self, state: GANState):
+        """A dropout-mask source for one net's forwards, from a seed drawn
+        from the state's rng: call it for each forward that must draw the
+        same masks (None without dropout)."""
+        if not self.dropout:
+            return lambda: None
+        seed = int(torch.randint(2 ** 62, (), generator=state.rng))
+        return lambda: torch.Generator(device=self.device).manual_seed(seed)
 
     # ------------------------------------------------------------- train step
 
@@ -141,11 +170,19 @@ class Pix2PixEngine(CombinedStepMixin):
         m: Dict[str, torch.Tensor] = {}
         AB = torch.cat([A, B], 1)
 
-        if self.distill:
+        masks, t_masks = self._masks(state), self._masks(state)
+
+        if self.distill and not self.online:
+            # normal_distillation: frozen teacher, forward-only targets
+            with torch.no_grad(), eval_mode(nets["tg"], nets["td"]):
+                tfake, tg_feats = nets["tg"](A)
+                _, td_feats = nets["td"](torch.cat([A, tfake], 1))
+            target_feats = tg_feats + td_feats
+        if self.online:
             TG, TD = nets["tg"], nets["td"]
             # ---- teacher forward (tfake for its D update) ----
             with torch.no_grad():
-                tfake, _ = TG(A)
+                tfake, _ = TG(A, t_masks(), update_stats=False)
 
             # ---- teacher D update (D-then-G order, Pix2Pix.py:565-583) ----
             pf, pr = d_pair(TD, torch.cat([A, tfake], 1), AB, self.fused_d)
@@ -156,7 +193,7 @@ class Pix2PixEngine(CombinedStepMixin):
                             cfg.lr)  # teacher LR is never scheduled
 
             # ---- teacher G update; capture distillation targets ----
-            tfake2, tg_feats = TG(A)
+            tfake2, tg_feats = TG(A, t_masks())
             pf, td_feats = TD(torch.cat([A, tfake2], 1))
             loss = gan_loss(pf, True, self.gan_mode, for_discriminator=False) \
                 + cfg.lambda_L1 * l1(tfake2, B)
@@ -170,7 +207,7 @@ class Pix2PixEngine(CombinedStepMixin):
 
         # ---- student forward (fake for the D update) ----
         with torch.no_grad():
-            fake, _ = G(A)
+            fake, _ = G(A, masks(), update_stats=False)
 
         # ---- student D update (alphas are constants here) ----
         pf, pr = d_pair(D, torch.cat([A, fake], 1), AB, self.fused_d)
@@ -181,7 +218,7 @@ class Pix2PixEngine(CombinedStepMixin):
         m["D_fake"], m["D_real"] = lf.detach(), lr_.detach()
 
         # ---- student G update ----
-        fake2, g_feats = G(A)
+        fake2, g_feats = G(A, masks())
         pf, _ = D(torch.cat([A, fake2], 1))
         l_gan = gan_loss(pf, True, self.gan_mode, for_discriminator=False)
         l_l1 = cfg.lambda_L1 * l1(fake2, B)
@@ -223,9 +260,10 @@ class Pix2PixEngine(CombinedStepMixin):
         clip_alphas(alphas)
 
         with torch.no_grad():
-            # student + teacher generator forwards (train mode)
-            fake, _ = nets["g"](A)
-            tfake, _ = nets["tg"](A)
+            # student + teacher generator forwards (train mode, stats
+            # updated, fresh dropout masks)
+            fake, _ = nets["g"](A, self._masks(state)())
+            tfake, _ = nets["tg"](A, self._masks(state)())
             # teacher discrepancy EMA (Pix2Pix.py:489-511); both TD
             # forwards move its running stats
             tpf, _ = TD(torch.cat([A, tfake], 1))
@@ -252,10 +290,5 @@ class Pix2PixEngine(CombinedStepMixin):
     def generate(self, state: GANState, A: torch.Tensor,
                  teacher: bool = False) -> torch.Tensor:
         """Eval-mode forward of the student (or teacher) generator."""
-        net = state.nets["tg" if teacher else "g"]
-        net.eval()
-        try:
-            out, _ = net(A)
-        finally:
-            net.train()
-        return out
+        with eval_mode(state.nets["tg" if teacher else "g"]) as (net,):
+            return net(A)[0]

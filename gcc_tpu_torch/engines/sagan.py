@@ -12,6 +12,10 @@ and the arch step on a validation batch (:289-330): clip alphas -> G and
 teacher G forwards -> teacher discrepancy EMA -> |student disc - EMA| + the
 unhalved D GAN terms -> Adam over the mask alphas only.
 
+Under normal distillation the teacher is frozen: its targets come from
+eval-mode forwards that update nothing (engines/sagan.py:150-160), and it
+has no optimizers.
+
 Semantics kept from the JAX engine: Adam betas (0, 0.9); D learning rate 4x
 the G rate (the teacher D at the constant cfg.lr * 4, the student D at the
 scheduled lr * 4); the student G bundle {g, tf} and the masked D step their
@@ -34,8 +38,8 @@ from gcc_tpu_torch.config import Config
 from gcc_tpu_torch.device import resolve_device
 from gcc_tpu_torch.engines.common import (
     Adam, CombinedStepMixin, DupAdam, GANState, add_sign_sparsity,
-    arch_params, d_pair, discrepancy, distill_losses, ema_update, grads_of,
-    weight_params,
+    arch_params, d_pair, discrepancy, distill_losses, ema_update, eval_mode,
+    grads_of, weight_params,
 )
 from gcc_tpu_torch.engines.pix2pix import TransformConvs
 from gcc_tpu_torch.losses import gan_loss, l1
@@ -68,13 +72,11 @@ class SAGANEngine(CombinedStepMixin):
     init_state, state_for, train_step, arch_step, train_arch_step, generate."""
 
     def __init__(self, cfg: Config, filter_cfgs=None, device=None):
-        if cfg.normal_distillation and not cfg.online_distillation:
-            raise NotImplementedError(
-                "normal_distillation is not part of this slice")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.filter_cfgs = filter_cfgs
-        self.distill = cfg.online_distillation
+        self.distill = cfg.online_distillation or cfg.normal_distillation
+        self.online = cfg.online_distillation
         self.darts = cfg.darts_discriminator
         self.gan_mode = cfg.gan_mode
         self.fused_d = cfg.fused_d_batch
@@ -114,9 +116,10 @@ class SAGANEngine(CombinedStepMixin):
     def state_for(self, nets: Dict[str, nn.Module]) -> GANState:
         """A step-0 state around already-initialised nets."""
         opts = {}
-        if self.distill:
+        if self.online:
             opts["td"] = Adam(weight_params(nets["td"]), 0.0, 0.9)
             opts["tg"] = Adam(weight_params(nets["tg"]), 0.0, 0.9)
+        if self.distill:
             # duplicate-scan branch (SAGAN.py:315-327)
             opts["g"] = DupAdam(self._g_bundle(nets),
                                 _dup_flags(nets["g"], nets["tf"]), 0.0, 0.9)
@@ -149,7 +152,13 @@ class SAGANEngine(CombinedStepMixin):
         G, D = nets["g"], nets["d"]
         m: Dict[str, torch.Tensor] = {}
 
-        if self.distill:
+        if self.distill and not self.online:
+            # normal_distillation: frozen teacher, forward-only targets
+            with torch.no_grad(), eval_mode(nets["tg"], nets["td"]):
+                tfake, tg_feats = nets["tg"](z)
+                _, td_feats = nets["td"](tfake)
+            target_feats = tg_feats + td_feats
+        if self.online:
             TG, TD = nets["tg"], nets["td"]
             with torch.no_grad():
                 tfake0, _ = TG(z, update_stats=False)
@@ -256,10 +265,5 @@ class SAGANEngine(CombinedStepMixin):
                  teacher: bool = False) -> torch.Tensor:
         """Eval-mode forward of the student (or teacher) generator: running
         BatchNorm stats, spectral vectors iterated but not stored."""
-        net = state.nets["tg" if teacher else "g"]
-        net.eval()
-        try:
-            out, _ = net(z)
-        finally:
-            net.train()
-        return out
+        with eval_mode(state.nets["tg" if teacher else "g"]) as (net,):
+            return net(z)[0]

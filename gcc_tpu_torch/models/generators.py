@@ -1,7 +1,7 @@
-"""Generator networks (port of gcc_tpu/models/generators.py): the
-MobileResnet generator (models/CycleGAN.py:77-138 = models/Pix2Pix.py:199-265)
-and the SAGAN generator (models/SAGAN.py:109-171); the U-Net follows in a
-later slice.
+"""Generator networks (port of gcc_tpu/models/generators.py): the U-Net
+(models/Pix2Pix.py:79-130), the MobileResnet generator
+(models/CycleGAN.py:77-138 = models/Pix2Pix.py:199-265) and the SAGAN
+generator (models/SAGAN.py:109-171).
 
 Submodule names mirror the JAX package's parameter tree (``conv_in``,
 ``block_3_sep1.depthwise``, ...), which is how ``utils/weights.py`` carries
@@ -19,10 +19,146 @@ import torch.nn as nn
 
 from gcc_tpu_torch.ops.attention import SelfAttention
 from gcc_tpu_torch.ops.layers import (
-    BatchNorm, Conv, ConvTranspose, SeparableConv, instance_norm, reflect_pad,
+    BatchNorm, Conv, ConvTranspose, SeparableConv, instance_norm, leaky_relu,
+    reflect_pad,
 )
 from gcc_tpu_torch.ops.mobile_block import fused_mobile_block
 from gcc_tpu_torch.ops.spectral import SpectralConvTranspose
+
+
+def unet_default_filter_cfgs(ngf: int, num_downs: int) -> list:
+    """Unpruned filter_cfgs: downs [0..N-1] then ups [N..2N-2] (innermost->depth1)."""
+    n = num_downs
+    downs = [ngf * min(2 ** k, 8) for k in range(n)]
+    ups = [ngf * min(2 ** (k - 1), 8) for k in range(n - 1, 0, -1)]
+    return downs + ups
+
+
+def unet_default_channel_cfgs(ngf: int, num_downs: int) -> list:
+    """Unpruned channel_cfgs (input widths; see Pix2Pix.py:88-127)."""
+    n = num_downs
+    downs = [ngf * min(2 ** (k + 1), 8) for k in range(n - 1)]
+    inner_up_in = [ngf * 8]
+    cat = [2 * ngf * min(2 ** (k - 1), 8) for k in range(n - 1, 0, -1)]
+    return downs + inner_up_in + cat
+
+
+def unet_existing_depths(f: Sequence[int], num_downs: int) -> List[int]:
+    """The depths whose blocks exist (Pix2Pix.py:87-103): the innermost iff
+    f[N-1] and f[N] are non-zero, a middle depth d in [4..N-2] iff f[d] and
+    f[2N-1-d] are, depths 0..3 always."""
+    n = num_downs
+
+    def exists(d):
+        if d == n - 1:
+            return f[n - 1] != 0 and f[n] != 0
+        if 4 <= d <= n - 2:
+            return f[d] != 0 and f[2 * n - 1 - d] != 0
+        return True
+
+    return [d for d in range(n) if exists(d)]
+
+
+def unet_layout(f: Sequence[int], num_downs: int, input_nc: int = 3,
+                output_nc: int = 3):
+    """What a U-Net of filter_cfgs ``f`` is built from: (depths, downs, ups,
+    feature widths). downs[d] and ups[d] are the (in, out) widths of the
+    conv and the transpose conv at depth d; the feature widths are those of
+    g_feat_0..3: f[1], f[3], the concat that feeds up depth 3 and the one
+    that feeds up depth 1 (the shallower skip's width plus the deeper up's
+    output, or the skip's alone where nothing deeper exists)."""
+    n = num_downs
+    depths = unet_existing_depths(f, n)
+    downs, ups, width = {}, {}, input_nc
+    for d in depths:
+        downs[d] = (width, f[d])
+        width = f[d]
+    feats = {0: f[1], 1: f[3]}
+    for d in reversed(depths):  # width: h's channels where up depth d reads it
+        if d == 3:
+            feats[2] = width
+        if d == 1:
+            feats[3] = width
+        out = output_nc if d == 0 else f[2 * n - 1 - d]
+        ups[d] = (width, out)
+        if d > 0:
+            width = f[max(dd for dd in depths if dd < d)] + out
+    return depths, downs, ups, [feats[i] for i in range(4)]
+
+
+class UnetGenerator(nn.Module):
+    """8-down U-Net with cfg-driven widths and zero-width block elision.
+
+    filter_cfgs layout (N = num_downs, len 2N-1):
+      [0..N-1]   out-channels of downconvs, outermost -> innermost
+      [N]        out-channels of the innermost upconv
+      [N+1..2N-2] out-channels of upconvs, depth N-2 -> depth 1
+    The outermost upconv's out-channels are output_nc. Downconvs are
+    bias-free; the innermost and outermost carry no norm. Every upconv but
+    the outermost (which keeps its bias, then tanh) is bias-free and
+    BatchNormed, with dropout 0.5 at depths 4..N-2 in train mode. Where a
+    block is elided (``unet_existing_depths``), the skip chain passes the
+    shallower feature straight through. ``channel_cfgs`` is carried, not
+    used to build.
+
+    Captured features (Pix2Pix.py:366-369), in this order:
+      g_feat_0 <- BN output of down depth 1
+      g_feat_1 <- BN output of down depth 3
+      g_feat_2 <- relu(concat) feeding up depth 3
+      g_feat_3 <- relu(concat) feeding up depth 1
+    """
+
+    def __init__(self, input_nc: int = 3, output_nc: int = 3,
+                 num_downs: int = 8, ngf: int = 64, use_dropout: bool = True,
+                 filter_cfgs: Optional[Sequence[int]] = None,
+                 channel_cfgs: Optional[Sequence[int]] = None):
+        super().__init__()
+        n = num_downs
+        f = list(filter_cfgs) if filter_cfgs is not None \
+            else unet_default_filter_cfgs(ngf, n)
+        self.num_downs, self.use_dropout = n, use_dropout
+        self.filter_cfgs, self.channel_cfgs = f, channel_cfgs
+        self.depths, downs, ups, self.feature_widths = unet_layout(
+            f, n, input_nc, output_nc)
+        for d in self.depths:
+            self.add_module(f"down_{d}", Conv(*downs[d], (4, 4), (2, 2), 1,
+                                              use_bias=False))
+            if d not in (0, n - 1):
+                self.add_module(f"down_norm_{d}", BatchNorm(downs[d][1]))
+        for d in reversed(self.depths):
+            self.add_module(f"up_{d}", ConvTranspose(*ups[d], use_bias=d == 0))
+            if d > 0:
+                self.add_module(f"up_norm_{d}", BatchNorm(ups[d][1]))
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                update_stats: bool = True
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """``generator`` draws the dropout masks (train mode); a train-mode
+        forward moves the BatchNorm running stats when ``update_stats``."""
+        n, depths = self.num_downs, self.depths
+        feats, skips, h = [None] * 4, {}, x
+        for d in depths:
+            if d > 0:
+                h = leaky_relu(h, 0.2)
+            h = getattr(self, f"down_{d}")(h)
+            if d not in (0, n - 1):
+                h = getattr(self, f"down_norm_{d}")(h, update_stats)
+                if d in (1, 3):
+                    feats[d // 2] = h  # g_feat_0 at depth 1, g_feat_1 at 3
+            skips[d] = h
+        for d in reversed(depths):
+            h = torch.relu(h)  # uprelu on the innermost down output or concat
+            if d in (1, 3):
+                feats[3 - d // 2] = h  # g_feat_2 at depth 3, g_feat_3 at 1
+            if d == 0:
+                return torch.tanh(self.up_0(h)), feats
+            h2 = getattr(self, f"up_norm_{d}")(getattr(self, f"up_{d}")(h),
+                                               update_stats)
+            if self.use_dropout and self.training and 4 <= d <= n - 2:
+                h2 = dropout(h2, 0.5, generator)
+            h = torch.cat([skips[max(dd for dd in depths if dd < d)], h2], 1)
+        raise AssertionError("unreachable")
 
 
 def mobile_resnet_default_cfg(ngf: int, n_blocks: int = 9) -> list:
@@ -82,9 +218,11 @@ class MobileResnetGenerator(nn.Module):
         self.conv_out = Conv(u1, output_nc, (7, 7))
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                update_stats: bool = True
                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-        """``generator`` draws the dropout masks (dropout_rate > 0, train mode)."""
+        """``generator`` draws the dropout masks (dropout_rate > 0, train
+        mode). ``update_stats`` is the U-Net's: InstanceNorm keeps none."""
         # TPU VMEM gate dropped (gcc_tpu/models/generators.py:232-238): it
         # guards Mosaic's 16 MB scoped VMEM, which the card does not have; the
         # CUDA kernels tile every width. At full width the JAX teacher

@@ -27,6 +27,7 @@ and calls ``attn_bwd`` once.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -105,9 +106,7 @@ def _check_qkv(q, k, v):
 
 
 def attn_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward: (O (B, dv, N), lse (B, N)). On the card the launch fails
-    (RuntimeError) for widths whose tiles do not fit in shared memory: dq
-    above about 260."""
+    """Forward: (O (B, dv, N), lse (B, N)), any N, dq and dv."""
     if not q.is_cuda:
         return attn_fwd_plain(q, k, v)
     B, N, dq, dv = _check_qkv(q, k, v)
@@ -121,6 +120,13 @@ def attn_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     return o, lse
 
 
+@functools.lru_cache(maxsize=None)
+def dq_groups(N: int) -> int:
+    """Key-tile groups of the backward's dq partials for N keys, as the
+    kernel library sizes them (at most 16, whatever N is)."""
+    return kernels.library("flash_attention").gcc_attn_bwd_groups(N)
+
+
 def _check_bwd(q, k, v, do, lse, delta):
     B, N, dq, dv = _check_qkv(q, k, v)
     kernels.check(q.device, "do", do, (B, dv, N))
@@ -132,17 +138,17 @@ def _check_bwd(q, k, v, do, lse, delta):
 def attn_bwd(q, k, v, do, lse, delta
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(d loss / d q, d loss / d k (B, dq, N), d loss / d v (B, dv, N)) from
-    dO = d loss / d O, the saved lse and delta = sum_c dO * O. On the card
-    the launch fails (RuntimeError) for widths whose tiles do not fit in
-    shared memory: more than about 370 rows of q and v together."""
+    dO = d loss / d O, the saved lse and delta = sum_c dO * O; any N, dq and
+    dv. Scratch: dq partials of at most 16 key-tile groups, B * 16 * dq * N
+    floats at most."""
     if not q.is_cuda:
         return attn_bwd_plain(q, k, v, do, lse, delta)
     B, N, dq, dv = _check_bwd(q, k, v, do, lse, delta)
     with torch.cuda.device(q.device):
         dq_out, dk, dv_out = (torch.empty_like(q), torch.empty_like(k),
                               torch.empty_like(v))
-        # per-key-tile dq partials, summed in order by the kernel's second pass
-        part = torch.empty(B, -(-N // 64), dq, N, device=q.device)
+        # the key-tile groups' dq partials, summed in order by the second pass
+        part = torch.empty(B, dq_groups(N), dq, N, device=q.device)
         p = kernels.ptr
         kernels.launch("flash_attention", "gcc_attn_bwd", p(q), p(k), p(v),
                        p(do), p(lse), p(delta), p(dq_out), p(dk), p(dv_out),

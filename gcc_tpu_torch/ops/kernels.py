@@ -28,7 +28,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes of every C entry point, by source name (pointers and the stream
 # as c_void_p, ints as c_int); every entry point returns cudaError_t as int,
-# but gcc_stage_bwd_pw_partials, which returns a count and takes no stream
+# but gcc_stage_bwd_pw_partials and gcc_attn_bwd_groups, which return a
+# count and take no stream
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "mobile_block": {
         "gcc_stage_fwd": [_P] * 9 + [_I] * 6 + [_P],
@@ -38,6 +39,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "flash_attention": {
         "gcc_attn_fwd": [_P] * 5 + [_I] * 4 + [_P],
+        "gcc_attn_bwd_groups": [_I],
         "gcc_attn_bwd": [_P] * 10 + [_I] * 4 + [_P],
     },
 }

@@ -97,14 +97,19 @@ def test_sagan_engine_without_device_needs_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         SAGANEngine(cfg, device="cuda")
     assert SAGANEngine(cfg, device="cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError):
-        SAGANEngine(cfg.replace(online_distillation=False,
-                                normal_distillation=True), device="cpu")
+    normal = SAGANEngine(cfg.replace(online_distillation=False,
+                                     normal_distillation=True), device="cpu")
+    assert normal.distill and not normal.online
 
 
 def test_unet_backbone_not_in_this_slice():
-    with pytest.raises(NotImplementedError):
-        Pix2PixEngine(Config(backbone="unet"), device="cpu")
+    """The U-Net backbone (the default) came with a later slice: the engine
+    builds it on the CPU, student and teacher."""
+    eng = Pix2PixEngine(Config(backbone="unet", online_distillation=True),
+                        device="cpu")
+    nets = eng.build_nets()
+    assert type(nets["g"]).__name__ == type(nets["tg"]).__name__ == \
+        "UnetGenerator"
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

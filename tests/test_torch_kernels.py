@@ -15,7 +15,8 @@ Shapes are small and ragged (widths off every tile multiple and past one
 one, a plane larger than the 64x64 that the norms hold in registers and one
 whose tiles pass the depthwise backward's shared memory; N off the 64-row
 tile, feature widths past one 16-wide chunk and one 64-wide output chunk,
-widths whose backward tiles fit only one shared-memory stage), complementing
+widths that take the wide kernels, which stream q, k, v and dO in 64-channel
+chunks, and lengths whose dq partials group several key tiles), complementing
 the main-path shapes that chip_smoke.py checks, and logits up to ~80
 (q, k at scale 2). fp32 with TF32 off; B2
 forward within 1e-4, B1 forward within 1e-5 * max(|ref|, 1), gradients
@@ -120,11 +121,15 @@ def test_wrapper_rejects_bad_input(cuda):
 
 
 # (B, N, dq, dv, scale of q and k): scale 2 gives logits up to ~80, where
-# an error in S weighs most
+# an error in S weighs most. SAGAN D's attn2 at 4x4 (dq 64, dv 512), a q
+# wider than the resident forward takes (dq 320), and N past 16 key tiles,
+# whose dq partials group 5 and 2 key tiles (N 4160: 13 groups; N 1100: 9)
 ATTN_CASES = [(1, 1, 1, 1, 0.5), (2, 65, 3, 5, 0.5), (3, 130, 25, 200, 0.5),
               (2, 1024, 2, 16, 0.5), (1, 200, 40, 33, 0.5),
               (1, 70, 40, 280, 0.5), (2, 1024, 8, 64, 2.0),
-              (2, 1000, 2, 16, 2.0)]
+              (2, 1000, 2, 16, 2.0), (64, 16, 64, 512, 0.5),
+              (2, 300, 320, 320, 0.5), (1, 4160, 8, 64, 0.5),
+              (1, 1100, 100, 150, 0.5)]
 
 
 @pytest.mark.cuda
@@ -158,6 +163,15 @@ def test_attention_kernels_match_plain(cuda, case):
     # no float atomics: a second call gives the same bits
     assert all(torch.equal(a, b) for a, b in zip((o, lse), fa.attn_fwd(q, k, v)))
     assert all(torch.equal(a, b) for a, b in zip(grads, fa.attn_bwd(*args)))
+
+
+@pytest.mark.cuda
+def test_attention_dq_groups(cuda):
+    """The backward's dq scratch holds at most 16 key-tile groups, whatever
+    N is: one group a key tile up to 16 tiles."""
+    assert [fa.dq_groups(n) for n in (1, 64, 1000, 1024, 1025, 1100, 4160,
+                                      16384, 65536)] == \
+        [1, 1, 16, 16, 9, 9, 13, 16, 16]
 
 
 @pytest.mark.cuda
