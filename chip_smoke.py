@@ -64,9 +64,29 @@ Phases, each of which exits non-zero on failure:
               launch, and one profiled iteration;
  10. agree    the U-Net engine on the card against the same engine on the
               CPU, same weights and batches, no dropout, tiny widths,
-              3 iterations.
-The run is fp32 throughout: TF32 is off for cuDNN and matmul. The last two
-lines are the kernels' JSON record and {"ok": true, "device": ...}.
+              3 iterations;
+ 11. cli      the training run through python -m gcc_tpu_torch.cli.train
+              and .test, in this process, on synthetic data (8 images,
+              batch 4, one epoch each, a temporary --checkpoints_dir):
+              (a) the U-Net workflow of scripts/pix2pix/*.sh at 256 px
+              (stage 1 --lambda_scale 1e-2 --ngf 32 --ndf 128; stage 2
+              pruned to 3.0 GMACs on startup with online distillation and
+              DARTS; stage 3 the test CLI), (b) stage 1 and 2 with the
+              resnet backbone and fused blocks (B2 108/36/36 per
+              iteration), (c) SAGAN with scripts/sagan/*.sh's flags at
+              64 px, batch 64, 128 images (B1 6/2 per iteration), (d)
+              --continue_train of (a)'s stage 2 for epoch 2, (e) the test
+              CLI on (a)'s final checkpoint on the card and on the CPU
+              (--gpu_ids -1): the same pixel-FID within 1e-4 relative.
+              Where a two-iteration stage 1 cannot be pruned to its
+              budget, its checkpoint is rewritten from phase 9's spread
+              weights, and the phase says so. Per stage: wall seconds, ms
+              per iteration through the CLI and inside the engine step
+              (host clock, each step ended by a synchronize), launches,
+              pruned cfgs and GMACs, and the metric.
+The run is fp32 throughout: TF32 is off for cuDNN and matmul. The last four
+lines are phase 11's JSON record of its stages, the card's name and power
+limit, the kernels' JSON record and {"ok": true, "device": ...}.
 """
 
 import json
@@ -893,6 +913,287 @@ def phase_unet_agree(torch, np):
         fail(f"generate differs by {err}")
 
 
+class IterationClock:
+    """Wraps the engines' train_step and train_arch_step while the CLI runs:
+    per outermost call, the kernels' launches it made and its duration, and
+    the host time at which it ended (each call ends in a synchronize)."""
+
+    def __init__(self, torch, classes, counters):
+        self.torch, self.classes, self.counters = torch, classes, counters
+        self.calls, self.depth, self.saved = [], 0, []
+
+    def __enter__(self):
+        for cls in self.classes:
+            for name in ("train_step", "train_arch_step"):
+                self.saved.append((cls, name, cls.__dict__.get(name)))
+                setattr(cls, name, self._wrap(getattr(cls, name)))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, own in reversed(self.saved):
+            if own is None:
+                delattr(cls, name)  # inherited again
+            else:
+                setattr(cls, name, own)
+
+    def _wrap(self, orig):
+        def step(engine, *args, **kw):
+            self.depth += 1
+            before = {k: dict(c) for k, c in self.counters.items()}
+            t0 = time.perf_counter()
+            try:
+                return orig(engine, *args, **kw)
+            finally:
+                self.depth -= 1
+                if self.depth == 0:
+                    self.torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    grown = {n: c[n] - before[k][n]
+                             for k, c in self.counters.items() for n in c}
+                    self.calls.append((t0, t1, grown))
+        return step
+
+    def summary(self):
+        """(ms per CLI iteration between consecutive ends, engine ms of the
+        same iterations, launches of each iteration); the first iteration
+        is the warm-up."""
+        ends = [t1 for _, t1, _ in self.calls]
+        gaps = [b - a for a, b in zip(ends, ends[1:])]
+        inside = [t1 - t0 for t0, t1, _ in self.calls[1:]]
+        mean = (lambda xs: 1e3 * sum(xs) / len(xs) if xs else float("nan"))
+        return mean(gaps), mean(inside), [g for _, _, g in self.calls]
+
+
+class LogLines:
+    """Collects the CLI logger's messages that start with one of prefixes."""
+
+    def __init__(self, logging, prefixes):
+        self.logging, self.prefixes, self.lines = logging, prefixes, []
+
+    def __enter__(self):
+        owner = self
+
+        class Grab(self.logging.Handler):
+            def emit(self, record):
+                msg = record.getMessage()
+                if msg.startswith(owner.prefixes):
+                    owner.lines.append(msg)
+
+        self.handler = Grab()
+        self.logging.getLogger("gcc-tpu-torch").addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logging.getLogger("gcc-tpu-torch").removeHandler(self.handler)
+
+
+CLI_LOG = ("pruned ", "[proxy]", "metrics: ", "resumed ")
+
+
+def run_cli(torch, stage, argv, counters, records, test=False):
+    """One CLI run in this process (the card), timed, with the kernels'
+    counts set to 0 just before and read just after; prints its pruned
+    cfgs, metric and per-iteration numbers and returns the clock."""
+    import logging
+
+    from gcc_tpu_torch.cli import test as cli_test
+    from gcc_tpu_torch.cli import train as cli_train
+    from gcc_tpu_torch.engines.pix2pix import Pix2PixEngine
+    from gcc_tpu_torch.engines.sagan import SAGANEngine
+
+    for c in counters.values():
+        for k in c:
+            c[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with IterationClock(torch, (Pix2PixEngine, SAGANEngine),
+                        counters) as clock, LogLines(logging, CLI_LOG) as log:
+        rc = (cli_test if test else cli_train).main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"{stage}: exit code {rc}")
+    cli_ms, engine_ms, per_iter = clock.summary()
+    totals = {k: dict(c) for k, c in counters.items()}
+    print(f"  {stage}: {wall:.3f} s wall, {len(per_iter)} iterations, "
+          f"{cli_ms:.3f} ms/iteration through the CLI, {engine_ms:.3f} ms in "
+          f"the engine step; launches per iteration {per_iter}, in all "
+          f"{totals}")
+    for line in log.lines:
+        print(f"    {line}")
+    metric = [float(x.split(": ")[1]) for x in log.lines
+              if x.startswith("metrics: ")]
+    ms = (lambda x: None if math.isnan(x) else round(x, 3))
+    records.append({"stage": stage, "seconds": round(wall, 3),
+                    "iterations": len(per_iter), "ms_per_iter": ms(cli_ms),
+                    "engine_ms_per_iter": ms(engine_ms)})
+    return clock, metric[0] if metric else None, log.lines
+
+
+def host_batch_ms(argv, n=3):
+    """Host ms to build one training batch of argv's dataset on one thread
+    (items + collate), the least of n after a first one: the data path's
+    cost per batch, which the loader's threads overlap with the card."""
+    from gcc_tpu_torch import config
+    from gcc_tpu_torch.data import build_dataset
+    from gcc_tpu_torch.data.loader import collate
+
+    cfg = config.parse(argv)
+    ds = build_dataset(cfg, seed=0)
+    times = []
+    for r in range(n + 1):
+        t0 = time.perf_counter()
+        collate([ds[(r * cfg.batch_size + i) % len(ds)]
+                 for i in range(cfg.batch_size)])
+        times.append(time.perf_counter() - t0)
+    return 1e3 * min(times[1:])
+
+
+def spread_checkpoint(np, net, path, why):
+    """Stage 1's checkpoint from bench.py's spread weights (phase 9's), as
+    sparsity pretraining would leave them, written by the port."""
+    from gcc_tpu_torch.utils.checkpoint import save_checkpoint
+    from gcc_tpu_torch.utils.weights import export_jax_variables
+
+    tree = export_jax_variables(net)
+    tree["params"] = spread_tree(np, tree["params"], np.random.RandomState(0))
+    save_checkpoint(path, {"G": tree, "D": None, "epoch": 1,
+                           "cfg": (None, None), "fid": None})
+    print(f"  stage 1 checkpoint replaced by spread weights: {why}")
+
+
+def prunable(argv):
+    """None when stage 2's prune-on-startup meets its budget from argv's
+    --pretrain_path, else the search's error."""
+    import logging
+
+    from gcc_tpu_torch import config
+    from gcc_tpu_torch.cli.train import build_engine
+
+    try:
+        build_engine(config.parse(argv), logging.getLogger("chip_smoke"),
+                     device="cpu")
+    except RuntimeError as e:
+        return str(e)
+    return None
+
+
+def phase_cli(torch, np):
+    """Phase 11: the training run through the CLIs on the card."""
+    import tempfile
+
+    from gcc_tpu_torch.models.generators import (MobileResnetGenerator,
+                                                 SAGANGenerator,
+                                                 UnetGenerator)
+    from gcc_tpu_torch.ops import flash_attention as fa
+    from gcc_tpu_torch.ops import mobile_block as mb
+
+    counters = {"B2": mb.LAUNCHES, "B1": fa.LAUNCHES}
+    records = []
+    print("== phase 11: the training run through python -m "
+          "gcc_tpu_torch.cli.{train,test} on the card, synthetic data")
+    with tempfile.TemporaryDirectory() as tmp:
+        common = (f"--dataroot synthetic --dataset_mode synthetic "
+                  f"--model pix2pix --max_dataset_size 8 --batch_size 4 "
+                  f"--n_epochs 1 --n_epochs_decay 0 --print_freq 4 "
+                  f"--num_threads 4 --checkpoints_dir {tmp}").split()
+        # (a) U-Net, scripts/pix2pix/*.sh at 256 px
+        s1 = common + "--lambda_scale 1e-2 --ngf 32 --ndf 128 --name u1".split()
+        run_cli(torch, "unet stage 1", s1, counters, records)
+        best1 = f"{tmp}/u1/checkpoints/model_best_AtoB.ckpt"
+        gcc = (f"--ngf 32 --ndf 128 --darts_discriminator --arch_lr 1e-4 "
+               f"--arch_lr_step --scale_prune --target_budget 3.0 "
+               f"--pretrain_path {best1} --online_distillation "
+               f"--lambda_content 50 --lambda_gram 1e4 --name u2").split()
+        why = prunable(common + gcc)
+        if why:
+            spread_checkpoint(np, UnetGenerator(ngf=32), best1, why)
+        run_cli(torch, "unet stage 2", common + gcc, counters, records)
+        test_args = (f"--dataroot synthetic --dataset_mode synthetic "
+                     f"--model pix2pix --ngf 32 --max_dataset_size 8 "
+                     f"--checkpoints_dir {tmp} --pretrain_path "
+                     f"{tmp}/u2/checkpoints/model_1.ckpt").split()
+        run_cli(torch, "unet stage 3 (test)", test_args + ["--name", "u3"],
+                counters, records, test=True)
+        # (b) resnet with fused blocks (B2), pruned from a resnet stage 1
+        res = "--backbone resnet --fused_resblock on --ngf 64 --ndf 128"
+        r1 = common + f"{res} --lambda_scale 1e-2 --name r1".split()
+        run_cli(torch, "resnet stage 1", r1, counters, records)
+        rbest = f"{tmp}/r1/checkpoints/model_best_AtoB.ckpt"
+        r2 = common + (f"{res} --darts_discriminator --arch_lr 1e-4 "
+                       f"--arch_lr_step --scale_prune --target_budget 3.0 "
+                       f"--pretrain_path {rbest} --online_distillation "
+                       f"--lambda_content 50 --lambda_gram 1e4 "
+                       f"--name r2").split()
+        why = prunable(r2)
+        if why:
+            spread_checkpoint(np, MobileResnetGenerator(ngf=64), rbest, why)
+        clock, _, _ = run_cli(torch, "resnet stage 2 (B2)", r2, counters,
+                              records)
+        b2 = [{k: g[k] for k in PER_ITER} for g in clock.summary()[2]]
+        print(f"  B2 launches per iteration through the CLI: {b2}")
+        if any(g != PER_ITER for g in b2) or not b2:
+            fail(f"resnet stage 2: B2 launches {b2}, expected {PER_ITER}")
+        # (c) SAGAN, scripts/sagan/*.sh at 64 px, batch 64, two iterations
+        sg = (f"--dataroot synthetic/celeb --dataset_mode synthetic "
+              f"--model sagan --max_dataset_size 128 --n_epochs 1 "
+              f"--save_epoch_freq 1 --print_freq 64 --num_threads 4 "
+              f"--checkpoints_dir {tmp}").split()
+        g1 = sg + "--lambda_scale 1e-2 --ngf 48 --ndf 64 --name g1".split()
+        run_cli(torch, "sagan stage 1", g1, counters, records)
+        gbest = f"{tmp}/g1/checkpoints/model_best_AtoB.ckpt"
+        g2 = sg + (f"--ngf 48 --ndf 64 --scale_prune --pretrain_path {gbest} "
+                   f"--target_budget 0.016 --darts_discriminator "
+                   f"--threshold 0.1 --online_distillation --lambda_L1 0 "
+                   f"--lambda_content 1 --lambda_gram 1 --name g2").split()
+        why = prunable(g2)
+        if why:
+            spread_checkpoint(np, SAGANGenerator(ngf=48), gbest, why)
+        clock, _, _ = run_cli(torch, "sagan stage 2 (B1)", g2, counters,
+                              records)
+        b1 = [{k: g[k] for k in ATTN_PER_ITER} for g in clock.summary()[2]]
+        print(f"  B1 launches per iteration through the CLI: {b1}")
+        if any(g != ATTN_PER_ITER for g in b1) or not b1:
+            fail(f"sagan stage 2: B1 launches {b1}, expected {ATTN_PER_ITER}")
+        # (d) resume (a)'s stage 2 for a second epoch
+        _, _, lines = run_cli(
+            torch, "unet stage 2 resumed", common + gcc
+            + "--n_epochs 2 --continue_train".split(), counters, records)
+        if not any("continuing at epoch 2" in x for x in lines):
+            fail(f"resume did not continue at epoch 2: {lines}")
+        with open(f"{tmp}/u2/checkpoints/train_state.json") as f:
+            meta = json.load(f)
+        if meta != {"epoch": 2}:
+            fail(f"resume: train_state.json {meta}")
+        # (e) the final checkpoint's metric on the card and on the CPU
+        final = test_args[:-1] + [f"{tmp}/u2/checkpoints/model_2.ckpt"]
+        _, card, _ = run_cli(torch, "unet test on the card",
+                             final + ["--name", "e_card"], counters, records,
+                             test=True)
+        _, cpu, _ = run_cli(torch, "unet test on the CPU",
+                            final + ["--name", "e_cpu", "--gpu_ids", "-1"],
+                            counters, records, test=True)
+        for name, argv, stage in (("unet 256 px, batch 4", common + gcc,
+                                   "unet stage 2"),
+                                  ("resnet 256 px, batch 4", r2,
+                                   "resnet stage 2 (B2)"),
+                                  ("sagan 64 px, batch 64", g2,
+                                   "sagan stage 2 (B1)")):
+            ms = host_batch_ms(argv)
+            rec = next(r for r in records if r["stage"] == stage)
+            rec["host_batch_ms"] = round(ms, 3)
+            # a DARTS iteration takes a train and a val batch
+            print(f"  data path, {name}: {ms:.3f} ms a batch on one host "
+                  f"thread; two batches an iteration = "
+                  f"{2 * ms / rec['ms_per_iter']:.3f} of the CLI iteration")
+        rel = abs(card - cpu) / abs(cpu)
+        print(f"  card pixel-FID {card!r}, CPU {cpu!r}: relative "
+              f"difference {rel:.3e} (bound 1e-4)")
+        if not rel <= 1e-4:
+            fail(f"card metric {card} vs CPU {cpu}")
+    return records
+
+
 def main():
     import numpy as np
     import torch
@@ -926,6 +1227,7 @@ def main():
     phase_sagan_agree(torch, np)
     phase_unet(torch, np)
     phase_unet_agree(torch, np)
+    cli = phase_cli(torch, np)
 
     entries = []
     for k, rec in record.items():
@@ -939,6 +1241,7 @@ def main():
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    print(json.dumps({"cli": cli}))
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

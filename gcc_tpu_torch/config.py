@@ -162,6 +162,9 @@ class Config:
     inception_path: Optional[str] = None  # FID InceptionV3 weights
     log_jsonl: bool = True
     isTrain: bool = True
+    # the reference's --gpu_ids: the port's CLIs run on that card, or on the
+    # CPU with -1 (one id: data parallelism is ROADMAP Queue A item 7)
+    gpu_ids: str = "0"
 
     # populated by presets
     norm: str = "batch"
@@ -250,8 +253,6 @@ def build_parser() -> argparse.ArgumentParser:
                 typ = str
             default = f.default if f.default is not dataclasses.MISSING else None
             p.add_argument(flag, type=typ, default=default)
-    # legacy alias accepted but ignored (reference: --gpu_ids)
-    p.add_argument("--gpu_ids", type=str, default="0")
     return p
 
 

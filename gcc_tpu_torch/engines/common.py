@@ -15,11 +15,13 @@ import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from gcc_tpu_torch.losses import gan_loss, gram_pair_err, mse, sqrt_mse
 from gcc_tpu_torch.ops.layers import BatchNorm, Conv, ConvTranspose
+from gcc_tpu_torch.utils.weights import export_jax_variables, load_jax_variables
 
 
 @dataclasses.dataclass
@@ -33,6 +35,58 @@ class GANState:
     opts: Dict[str, "Adam"]
     ema: Dict[str, torch.Tensor]
     rng: Optional[torch.Generator] = None
+
+    def state_dict(self) -> dict:
+        """Everything a resumed run needs, as numpy arrays and ints: each
+        net's parameters and buffers, every optimizer's moments and count,
+        the EMA scalars, the step and the dropout generator's state."""
+        return {
+            "step": int(self.step),
+            "nets": {k: {n: _host(t) for n, t in net.state_dict().items()}
+                     for k, net in self.nets.items()},
+            "opts": {k: o.state_dict() for k, o in self.opts.items()},
+            "ema": {k: _host(v) for k, v in self.ema.items()},
+            "rng": None if self.rng is None else _host(self.rng.get_state()),
+        }
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore ``state_dict()``'s output in place: the same tensors and
+        optimizers take the saved values, so an engine built with the same
+        flags continues exactly where the saved run stopped."""
+        if set(sd["nets"]) != set(self.nets) \
+                or set(sd["opts"]) != set(self.opts):
+            raise ValueError(
+                f"saved nets {sorted(sd['nets'])} / optimizers "
+                f"{sorted(sd['opts'])} do not match this engine's "
+                f"{sorted(self.nets)} / {sorted(self.opts)}")
+        for k, net in self.nets.items():
+            net.load_state_dict({n: torch.from_numpy(np.asarray(a))
+                                 for n, a in sd["nets"][k].items()})
+        for k, opt in self.opts.items():
+            opt.load_state_dict(sd["opts"][k])
+        dev = next(iter(self.ema.values())).device if self.ema else "cpu"
+        self.ema = {k: torch.from_numpy(np.asarray(v)).to(dev)
+                    for k, v in sd["ema"].items()}
+        self.step = int(sd["step"])
+        if self.rng is not None:
+            self.rng.set_state(torch.from_numpy(np.asarray(sd["rng"])))
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of a tensor, on the host."""
+    return t.detach().cpu().numpy().copy()
+
+
+def _load_into(dst: Sequence[torch.Tensor], src, name: str) -> None:
+    if len(dst) != len(src):
+        raise ValueError(f"{name}: {len(src)} saved tensors for {len(dst)}")
+    with torch.no_grad():
+        for d, s in zip(dst, src):
+            s = torch.from_numpy(np.asarray(s))
+            if tuple(s.shape) != tuple(d.shape):
+                raise ValueError(f"{name}: saved shape {tuple(s.shape)} for "
+                                 f"{tuple(d.shape)}")
+            d.copy_(s)
 
 
 @contextlib.contextmanager
@@ -117,6 +171,15 @@ class Adam:
             nu.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
             p.sub_(lr * (mu / c1) / (torch.sqrt(nu / c2) + self.eps))
 
+    def state_dict(self) -> dict:
+        return {"count": self.count, "mu": [_host(t) for t in self.mu],
+                "nu": [_host(t) for t in self.nu]}
+
+    def load_state_dict(self, sd: dict) -> None:
+        _load_into(self.mu, sd["mu"], "Adam mu")
+        _load_into(self.nu, sd["nu"], "Adam nu")
+        self.count = int(sd["count"])
+
 
 class DupAdam:
     """Adam over a group in which some parameters appear twice (port of
@@ -146,6 +209,14 @@ class DupAdam:
         for _ in range(2):
             self.double.step(self._pick(params, True),
                              self._pick(grads, True), lr)
+
+    def state_dict(self) -> dict:
+        return {"single": self.single.state_dict(),
+                "double": self.double.state_dict()}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.single.load_state_dict(sd["single"])
+        self.double.load_state_dict(sd["double"])
 
 
 def add_sign_sparsity(net: nn.Module, params: Sequence[torch.Tensor],
@@ -214,3 +285,25 @@ class CombinedStepMixin:
         state, m = self.train_step(state, batch, lr)
         state, am = self.arch_step(state, val_batch, ema_beta, arch_lr)
         return state, {**m, **am}
+
+
+class CheckpointMixin:
+    """The checkpoint contract of the JAX engines (engines/pix2pix.py:367-385,
+    sagan.py:347-356; Pix2Pix.py:636-649): G and D in the JAX layout, the
+    epoch, cfg = (filter_cfgs, channel_cfgs) and the metric."""
+
+    def checkpoint_payload(self, state: GANState, epoch: int,
+                           metric=None) -> dict:
+        return {"G": export_jax_variables(state.nets["g"]),
+                "D": export_jax_variables(state.nets["d"]),
+                "epoch": epoch,
+                "cfg": (self.filter_cfgs, getattr(self, "channel_cfgs", None)),
+                "fid": metric}
+
+    def load_net_params(self, state: GANState, ckpt: dict,
+                        load_discriminator: bool = True) -> GANState:
+        """The checkpoint's G (and D) written into the state's nets."""
+        load_jax_variables(state.nets["g"], ckpt["G"])
+        if load_discriminator and ckpt.get("D") is not None:
+            load_jax_variables(state.nets["d"], ckpt["D"])
+        return state

@@ -36,9 +36,9 @@ import torch.nn as nn
 from gcc_tpu_torch.config import Config
 from gcc_tpu_torch.device import resolve_device
 from gcc_tpu_torch.engines.common import (
-    Adam, CombinedStepMixin, GANState, add_sign_sparsity, arch_params,
-    d_pair, discrepancy, distill_losses, ema_update, eval_mode, grads_of,
-    weight_params,
+    Adam, CheckpointMixin, CombinedStepMixin, GANState, add_sign_sparsity,
+    arch_params, d_pair, discrepancy, distill_losses, ema_update, eval_mode,
+    grads_of, weight_params,
 )
 from gcc_tpu_torch.losses import gan_loss, l1
 from gcc_tpu_torch.models.discriminators import PatchGAN
@@ -61,9 +61,10 @@ class TransformConvs(nn.Module):
         return [getattr(self, f"tf_{i}")(f) for i, f in enumerate(feats)]
 
 
-class Pix2PixEngine(CombinedStepMixin):
+class Pix2PixEngine(CheckpointMixin, CombinedStepMixin):
     """Engine surface of the JAX package's Pix2PixEngine: init_state,
-    train_step, arch_step, train_arch_step, generate. ``channel_cfgs`` (the
+    train_step, arch_step, train_arch_step, generate, checkpoint_payload,
+    load_net_params. ``channel_cfgs`` (the
     U-Net's input widths) is carried, not used to build, as in JAX."""
 
     def __init__(self, cfg: Config, filter_cfgs=None, device=None,

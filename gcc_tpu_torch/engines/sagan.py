@@ -37,9 +37,9 @@ import torch.nn as nn
 from gcc_tpu_torch.config import Config
 from gcc_tpu_torch.device import resolve_device
 from gcc_tpu_torch.engines.common import (
-    Adam, CombinedStepMixin, DupAdam, GANState, add_sign_sparsity,
-    arch_params, d_pair, discrepancy, distill_losses, ema_update, eval_mode,
-    grads_of, weight_params,
+    Adam, CheckpointMixin, CombinedStepMixin, DupAdam, GANState,
+    add_sign_sparsity, arch_params, d_pair, discrepancy, distill_losses,
+    ema_update, eval_mode, grads_of, weight_params,
 )
 from gcc_tpu_torch.engines.pix2pix import TransformConvs
 from gcc_tpu_torch.losses import gan_loss, l1
@@ -67,9 +67,10 @@ def _dup_flags(*nets: nn.Module) -> list:
             for n, _ in net.named_parameters() if not n.endswith("alpha")]
 
 
-class SAGANEngine(CombinedStepMixin):
+class SAGANEngine(CheckpointMixin, CombinedStepMixin):
     """Engine surface of the JAX package's SAGANEngine: build_nets,
-    init_state, state_for, train_step, arch_step, train_arch_step, generate."""
+    init_state, state_for, train_step, arch_step, train_arch_step, generate,
+    checkpoint_payload, load_net_params."""
 
     def __init__(self, cfg: Config, filter_cfgs=None, device=None):
         self.cfg = cfg

@@ -1,0 +1,118 @@
+"""Epoch-end evaluation orchestrators (port of gcc_tpu/eval/orchestrators.py;
+metric/test_metric.py:15-204).
+
+Protocol quirks kept: eval batches are serial, unflipped, at a fixed
+load_size (test_metric.py:16-21); SAGAN evaluates on 10% of the dataset
+(l.144). ``--eval_batch`` > 1 batches the generator forwards with the same
+outputs (eval mode: no dropout, running BN stats, per-sample IN).
+
+FID and mIoU need the evaluator networks (InceptionV3, DRN-D-105), which
+the port does not have yet (ROADMAP Queue A item 3): pointing
+``--inception_path`` or ``--drn_path`` at a file raises. Without them the
+orchestrator reports the JAX package's proxies and logs the same
+``[proxy]`` lines: pixel-FID (the Fréchet distance of 8x8-downsampled
+pixel statistics) or, on cityscapes, PSNR.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional
+
+import numpy as np
+
+from gcc_tpu_torch.data import create_dataset, to_device, to_host
+from gcc_tpu_torch.data.resample import BILINEAR, resize
+from gcc_tpu_torch.metrics.fid import activation_statistics, frechet_distance
+from gcc_tpu_torch.metrics.psnr_ssim import psnr_y
+
+
+def eval_cfg(cfg, **overrides):
+    base = dict(batch_size=max(1, int(getattr(cfg, "eval_batch", 1))),
+                serial_batches=True, no_flip=True,
+                phase="val" if cfg.dataset_mode != "synthetic" else cfg.phase)
+    base.update(overrides)
+    return dataclasses.replace(cfg, **base)
+
+
+def _pixel_features(images: np.ndarray) -> np.ndarray:
+    """8x8x3 bilinear-downsampled pixel features for the proxy Fréchet
+    distance (Pillow's BILINEAR, bit for bit)."""
+    feats = []
+    for im in images:
+        arr = ((np.asarray(im) + 1) / 2 * 255).clip(0, 255).astype(np.uint8)
+        small = np.asarray(resize(arr, (8, 8), BILINEAR), np.float64) / 255.0
+        feats.append(small.ravel())
+    return np.stack(feats)
+
+
+def pixel_fid(fakes: np.ndarray, reals: np.ndarray) -> float:
+    mu1, s1 = activation_statistics(_pixel_features(fakes))
+    mu2, s2 = activation_statistics(_pixel_features(reals))
+    return frechet_distance(mu1, s1, mu2, s2)
+
+
+def _refuse_evaluator(flag: str, path: Optional[str]) -> None:
+    if path and os.path.exists(path):
+        raise NotImplementedError(
+            f"--{flag} {path}: the evaluator networks (InceptionV3 FID, "
+            f"DRN mIoU) are not in the port yet (ROADMAP Queue A item 3); "
+            f"run without it for the proxy metric")
+
+
+def _collect(engine, state, loader, key_in: str, key_out: str,
+             max_items: Optional[int] = None):
+    """Run the generator over a loader in eval mode: (fakes, reals) as NHWC
+    numpy, at most ``max_items`` of each."""
+    fakes, reals = [], []
+    n = 0
+    for batch in loader:
+        x = to_device(batch[key_in], engine.device)
+        fakes.append(to_host(engine.generate(state, x)))
+        reals.append(np.asarray(batch[key_out], np.float32))
+        n += x.shape[0]
+        if max_items is not None and n >= max_items:
+            break
+    # trim to the cap: with --eval_batch >1 the last batch can overshoot
+    return np.concatenate(fakes)[:max_items], \
+        np.concatenate(reals)[:max_items]
+
+
+def evaluate_engine(cfg, engine, state, logger, epoch):
+    if "pix2pix" in cfg.model:
+        return _eval_pix2pix(cfg, engine, state, logger)
+    if cfg.model == "sagan":
+        return _eval_sagan(cfg, engine, state, logger)
+    raise NotImplementedError(
+        f"{cfg.model} evaluation comes with its family's port (ROADMAP "
+        f"Queue A)")
+
+
+def _eval_pix2pix(cfg, engine, state, logger):
+    loader = create_dataset(eval_cfg(cfg, load_size=256), seed=1234)
+    # direction swap as in set_input
+    key_in, key_out = ("B", "A") if cfg.direction == "BtoA" else ("A", "B")
+    cap = None if cfg.ntest == float("inf") else int(cfg.ntest)
+    if "cityscapes" in cfg.dataroot:
+        _refuse_evaluator("drn_path", cfg.drn_path)
+    _refuse_evaluator("inception_path", cfg.inception_path)
+    fakes, reals = _collect(engine, state, loader, key_in, key_out, cap)
+    if "cityscapes" in cfg.dataroot:
+        # maximize-direction proxy when DRN weights are absent
+        p = float(np.mean([psnr_y(f, r) for f, r in zip(fakes, reals)]))
+        logger.info(f"[proxy] PSNR (no DRN weights at drn_path): {p:.2f}")
+        return p
+    fid = pixel_fid(fakes, reals)
+    logger.info(f"[proxy] pixel-FID (no inception weights): {fid:.4f}")
+    return fid
+
+
+def _eval_sagan(cfg, engine, state, logger):
+    loader = create_dataset(eval_cfg(cfg, load_size=64), seed=1234)
+    n_eval = max(1, int(0.1 * len(loader.dataset)))  # 10% (test_metric.py:144)
+    _refuse_evaluator("inception_path", cfg.inception_path)
+    fakes, reals = _collect(engine, state, loader, "z", "real_img", n_eval)
+    fid = pixel_fid(fakes, reals)
+    logger.info(f"[proxy] pixel-FID (no inception weights): {fid:.4f}")
+    return fid

@@ -1,5 +1,5 @@
 """DifferentiableOP: learnable hard channel gates with straight-through grads
-(port of gcc_tpu/ops/mask.py:24-64; models/DifferentiableOp.py:22-59).
+(port of gcc_tpu/ops/mask.py; models/DifferentiableOp.py:22-59).
 
   forward:  mask = (sign(alpha - threshold) + 1) / 2        in {0, 1/2, 1}
   backward: d(mask)/d(alpha) = identity (gradient passes through unchanged)
@@ -9,7 +9,7 @@ sign(0) = 0 gives mask 1/2 exactly at alpha == threshold, as in torch.
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Dict, Iterable
 
 import torch
 import torch.nn as nn
@@ -61,3 +61,28 @@ def clip_alphas(alphas: Iterable[torch.Tensor]) -> None:
     with torch.no_grad():
         for a in alphas:
             a.clamp_(0.0, 1.0)
+
+
+def current_masks(alphas: Dict[str, torch.Tensor], threshold: float = 0.5
+                  ) -> Dict[str, torch.Tensor]:
+    """get_current_mask() per gate, for sparsity reporting
+    (DifferentiableOp.py:58-59; gcc_tpu/ops/mask.py:67-71). ``threshold``
+    must match the gates' --threshold for an accurate report."""
+    return {k: (torch.sign(a.detach() - threshold) + 1.0) / 2.0
+            for k, a in alphas.items()}
+
+
+def sparsity_report(alphas: Dict[str, torch.Tensor], threshold: float = 0.5
+                    ) -> Dict[str, float]:
+    """name -> fraction of masked-off channels (models/Pix2Pix.py:595-600;
+    gcc_tpu/ops/mask.py:74-82). ``alphas`` maps a gate's name, in the JAX
+    package's ``net/module/.../alpha`` form, to its alphas."""
+    return {k: float((m == 0.0).float().mean())
+            for k, m in current_masks(alphas, threshold).items()}
+
+
+def named_alphas(prefix: str, net: nn.Module) -> Dict[str, torch.Tensor]:
+    """A net's MaskGate alphas keyed as the JAX package's arch tree paths:
+    ``prefix/<module path with '/'>/alpha``."""
+    return {f"{prefix}/{n.replace('.', '/')}": p
+            for n, p in net.named_parameters() if n.endswith("alpha")}

@@ -20,7 +20,9 @@ from gcc_tpu_torch.engines.sagan import SAGANEngine  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "gcc_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gcc_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gcc_tpu", "msgpack")
+# imported only inside the function that decodes an image file
+LAZY = {"PIL": ("gcc_tpu_torch/data/datasets.py", "read_rgb")}
 
 
 def _forbidden(module: str) -> bool:
@@ -48,7 +50,7 @@ def test_importing_the_port_loads_no_jax():
     with jax, flax, optax and gcc_tpu made unimportable; none is loaded."""
     code = textwrap.dedent(f"""
         import importlib, importlib.abc, pkgutil, sys
-        FORBIDDEN = {FORBIDDEN!r}
+        FORBIDDEN = {FORBIDDEN + tuple(LAZY)!r}
         for name in list(sys.modules):
             if name.split(".")[0] in FORBIDDEN:
                 del sys.modules[name]
@@ -73,6 +75,32 @@ def test_importing_the_port_loads_no_jax():
                          env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 12
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_lazy_imports_only_where_used(path):
+    """Pillow is imported by the function that decodes an image file and
+    nowhere else: the port runs where Pillow is missing."""
+    rel = str(path.relative_to(ROOT))
+
+    def walk(node, func):
+        for child in ast.iter_child_nodes(node):
+            name = child.name if isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef)) else func
+            if isinstance(child, ast.Import):
+                mods = [a.name for a in child.names]
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                mods = [child.module]
+            else:
+                mods = []
+            for m in mods:
+                top = m.split(".")[0]
+                assert top not in LAZY or LAZY[top] == (rel, func), \
+                    f"{rel}:{child.lineno} imports {m} in {func}"
+            walk(child, name)
+
+    walk(ast.parse(path.read_text()), None)
 
 
 def test_engine_without_device_needs_cuda():
