@@ -8,13 +8,15 @@ Phases, each of which exits non-zero on failure:
   2. build    nvcc builds every CUDA source under gcc_tpu_torch/csrc;
   3. kernels  each stage kernel (B2-fwd, B2-bwd-pw, B2-bwd-dw) against its
               plain PyTorch version at the main path's teacher and student
-              stage shapes, then the differentiable stage against autograd
+              stage shapes and at CycleGAN's batch-1 shapes (teacher
+              256 -> 256 at 64x64, student block 8 of cfg_BtoA 96 -> 81 ->
+              96), then the differentiable stage against autograd
               through sep_stage_reference (relu's mask from the kernel's
               b-hat, the pixels where it differs from the plain forward's
               counted and held to |b-hat| < 1e-4); that two calls of each
               give the same bits; CUDA-event times of the kernel, the plain
-              version and the cuDNN route of the stage at teacher_relu and
-              student_relu, cuDNN's convolution backward of the two
+              version and the cuDNN route of the stage at teacher_relu,
+              student_relu, cg_teacher_relu and cg_student_relu, cuDNN's convolution backward of the two
               backward kernels' convolution parts (a partial yardstick),
               and the device time of each launch of one call of each
               (torch.profiler);
@@ -77,18 +79,63 @@ Phases, each of which exits non-zero on failure:
               64 px, batch 64, 128 images (B1 6/2 per iteration), (d)
               --continue_train of (a)'s stage 2 for epoch 2, (e) the test
               CLI on (a)'s final checkpoint on the card and on the CPU
-              (--gpu_ids -1): the same pixel-FID within 1e-4 relative.
+              (--gpu_ids -1): the same pixel-FID within 1e-4 relative, (f)
+              scripts/cyclegan/*.sh on synthetic unaligned data at 256 px,
+              batch 1, 4 images (stage 1 --lambda_weight 1e-3 --ngf 48 --ndf 64;
+              stage 2 --ngf 24 on the reference's cfgs, as the script's
+              horse2zebra root takes them, online distillation, DARTS,
+              fused blocks with B2 by the structure each iteration; stage 3
+              the test CLI over 32 images on the card and on the CPU: the
+              same pixel-FID per direction within 1e-4 relative), (g)
+              scripts/srgan/*.sh at
+              96 px, batch 16 (a --generator_only teacher at ngf 64, stage 1
+              --generator_only --ngf 24 --lambda_scale 1e-2, stage 2 pruned
+              to 0.20 GMACs on startup with the teacher from
+              --teacher_initial_path, no B1 or B2; stage 3 the test CLI on
+              the card and on the CPU: the same PSNR and SSIM within 1e-4).
               Where a two-iteration stage 1 cannot be pruned to its
               budget, its checkpoint is rewritten from phase 9's spread
               weights, and the phase says so. Per stage: wall seconds, ms
               per iteration through the CLI and inside the engine step
               (host clock, each step ended by a synchronize), launches,
               pruned cfgs and GMACs, and the metric.
+ 12. cyclegan the CycleGAN GCC cooperative iteration (train_step + arch_step)
+              at full width (scripts/cyclegan/train.sh): 256 px, batch 1,
+              lsgan, pools of 50, teacher ngf 64 / ndf 64, the students of
+              cyclegan_reference_cfgs() (ngf 24), ndf 64 masked, online
+              distillation, DARTS, content 0.01, gram 10, fused blocks; 1
+              warm-up and 3 timed iterations and one generate per direction,
+              B2 launches checked against the structure (288/216/216 an
+              iteration: 16 generator forwards of 18 stages, 12 of them with
+              a gradient), and one profiled iteration;
+ 13. agree    CycleGAN at 80 px (blocks at 20 px, the fused gate open),
+              batch 1, small widths, lambda_weight 1e-3, from the same
+              weights on the same batches: (a) fused (kernels) against
+              unfused (cuDNN) engines, pools of 1, 2 iterations; (b) the card
+              against the CPU, pools at 0, 3 iterations; losses within
+              1e-4 + 2e-3|t| (the arch keys, which read the teachers after
+              their update, within 3e-2), the parameters by the classes of
+              tests/test_cooperative_parity_cyclegan.py and the masked D's
+              running stats by the same walk (each class's largest max|d|
+              and mean|d| printed); from the same variables, both
+              directions' generate and both D's train-mode forward (output
+              and the running stats it writes) within 1e-5;
+ 14. srgan    the SRGAN GCC cooperative iteration at full width
+              (scripts/srgan/train.sh): 96 px from 24 px, batch 16, vanilla
+              GAN, teacher ngf 64 / ndf 64, the student pruned by the port's
+              prune_srresnet(mode="scale") to 0.20 GMACs from spread
+              weights, ndf 64 masked, online distillation, DARTS, content
+              0.1, gram 0.1, the VGG19 perceptual term on seeded random
+              weights (not the pretrained ones); 1 warm-up and 3 timed
+              iterations, no B1 or B2 launch, one profiled iteration.
 The run is fp32 throughout: TF32 is off for cuDNN and matmul. The last four
 lines are phase 11's JSON record of its stages, the card's name and power
-limit, the kernels' JSON record and {"ok": true, "device": ...}.
+limit, the kernels' JSON record and {"ok": true, "device": ...}. A kernel's
+"launches" is the main path's count (phase 4 for B2, phase 7 for B1);
+"launches_by_path" adds phase 12's for B2.
 """
 
+import ast
 import json
 import math
 import subprocess
@@ -129,6 +176,30 @@ ATTN_PER_ITER = {"attn_fwd": 6, "attn_bwd": 2}
 # the student of scripts/sagan/train.sh (ngf 48) pruned to 0.016 GMACs
 SAGAN_STUDENT_CFG = [69, 34, 17, 16]
 UNET_BATCH = 128  # bench.py's
+# CycleGAN's stage shapes at batch 1 (scripts/cyclegan/train.sh, 256 px):
+# the teacher's (ngf 64), and block 8 of cfg_BtoA in cyclegan_reference_cfgs
+# (96 -> 81 -> 96)
+CYCLEGAN_CASES = [("cg_teacher_relu", 1, 256, 256, 64, True, False),
+                  ("cg_teacher_res", 1, 256, 256, 64, False, True),
+                  ("cg_student_relu", 1, 96, 81, 64, True, False),
+                  ("cg_student_res", 1, 81, 96, 64, False, True)]
+TIMED_CASES = ("teacher_relu", "student_relu", "cg_teacher_relu",
+               "cg_student_relu")
+# scripts/cyclegan/train.sh: 256 px, batch 1; teacher ngf 64 / ndf 64, the
+# student ngf 24 with the reference's cfgs, its D ndf 64 masked
+CYCLEGAN_SIZE = 256
+CYCLEGAN_WIDTHS = dict(ngf=24, ndf=64, teacher_ngf=64, teacher_ndf=64)
+# phase 13's crop: the blocks at 20 px, where the fused gate opens
+CYCLEGAN_AGREE_SIZE = 80
+# scripts/srgan/train.sh: 96 px from 24 px (x4), batch 16; teacher 64 / 64,
+# the student ngf 24 pruned to 0.20 GMACs, its D ndf 64 masked
+SRGAN_HR, SRGAN_BATCH, SRGAN_BUDGET = 96, 16, 0.20
+SRGAN_WIDTHS = dict(ngf=24, ndf=64, teacher_ngf=64, teacher_ndf=64)
+N_TIMED = 3  # timed iterations of phases 12 and 14, after one warm-up
+# the arch keys read the teachers after their update in the same
+# iteration: tests/test_cooperative_parity_cyclegan.py's chaotic class
+CYCLEGAN_CHAOTIC = {"D_arch_A", "D_arch_B", "D_arch_diff_A", "D_arch_diff_B",
+                    "teacher_netD_A_arch_diff", "teacher_netD_B_arch_diff"}
 
 
 def fail(msg):
@@ -244,7 +315,8 @@ def phase_kernels(torch, F):
     print("== phase 3: kernels against their plain versions (fp32, TF32 off)")
     record = {k: {"max_abs_err": 0.0} for k in PER_ITER}
     gen = torch.Generator().manual_seed(0)
-    for case, B, C, M, S, relu, has_res in TEACHER_CASES + STUDENT_CASES:
+    for case, B, C, M, S, relu, has_res in (TEACHER_CASES + STUDENT_CASES
+                                            + CYCLEGAN_CASES):
         print(f"  {case}: B={B} C={C} M={M} {S}x{S} relu={relu} res={has_res}")
 
         def rnd(*shape, scale=1.0):
@@ -323,7 +395,7 @@ def phase_kernels(torch, F):
             check_close(f"stage {n} vs reference", a, b,
                         1e-4 * max(float(b.abs().max()), 1.0))
 
-        if case not in ("teacher_relu", "student_relu"):
+        if case not in TIMED_CASES:
             continue
         # times at the main path's teacher and student stage shapes; the
         # teacher's (the largest) go to the record
@@ -441,13 +513,14 @@ def make_batches(torch, np, n, batch, size, seed, device):
 
 
 def drive(torch, engine, cfg, batches, gen_in, counters, per_iter, gen_calls,
-          name):
+          name, generate=None, out_size=None):
     """Run the engine's iteration (train_step + arch_step) once per pair of
-    batches, the first pair as warm-up, then one generate on gen_in, with the
-    kernels' launch counters set to 0 just before and read just after. Fails
-    on a non-finite loss, on per-iteration launches other than per_iter, on
-    totals other than the iterations' plus gen_calls, and on a generate that
-    is not finite or not of gen_in's batch and image shape. Returns the
+    batches, the first pair as warm-up, then one generate on gen_in (or the
+    outputs of generate(state)), with the kernels' launch counters set to 0
+    just before and read just after. Fails on a non-finite loss, on
+    per-iteration launches other than per_iter, on totals other than the
+    iterations' plus gen_calls, and on a generated image that is not finite
+    or not of gen_in's batch and out_size (crop_size). Returns the
     launches."""
     n, batch = len(batches) // 2, gen_in.shape[0]
     state, times = engine.init_state(seed=0), []
@@ -474,12 +547,14 @@ def drive(torch, engine, cfg, batches, gen_in, counters, per_iter, gen_calls,
         print(f"  iter {i}{' (warm-up)' if i == 0 else ''}: {dt * 1e3:.3f} ms "
               f"launches {grown} "
               + " ".join(f"{k}={v:.5g}" for k, v in losses.items()))
-    out = engine.generate(state, gen_in)
+    outs = generate(state) if generate else [engine.generate(state, gen_in)]
     torch.cuda.synchronize()
     launches = dict(counters)
-    if tuple(out.shape) != (batch, 3, cfg.crop_size, cfg.crop_size) \
-            or not bool(torch.isfinite(out).all()):
-        fail(f"generate: shape {tuple(out.shape)} or non-finite values")
+    size = out_size or cfg.crop_size
+    for out in outs:
+        if tuple(out.shape) != (batch, 3, size, size) \
+                or not bool(torch.isfinite(out).all()):
+            fail(f"generate: shape {tuple(out.shape)} or non-finite values")
     expected = {k: n * v + gen_calls.get(k, 0) for k, v in per_iter.items()}
     if launches != expected:
         fail(f"kernel calls {launches}, expected {expected}")
@@ -838,8 +913,8 @@ def spread_tree(np, tree, rng):
     channel, emulating sparsity pretraining."""
     if isinstance(tree, dict):
         return {k: spread_tree(np, tree[k], rng) for k in sorted(tree)}
-    return (rng.rand(*tree.shape).astype(np.float32)
-            * np.exp(rng.uniform(-6, 2, tree.shape[-1])).astype(np.float32))
+    return (np.asarray(rng.rand(*tree.shape), np.float32)
+            * np.exp(rng.uniform(-6, 2, tree.shape[-1:])).astype(np.float32))
 
 
 def unet_config(Config, **kw):
@@ -987,7 +1062,8 @@ class LogLines:
         self.logging.getLogger("gcc-tpu-torch").removeHandler(self.handler)
 
 
-CLI_LOG = ("pruned ", "[proxy]", "metrics: ", "resumed ")
+CLI_LOG = ("pruned ", "[proxy]", "metrics: ", "resumed ", "val: ",
+           "loaded ", "SRGAN perceptual")
 
 
 def run_cli(torch, stage, argv, counters, records, test=False):
@@ -998,16 +1074,19 @@ def run_cli(torch, stage, argv, counters, records, test=False):
 
     from gcc_tpu_torch.cli import test as cli_test
     from gcc_tpu_torch.cli import train as cli_train
+    from gcc_tpu_torch.engines.cyclegan import CycleGANEngine
     from gcc_tpu_torch.engines.pix2pix import Pix2PixEngine
     from gcc_tpu_torch.engines.sagan import SAGANEngine
+    from gcc_tpu_torch.engines.srgan import SRGANEngine
 
     for c in counters.values():
         for k in c:
             c[k] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with IterationClock(torch, (Pix2PixEngine, SAGANEngine),
-                        counters) as clock, LogLines(logging, CLI_LOG) as log:
+    engines = (Pix2PixEngine, SAGANEngine, CycleGANEngine, SRGANEngine)
+    with IterationClock(torch, engines, counters) as clock, \
+            LogLines(logging, CLI_LOG) as log:
         rc = (cli_test if test else cli_train).main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1021,7 +1100,9 @@ def run_cli(torch, stage, argv, counters, records, test=False):
           f"{totals}")
     for line in log.lines:
         print(f"    {line}")
-    metric = [float(x.split(": ")[1]) for x in log.lines
+    # a number, or a dict of named ones (CycleGAN's directions, SRGAN's
+    # sets)
+    metric = [ast.literal_eval(x.split(": ", 1)[1]) for x in log.lines
               if x.startswith("metrics: ")]
     ms = (lambda x: None if math.isnan(x) else round(x, 3))
     records.append({"stage": stage, "seconds": round(wall, 3),
@@ -1186,12 +1267,419 @@ def phase_cli(torch, np):
             print(f"  data path, {name}: {ms:.3f} ms a batch on one host "
                   f"thread; two batches an iteration = "
                   f"{2 * ms / rec['ms_per_iter']:.3f} of the CLI iteration")
-        rel = abs(card - cpu) / abs(cpu)
-        print(f"  card pixel-FID {card!r}, CPU {cpu!r}: relative "
-              f"difference {rel:.3e} (bound 1e-4)")
-        if not rel <= 1e-4:
-            fail(f"card metric {card} vs CPU {cpu}")
+        same_metric("unet", card, cpu)
+        cli_cyclegan(torch, np, tmp, counters, records)
+        cli_srgan(torch, np, tmp, counters, records)
     return records
+
+
+def same_metric(what, card, cpu):
+    """The test CLI's metric on the card and on the CPU: each named value
+    within 1e-4 relative."""
+    card_d = card if isinstance(card, dict) else {"metric": card}
+    cpu_d = cpu if isinstance(cpu, dict) else {"metric": cpu}
+    if set(card_d) != set(cpu_d):
+        fail(f"{what}: metrics {card} vs {cpu}")
+    for k in cpu_d:
+        rel = abs(card_d[k] - cpu_d[k]) / abs(cpu_d[k])
+        print(f"  {what} {k}: card {card_d[k]!r}, CPU {cpu_d[k]!r}: "
+              f"relative difference {rel:.3e} (bound 1e-4)")
+        if not rel <= 1e-4:
+            fail(f"{what} {k}: card {card_d[k]} vs CPU {cpu_d[k]}")
+
+
+def cli_test_both(torch, stage, argv, counters, records):
+    """The test CLI on the card and on the CPU: the same metric."""
+    name = stage.replace(" ", "_")
+    _, card, _ = run_cli(torch, f"{stage} (test) on the card",
+                         argv + ["--name", f"{name}_card"], counters,
+                         records, test=True)
+    _, cpu, _ = run_cli(torch, f"{stage} (test) on the CPU",
+                        argv + ["--name", f"{name}_cpu", "--gpu_ids", "-1"],
+                        counters, records, test=True)
+    same_metric(stage, card, cpu)
+
+
+def cli_cyclegan(torch, np, tmp, counters, records):
+    """(f) scripts/cyclegan/*.sh on synthetic unaligned data named like the
+    script's horse2zebra root, so stage 2 takes the reference's cfgs (its
+    prune on startup there, utils/prune_util.py:120-121); stage 2 with
+    fused blocks (B2 by the structure each iteration); the test CLI on the
+    card and on the CPU."""
+    from gcc_tpu_torch.compress import cyclegan_reference_cfgs
+
+    size = CYCLEGAN_SIZE
+    cg = (f"--dataroot synthetic/horse2zebra --dataset_mode synthetic "
+          f"--model cyclegan --max_dataset_size 4 --n_epochs 1 "
+          f"--n_epochs_decay 0 --save_epoch_freq 1 --print_freq 1 "
+          f"--crop_size {size} --load_size {size} --num_threads 4 "
+          f"--checkpoints_dir {tmp}").split()
+    run_cli(torch, "cyclegan stage 1",
+            cg + "--lambda_weight 1e-3 --ndf 64 --ngf 48 --name c1".split(),
+            counters, records)
+    c2 = cg + (f"--ngf 24 --ndf 64 --darts_discriminator --arch_lr 1e-4 "
+               f"--arch_lr_step --norm_prune --pretrain_path "
+               f"{tmp}/c1/checkpoints/model_1.ckpt --target_budget 2.4 "
+               f"--target_budget_B 2.7 --online_distillation "
+               f"--lambda_content 0.01 --lambda_gram 10 --fused_resblock on "
+               f"--name c2").split()
+    clock, _, _ = run_cli(torch, "cyclegan stage 2 (B2)", c2, counters,
+                          records)
+    per_iter, _ = cyclegan_launches(*cyclegan_reference_cfgs())
+    b2 = [{k: g[k] for k in per_iter} for g in clock.summary()[2]]
+    print(f"  B2 launches per iteration through the CLI: {b2}")
+    if any(g != per_iter for g in b2) or not b2:
+        fail(f"cyclegan stage 2: B2 launches {b2}, expected {per_iter}")
+    # the test CLI's pixel-FID over 32 images a domain: over 4 (rank-3
+    # covariances of 192 features), one uint8 step of one feature moves it
+    # by up to ~1e-4 relative between card and CPU; over 32, under 1e-5
+    cli_test_both(torch, "cyclegan stage 3", cg + (
+        "--ngf 24 --max_dataset_size 32 --pretrain_path "
+        f"{tmp}/c2/checkpoints/model_best_AtoB.ckpt").split(), counters,
+        records)
+
+
+def cli_srgan(torch, np, tmp, counters, records):
+    """(g) scripts/srgan/*.sh on synthetic sr data: the teacher's G and
+    stage 1 by --generator_only pretraining, stage 2 pruned on startup to
+    SRGAN_BUDGET from stage 1 with the teacher from --teacher_initial_path
+    (no B1 or B2), the test CLI on the card and on the CPU."""
+    from gcc_tpu_torch.models.generators import SRResNet
+
+    sr = (f"--dataroot synthetic/sr --dataset_mode synthetic --model srgan "
+          f"--max_dataset_size 32 --n_epochs 1 --n_epochs_decay 0 "
+          f"--save_epoch_freq 1 --print_freq 16 --image_size {SRGAN_HR} "
+          f"--num_threads 4 --checkpoints_dir {tmp}").split()
+    run_cli(torch, "srgan teacher",
+            sr + "--generator_only --ngf 64 --name t0".split(), counters,
+            records)
+    run_cli(torch, "srgan stage 1", sr + (
+        "--generator_only --ngf 24 --ndf 64 --lambda_scale 1e-2 "
+        "--name s1").split(), counters, records)
+    s1 = f"{tmp}/s1/checkpoints/model_1.ckpt"
+    s2 = sr + (f"--ngf 24 --teacher_ngf 64 --scale_prune "
+               f"--target_budget {SRGAN_BUDGET} --pretrain_path {s1} "
+               f"--teacher_initial_path {tmp}/t0/checkpoints/model_1.ckpt "
+               f"--darts_discriminator --arch_lr 1e-4 --arch_lr_step "
+               f"--online_distillation --lambda_gram 0.1 --lambda_content 0.1 "
+               f"--name s2").split()
+    why = prunable(s2)
+    if why:
+        spread_checkpoint(np, SRResNet(24), s1, why)
+    clock, _, _ = run_cli(torch, "srgan stage 2", s2, counters, records)
+    launched = [g for g in clock.summary()[2] if any(g.values())]
+    if launched or not clock.summary()[2]:
+        fail(f"srgan stage 2 launched B1 or B2: {launched}")
+    cli_test_both(torch, "srgan stage 3", sr + (
+        "--ngf 24 --pretrain_path "
+        f"{tmp}/s2/checkpoints/model_best_val_psnr.ckpt").split(), counters,
+        records)
+
+
+def cyclegan_config(Config, **kw):
+    """scripts/cyclegan/train.sh's GCC run: lsgan, the reference's pools
+    of 50, online distillation, DARTS, content 0.01, gram 10; fused
+    blocks."""
+    base = dict(model="cyclegan", gan_mode="lsgan", pool_size=50,
+                crop_size=256, load_size=256, batch_size=1,
+                online_distillation=True, darts_discriminator=True,
+                lambda_content=0.01, lambda_gram=10.0, lr=2e-4, arch_lr=1e-4,
+                fused_resblock="on")
+    base.update(kw)
+    return Config(**base)
+
+
+def cyclegan_launches(cfg_a, cfg_b):
+    """B2 launches of one CycleGAN iteration by the engine's structure: two
+    stages a residual block that exists; the teacher and student G updates
+    each run 3 forwards of each direction's G with a gradient, the arch
+    step one forward of each of the four G's without; and of one generate
+    per direction (the students). Each G has 9 residual blocks."""
+    def stages(c):
+        return 2 * sum(1 for b in range(9) if c[3 + 2 * b] != 0)
+    s = stages(cfg_a) + stages(cfg_b)
+    t = 2 * 2 * 9  # the teachers are unpruned
+    per_iter = {"stage_fwd": 4 * (s + t), "stage_bwd_pw": 3 * (s + t),
+                "stage_bwd_dw": 3 * (s + t)}
+    return per_iter, {"stage_fwd": s}
+
+
+def phase_cyclegan(torch, np):
+    from gcc_tpu_torch.compress import cyclegan_reference_cfgs
+    from gcc_tpu_torch.config import Config
+    from gcc_tpu_torch.engines.cyclegan import CycleGANEngine
+    from gcc_tpu_torch.ops import flash_attention as fa
+    from gcc_tpu_torch.ops import mobile_block as mb
+
+    cfg_a, cfg_b = cyclegan_reference_cfgs()
+    size, w = CYCLEGAN_SIZE, CYCLEGAN_WIDTHS
+    print(f"== phase 12: CycleGAN GCC iteration (scripts/cyclegan/train.sh), "
+          f"{size}px, batch 1, pools of 50, teacher ngf {w['teacher_ngf']} / "
+          f"ndf {w['teacher_ndf']}, the reference's students cfg_AtoB "
+          f"{cfg_a} and cfg_BtoA {cfg_b}, ndf {w['ndf']} masked, fused "
+          f"blocks; 1 warm-up + {N_TIMED} timed")
+    cfg = cyclegan_config(Config, crop_size=size, load_size=size, **w)
+    engine = CycleGANEngine(cfg, cfg_AtoB=cfg_a, cfg_BtoA=cfg_b)  # the card
+    batches = make_batches(torch, np, 2 * (N_TIMED + 1), 1, size, 0,
+                           engine.device)
+    per_iter, gen_calls = cyclegan_launches(cfg_a, cfg_b)
+    print(f"  B2 launches by the structure: {per_iter} an iteration, "
+          f"{gen_calls} for the two generates")
+    for k in fa.LAUNCHES:
+        fa.LAUNCHES[k] = 0
+    b0 = batches[0]
+    launches = drive(
+        torch, engine, cfg, batches, b0["A"], mb.LAUNCHES, per_iter,
+        gen_calls, "cyclegan path",
+        generate=lambda st: [engine.generate(st, b0["A"], "AtoB"),
+                             engine.generate(st, b0["B"], "BtoA")])
+    if any(fa.LAUNCHES.values()):
+        fail(f"cyclegan path launched B1: {fa.LAUNCHES}")
+    return launches
+
+
+def _agree_losses(hist_a, hist_b, what):
+    """Loss histories within 1e-4 + 2e-3|t|, CycleGAN's arch keys within
+    3e-2 (they read the teachers after their update)."""
+    worst = {}
+    for i, (a, b) in enumerate(zip(hist_a, hist_b)):
+        if set(a) != set(b):
+            fail(f"{what}: loss keys {sorted(set(a) ^ set(b))}")
+        for k in b:
+            tol = 3e-2 if k in CYCLEGAN_CHAOTIC else 1e-4 + 2e-3 * abs(b[k])
+            worst[k] = max(worst.get(k, 0.0), abs(a[k] - b[k]) / tol)
+            if not abs(a[k] - b[k]) < tol:
+                fail(f"{what}: iter {i} {k}: {a[k]} vs {b[k]}")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+    print(f"  {what}: losses agree; largest |d| / bound " + ", ".join(
+        f"{k} {v:.3f}" for k, v in top))
+
+
+def _cyclegan_run(torch, np, cfg, device, n_iters):
+    """n_iters CycleGAN iterations from the seeded init on seeded batches:
+    (loss history, engine, state, first batch)."""
+    from gcc_tpu_torch.engines.cyclegan import CycleGANEngine
+    engine = CycleGANEngine(cfg, device=device)
+    state = engine.init_state(seed=1)  # the same numbers on every device
+    batches = make_batches(torch, np, 2 * n_iters, 1, cfg.crop_size, 1,
+                           engine.device)
+    hist = []
+    for i in range(n_iters):
+        state, m = engine.train_arch_step(state, batches[2 * i],
+                                          batches[2 * i + 1], cfg.lr, 0.9)
+        hist.append({k: float(v) for k, v in m.items()})
+    return hist, engine, state, batches[0]
+
+
+def _feeds_instance_norm(net, path):
+    """Conv biases followed by an affine-free InstanceNorm: no gradient,
+    they random-walk at +-lr on both sides (forward-inert)."""
+    if not path.endswith("/bias"):
+        return False
+    if net.startswith(("g_", "tg_")):
+        return not path.startswith("params/conv_out/")
+    return net.startswith("td_") and path.startswith(
+        ("params/conv_1/", "params/conv_2/", "params/conv_3/"))
+
+
+def _agree_params(np, cfg, state_a, state_b, n_iters, what):
+    """tests/test_cooperative_parity_cyclegan.py's classes after n_iters
+    iterations: kernels and the rest within 2*lr*N*1.25 with a mean under
+    lr/2 (isolated opposite Adam steps where a gradient is ~0), alphas
+    within 2*arch_lr*N*1.25 with a mean under 2*arch_lr; InstanceNorm-fed
+    biases not compared. The masked D's BatchNorm running stats (its convs
+    have no bias) within 2*lr*N*1.25 with a mean under lr: they are the
+    statistics of D's activations, which from iteration 0's arch step on
+    see the generators' isolated opposite Adam steps through the fakes, and
+    then D's own weights, each entry within 2*lr a step; from the same
+    variables the stats agree to fp32 rounding (_same_weights_d). Prints
+    each class's largest max|d| and mean|d| beside its bounds."""
+    from gcc_tpu_torch.utils.weights import to_jax_nets
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", np.asarray(v, np.float64)
+
+    walk = 2 * n_iters * 1.25
+    classes = {"weights": (walk * cfg.lr, cfg.lr / 2),
+               "alphas": (walk * cfg.arch_lr, 2 * cfg.arch_lr),
+               "running stats": (walk * cfg.lr, cfg.lr)}
+    worst = {c: [0.0, "-", 0.0, "-"] for c in classes}
+    ja, jb = to_jax_nets(state_a), to_jax_nets(state_b)
+    for net in ja:
+        if net.startswith(("pool", "tpool")):
+            continue
+        other = dict(leaves(jb[net]))
+        for path, a in leaves(ja[net]):
+            if _feeds_instance_norm(net, path):
+                continue
+            d = np.abs(a - other[path])
+            c = ("alphas" if path.startswith("arch/") else "running stats"
+                 if path.startswith("batch_stats/") else "weights")
+            bound, mean_bound = classes[c]
+            w = worst[c]
+            if d.max() > w[0]:
+                w[:2] = float(d.max()), f"{net}/{path}"
+            if d.mean() > w[2]:
+                w[2:] = float(d.mean()), f"{net}/{path}"
+            if not (d.max() < bound and d.mean() < mean_bound):
+                fail(f"{what}: {net}/{path} max {d.max()} mean {d.mean()}, "
+                     f"bounds {bound} and {mean_bound}")
+    for c, (mx, at, mean, at_mean) in worst.items():
+        print(f"  {what} {c}: max|d| {mx:.3e} ({at}; bound "
+              f"{classes[c][0]:.1e}), mean|d| {mean:.3e} ({at_mean}; bound "
+              f"{classes[c][1]:.1e})")
+    print(f"  {what}: parameters agree")
+
+
+def _same_weights_generate(torch, run_a, run_b, what):
+    """Both engines' generators of each direction on one batch, with the
+    second run's weights in both: the forward routes agree within 1e-5
+    (on the H100 they differ by 1.1e-6 to 2.1e-6, fused vs unfused and card
+    vs CPU)."""
+    from gcc_tpu_torch.utils.weights import export_jax_variables
+    from gcc_tpu_torch.utils.weights import load_jax_variables
+
+    (_, eng_a, state_a, batch), (_, eng_b, state_b, _) = run_a, run_b
+    for key in ("g_a", "g_b"):
+        load_jax_variables(state_a.nets[key],
+                           export_jax_variables(state_b.nets[key]))
+    err = 0.0
+    for direction, key in (("AtoB", "A"), ("BtoA", "B")):
+        x = batch[key]
+        out_a = eng_a.generate(state_a, x, direction).cpu()
+        out_b = eng_b.generate(state_b, x.to(eng_b.device), direction).cpu()
+        err = max(err, max_err(out_a, out_b))
+    print(f"  {what}: generate from the same weights, both directions: "
+          f"max|d| {err:.3e}")
+    if not err < 1e-5:
+        fail(f"{what}: generate differs by {err}")
+
+
+def _same_weights_d(torch, run_a, run_b, what):
+    """Both engines' masked D's from the second run's variables, one
+    train-mode forward on the same batch: the outputs and the BatchNorm
+    running statistics that forward writes agree within 1e-5."""
+    from gcc_tpu_torch.utils.weights import export_jax_variables
+    from gcc_tpu_torch.utils.weights import load_jax_variables
+
+    (_, _, state_a, batch), (_, eng_b, state_b, _) = run_a, run_b
+    err = {"output": 0.0, "running stats": 0.0}
+    for net, key in (("d_a", "B"), ("d_b", "A")):
+        d_a, d_b = state_a.nets[net], state_b.nets[net]
+        load_jax_variables(d_a, export_jax_variables(d_b))
+        with torch.no_grad():
+            p_a, _ = d_a(batch[key])
+            p_b, _ = d_b(batch[key].to(eng_b.device))
+        err["output"] = max(err["output"], max_err(p_a.cpu(), p_b.cpu()))
+        stats_b = dict(d_b.named_buffers())
+        for name, t in d_a.named_buffers():
+            err["running stats"] = max(err["running stats"], max_err(
+                t.cpu(), stats_b[name].cpu()))
+    print(f"  {what}: D from the same variables, one train-mode forward: "
+          + ", ".join(f"{k} max|d| {v:.3e}" for k, v in err.items()))
+    if not max(err.values()) < 1e-5:
+        fail(f"{what}: D from the same variables differs: {err}")
+
+
+def phase_cyclegan_agree(torch, np):
+    from gcc_tpu_torch.config import Config
+    from gcc_tpu_torch.ops import mobile_block as mb
+
+    size = CYCLEGAN_AGREE_SIZE
+    print(f"== phase 13: CycleGAN agreement, {size}px (the blocks at "
+          f"{size // 4}px, the fused gate open), batch 1, ngf 8 / ndf 16, "
+          f"teacher 16/16, lambda_weight 1e-3: (a) fused (kernels) against "
+          f"unfused (cuDNN) engines, pools of 1, 2 iterations; (b) the card "
+          f"(kernels) against the CPU, pools at 0, 3 iterations")
+    kw = dict(ngf=8, ndf=16, teacher_ngf=16, teacher_ndf=16, crop_size=size,
+              load_size=size, lambda_weight=1e-3)
+    runs = {}
+    for mode in ("on", "off"):
+        before = mb.LAUNCHES["stage_fwd"]
+        runs[mode] = _cyclegan_run(
+            torch, np, cyclegan_config(Config, fused_resblock=mode,
+                                       pool_size=1, **kw), "cuda", 2)
+        grown = mb.LAUNCHES["stage_fwd"] - before
+        if (grown > 0) != (mode == "on"):
+            fail(f"fused_resblock {mode}: {grown} stage_fwd launches")
+    _agree_losses(runs["on"][0], runs["off"][0], "(a) fused vs unfused")
+    _agree_params(np, runs["on"][1].cfg, runs["on"][2], runs["off"][2], 2,
+                  "(a)")
+    _same_weights_generate(torch, runs["on"], runs["off"], "(a)")
+    _same_weights_d(torch, runs["on"], runs["off"], "(a)")
+    for dev in ("cuda", "cpu"):
+        runs[dev] = _cyclegan_run(
+            torch, np, cyclegan_config(Config, pool_size=0, **kw), dev, 3)
+    _agree_losses(runs["cuda"][0], runs["cpu"][0], "(b) card vs CPU")
+    _agree_params(np, runs["cuda"][1].cfg, runs["cuda"][2], runs["cpu"][2],
+                  3, "(b)")
+    _same_weights_generate(torch, runs["cuda"], runs["cpu"], "(b)")
+    _same_weights_d(torch, runs["cuda"], runs["cpu"], "(b)")
+
+
+def random_vgg19(np):
+    """A torchvision-named VGG19 state dict of seeded He-scaled weights, so
+    that the features neither vanish nor blow up: NOT the pretrained
+    weights the reference's perceptual term uses."""
+    from gcc_tpu_torch.metrics.vgg import VGG19_CONV_IDX, load_torch_vgg19
+    rng = np.random.RandomState(0)
+    sd, in_ch = {}, 3
+    for idx in VGG19_CONV_IDX:
+        out = 64 * min(2 ** sum(1 for p in (2, 7, 16, 25) if p < idx), 8)
+        sd[f"features.{idx}.weight"] = (rng.randn(out, in_ch, 3, 3) * np.sqrt(
+            2.0 / (9 * in_ch))).astype(np.float32)
+        sd[f"features.{idx}.bias"] = np.zeros(out, np.float32)
+        in_ch = out
+    return load_torch_vgg19(sd)
+
+
+def phase_srgan(torch, np):
+    from gcc_tpu_torch.compress import prune_srresnet
+    from gcc_tpu_torch.config import Config
+    from gcc_tpu_torch.engines.srgan import SRGANEngine
+    from gcc_tpu_torch.models.generators import SRResNet
+    from gcc_tpu_torch.ops import flash_attention as fa
+    from gcc_tpu_torch.ops import mobile_block as mb
+    from gcc_tpu_torch.utils.weights import export_jax_variables
+
+    hr, batch, w = SRGAN_HR, SRGAN_BATCH, SRGAN_WIDTHS
+    lr_size = hr // 4
+    print(f"== phase 14: SRGAN GCC iteration (scripts/srgan/train.sh), "
+          f"{hr}px from {lr_size}px (x4), batch {batch}, vanilla GAN, "
+          f"teacher ngf {w['teacher_ngf']} / ndf {w['teacher_ndf']}, ndf "
+          f"{w['ndf']} masked, content 0.1, gram 0.1; VGG19 perceptual term "
+          f"on SEEDED RANDOM weights (not the pretrained ones), "
+          f"lambda_SR_perceptual 1; 1 warm-up + {N_TIMED} timed")
+    tree = export_jax_variables(SRResNet(w["ngf"]))["params"]
+    fc, gmacs = prune_srresnet(spread_tree(np, tree, np.random.RandomState(0)),
+                               mode="scale", n_channels=w["ngf"],
+                               target_budget_g=SRGAN_BUDGET, tolerance_g=0.01,
+                               lr_size=lr_size)
+    print(f"  student pruned by prune_srresnet(mode='scale') from spread "
+          f"weights: filter_cfgs {fc}, {gmacs:.4f} GMACs")
+    cfg = Config(model="srgan", gan_mode="vanilla", image_size=hr,
+                 batch_size=batch, online_distillation=True,
+                 darts_discriminator=True, lambda_content=0.1,
+                 lambda_gram=0.1, lambda_SR_perceptual=1.0, lr=1e-4,
+                 arch_lr=1e-4, **w)
+    engine = SRGANEngine(cfg, filter_cfgs=fc, vgg_params=random_vgg19(np))
+    rng = np.random.RandomState(0)
+    batches = [{"lr": torch.from_numpy(rng.randn(
+                    batch, 3, lr_size, lr_size).astype(np.float32))
+                .to(engine.device),
+                "hr": torch.from_numpy(rng.rand(batch, 3, hr, hr).astype(
+                    np.float32) * 2 - 1).to(engine.device)}
+               for _ in range(2 * (N_TIMED + 1))]
+    for k in fa.LAUNCHES:
+        fa.LAUNCHES[k] = 0
+    drive(torch, engine, cfg, batches, batches[0]["lr"], mb.LAUNCHES,
+          {k: 0 for k in mb.LAUNCHES}, {}, "srgan path", out_size=hr)
+    if any(fa.LAUNCHES.values()):
+        fail(f"srgan path launched B1: {fa.LAUNCHES}")
 
 
 def main():
@@ -1220,14 +1708,24 @@ def main():
           f"{kernels.CSRC})")
 
     record = phase_kernels(torch, F)
+    # launches: the main path's (pix2pix resnet for B2, SAGAN for B1);
+    # by_path: each path's own count, each read from counters set to 0
+    # just before the path
     launches = phase_main(torch, np)
+    by_path = {k: {"pix2pix resnet": v} for k, v in launches.items()}
     phase_agree(torch, np)
     record.update(phase_attention(torch, F))
-    launches.update(phase_sagan(torch, np))
+    sagan = phase_sagan(torch, np)
+    launches.update(sagan)
+    by_path.update({k: {"sagan": v} for k, v in sagan.items()})
     phase_sagan_agree(torch, np)
     phase_unet(torch, np)
     phase_unet_agree(torch, np)
     cli = phase_cli(torch, np)
+    for k, v in phase_cyclegan(torch, np).items():
+        by_path[k]["cyclegan"] = v
+    phase_cyclegan_agree(torch, np)
+    phase_srgan(torch, np)
 
     entries = []
     for k, rec in record.items():
@@ -1238,6 +1736,7 @@ def main():
             "name": f"{family}-{short}", "route": "cuda",
             "source": f"gcc_tpu_torch/csrc/{csrc}.cu",
             "replaces": TPU_KERNEL[k], "launches": launches[k],
+            "launches_by_path": by_path[k],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})

@@ -17,8 +17,8 @@ import os
 
 def dump_cap(cfg):
     """Image-dump cap: ``--ntest N`` wins; with the default ntest=inf SAGAN
-    caps at 1000 images (reference test.py:51) and pix2pix dumps the whole
-    eval set (test.py:27-28 keeps its cap commented out)."""
+    caps at 1000 images (reference test.py:51) and the other families dump
+    the whole eval set (test.py:27-28 keeps its cap commented out)."""
     if cfg.ntest != float("inf"):
         return int(cfg.ntest)
     return 1000 if cfg.model == "sagan" else None
@@ -29,7 +29,10 @@ def rebuild_engine(cfg, ckpt, device=None):
     from gcc_tpu_torch.utils.checkpoint import restore_cfg
     filter_cfgs, channel_cfgs = restore_cfg(ckpt)
     cls = engine_class(cfg.model)
-    if cfg.model == "sagan":
+    if "cyclegan" in cfg.model:
+        return cls(cfg, cfg_AtoB=filter_cfgs, cfg_BtoA=channel_cfgs,
+                   device=device)
+    if cfg.model in ("sagan", "srgan"):
         return cls(cfg, filter_cfgs=filter_cfgs, device=device)
     return cls(cfg, filter_cfgs=filter_cfgs, channel_cfgs=channel_cfgs,
                device=device)
@@ -60,7 +63,7 @@ def main(argv=None) -> int:
     logger.info(f"loaded the model from {cfg.pretrain_path}")
 
     # dump images (test.py:25-58); visual sets as get_current_visuals
-    # (Pix2Pix.py:686-692, SAGAN)
+    # (Pix2Pix.py:686-692, SAGAN, SRGAN, CycleGAN)
     result_dir = os.path.join(run_dir, "test_results")
     loader = create_dataset(cfg.replace(batch_size=1, serial_batches=True,
                                         no_flip=True), seed=0)
@@ -71,6 +74,20 @@ def main(argv=None) -> int:
             visuals = {"fake_img": to_host(fake),
                        "real_img": batch["real_img"]}
             name = batch["img_path"][0]
+        elif cfg.model == "srgan":
+            fake = engine.generate(state, to_device(batch["lr"], dev))
+            visuals = {"fake_hr": to_host(fake), "real_hr": batch["hr"]}
+            name = batch["hr_names"][0]
+        elif "cyclegan" in cfg.model:
+            A, B = to_device(batch["A"], dev), to_device(batch["B"], dev)
+            fake_B = engine.generate(state, A, direction="AtoB")
+            rec_A = engine.generate(state, fake_B, direction="BtoA")
+            fake_A = engine.generate(state, B, direction="BtoA")
+            rec_B = engine.generate(state, fake_A, direction="AtoB")
+            visuals = {"real_A": batch["A"], "fake_B": to_host(fake_B),
+                       "rec_A": to_host(rec_A), "real_B": batch["B"],
+                       "fake_A": to_host(fake_A), "rec_B": to_host(rec_B)}
+            name = os.path.basename(batch["A_paths"][0])
         else:
             kin, kout = ("B", "A") if cfg.direction == "BtoA" else ("A", "B")
             fake = engine.generate(state, to_device(batch[kin], dev))

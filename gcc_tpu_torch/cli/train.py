@@ -29,14 +29,19 @@ import torch
 
 
 def engine_class(model: str):
+    from gcc_tpu_torch.engines.cyclegan import CycleGANEngine
     from gcc_tpu_torch.engines.pix2pix import Pix2PixEngine
     from gcc_tpu_torch.engines.sagan import SAGANEngine
+    from gcc_tpu_torch.engines.srgan import SRGANEngine
     if "pix2pix" in model:
         return Pix2PixEngine
+    if "cyclegan" in model:
+        return CycleGANEngine
     if model == "sagan":
         return SAGANEngine
-    raise NotImplementedError(
-        f"model {model!r} is not in the port yet (ROADMAP Queue A)")
+    if model == "srgan":
+        return SRGANEngine
+    raise NotImplementedError(f"model {model!r} is not implemented")
 
 
 def run_device(cfg, device=None) -> torch.device:
@@ -98,9 +103,25 @@ def build_engine(cfg, logger=None, device=None):
         raise RuntimeError("the target budget must exist")
     if cfg.pretrain_path is None:
         raise RuntimeError("the pretrain path must exist")
-    g_params = load_checkpoint(cfg.pretrain_path)["G"]["params"]
+    ckpt = load_checkpoint(cfg.pretrain_path)
     tol = compress.tolerance_for(cfg.dataroot)
     mode = "scale" if cfg.scale_prune else "norm"
+    if "cyclegan" in cfg.model:
+        if "horse2zebra" in cfg.dataroot:
+            # the reference overrides its own search with these cfgs
+            # (utils/prune_util.py:120-121)
+            cfg_a, cfg_b = compress.cyclegan_reference_cfgs()
+        else:
+            cfg_a, _ = compress.prune_mobile_resnet(
+                ckpt["G_A"]["params"], target_budget_g=cfg.target_budget,
+                tolerance_g=0.05, image_size=cfg.load_size)
+            cfg_b, _ = compress.prune_mobile_resnet(
+                ckpt["G_B"]["params"], target_budget_g=cfg.target_budget_B,
+                tolerance_g=0.05, image_size=cfg.load_size)
+        log(f"pruned cfg_AtoB: {cfg_a}")
+        log(f"pruned cfg_BtoA: {cfg_b}")
+        return cls(cfg, cfg_AtoB=cfg_a, cfg_BtoA=cfg_b, device=device)
+    g_params = ckpt["G"]["params"]
     if cfg.backbone == "resnet" and "pix2pix" in cfg.model:
         fc, g = compress.prune_mobile_resnet_union(
             g_params, target_budget_g=cfg.target_budget, tolerance_g=tol,
@@ -112,6 +133,13 @@ def build_engine(cfg, logger=None, device=None):
                                      target_budget_g=cfg.target_budget,
                                      tolerance_g=tol, z_dim=cfg.z_dim,
                                      image_size=cfg.crop_size)
+        log(f"pruned filter_cfgs: {fc} ({g:.6f} GMACs)")
+        return cls(cfg, filter_cfgs=fc, device=device)
+    if cfg.model == "srgan":
+        fc, g = compress.prune_srresnet(
+            g_params, mode=mode, n_channels=cfg.ngf,
+            target_budget_g=cfg.target_budget, tolerance_g=tol,
+            lr_size=cfg.image_size // cfg.upscale_factor)
         log(f"pruned filter_cfgs: {fc} ({g:.6f} GMACs)")
         return cls(cfg, filter_cfgs=fc, device=device)
     # pix2pix U-Net (the unprunable stem/innermost widths are the model's
@@ -150,33 +178,47 @@ def _write_opt(path: str, cfg) -> None:
 
 
 def _load_teachers(cfg, engine, state, logger) -> None:
+    """--initial_path (the student G), --teacher_initial_path (the teacher
+    G) and --distillation_path (the frozen teacher's G and D). CycleGAN's
+    nets come per direction: G_A/G_B (D_A/D_B) into tg_a/tg_b (td_a/td_b)."""
     from gcc_tpu_torch.utils.checkpoint import load_checkpoint
     from gcc_tpu_torch.utils.weights import load_jax_variables
+    pairs = ([("_a", "_A"), ("_b", "_B")] if "cyclegan" in cfg.model
+             else [("", "")])
     if cfg.initial_path:
         engine.load_net_params(state, load_checkpoint(cfg.initial_path),
                                load_discriminator=False)
         logger.info(f"loaded initial G from {cfg.initial_path}")
     if cfg.teacher_initial_path and engine.distill:
-        load_jax_variables(state.nets["tg"],
-                           load_checkpoint(cfg.teacher_initial_path)["G"])
+        tck = load_checkpoint(cfg.teacher_initial_path)
+        for ours, theirs in pairs:
+            load_jax_variables(state.nets[f"tg{ours}"], tck[f"G{theirs}"])
         logger.info(f"loaded teacher G from {cfg.teacher_initial_path}")
     if cfg.normal_distillation and cfg.distillation_path:
         # frozen-teacher distillation from a fixed checkpoint
         tck = load_checkpoint(cfg.distillation_path)
-        load_jax_variables(state.nets["tg"], tck["G"])
-        if tck.get("D") is not None:
-            load_jax_variables(state.nets["td"], tck["D"])
+        for ours, theirs in pairs:
+            load_jax_variables(state.nets[f"tg{ours}"], tck[f"G{theirs}"])
+            if tck.get(f"D{theirs}") is not None:
+                load_jax_variables(state.nets[f"td{ours}"],
+                                   tck[f"D{theirs}"])
         logger.info(f"loaded frozen teacher from {cfg.distillation_path}")
 
 
 def _arch_lr(cfg, epoch: int, plateau) -> float:
     """The DARTS LR of an epoch: --arch_lr_step's per-model step rules
-    (SAGAN.py:348-353 step/40, Pix2Pix.py:432-437 step/(n_epochs-1)), or
-    the plateau's factor."""
+    (SAGAN.py:348-353 step/40, Pix2Pix.py:432-437 and CycleGAN
+    step/(n_epochs-1), SRGAN the model's own LR policy, SRGAN.py:370-371,
+    385), or the plateau's factor."""
     from gcc_tpu_torch.utils.schedule import multiplier_after_steps
     if cfg.arch_lr_step and plateau:
         return cfg.arch_lr * (plateau.lr / cfg.lr)
     steps = max(epoch - cfg.epoch_count, 0)
+    if cfg.arch_lr_step and cfg.model == "srgan":
+        return cfg.arch_lr * multiplier_after_steps(
+            cfg.lr_policy, steps, n_epochs=cfg.n_epochs,
+            n_epochs_decay=cfg.n_epochs_decay,
+            lr_decay_iters=cfg.lr_decay_iters)
     if cfg.arch_lr_step and steps > 0:
         # before the first scheduler step the multiplier is 1 whatever the
         # step size: pix2pix's is 0 at --n_epochs 1, where gcc_tpu divides
@@ -354,7 +396,9 @@ def _train(cfg, dev, run_dir, logger, preempt) -> int:
             current_perf = evaluate_engine(cfg, engine, state, logger, epoch)
             _save_best(cfg, engine, state, best, current_perf, epoch, logger)
             if plateau is not None and current_perf is not None:
-                scalar = float(current_perf)
+                scalar = (float(np.mean(list(current_perf.values())))
+                          if isinstance(current_perf, dict)
+                          else float(current_perf))
                 if maximize_metric(cfg):
                     scalar = -scalar
                 new_lr = plateau.step(scalar)
@@ -366,7 +410,10 @@ def _train(cfg, dev, run_dir, logger, preempt) -> int:
                     ckpt_name(ckpt_dir, epoch),
                     engine.checkpoint_payload(state, epoch, current_perf))
         if cfg.darts_discriminator:
-            alphas = named_alphas("d", state.nets["d"])
+            alphas = {}
+            for key in ("d", "d_a", "d_b"):
+                if key in state.nets:
+                    alphas.update(named_alphas(key, state.nets[key]))
             for name, ratio in sparsity_report(
                     alphas, threshold=cfg.threshold).items():
                 logger.info(f"{name} sparsity ratio: {ratio:.2f}")
@@ -387,11 +434,31 @@ def _train(cfg, dev, run_dir, logger, preempt) -> int:
 
 
 def _save_best(cfg, engine, state, best, perf, epoch, logger) -> None:
-    """Best-metric checkpointing (train.py:14-73)."""
+    """Best-metric checkpointing (train.py:14-73). A dict of named metrics
+    (CycleGAN's directions, SRGAN's sets) keeps one best per name, in the
+    reference's slots: PSNR 0-3, SSIM 4-7 (train.py:47-52)."""
+    from gcc_tpu_torch.eval.orchestrators import SR_TEST_SETS
     from gcc_tpu_torch.utils.checkpoint import ckpt_name, save_checkpoint
     if perf is None:
         return
     save_dir = os.path.join(cfg.checkpoints_dir, cfg.name, "checkpoints")
+    if isinstance(perf, dict):
+        sets = list(SR_TEST_SETS) + ["val"]
+        last = len(best.best_metric) - 1
+        for i, (name, value) in enumerate(perf.items()):
+            if name.endswith(("_psnr", "_ssim")):
+                base, kind = name.rsplit("_", 1)
+                idx = sets.index(base) if base in sets else 0
+                idx = min(idx + (4 if kind == "ssim" else 0), last)
+            else:
+                idx = min(i, last)
+            if best.update(value, epoch, index=idx):
+                save_checkpoint(
+                    ckpt_name(save_dir, isbest=True, direction=name),
+                    engine.checkpoint_payload(state, epoch, value))
+                logger.info(f"saving best [{name}] at epoch {epoch}: "
+                            f"{value:.4f}")
+        return
     if best.update(float(perf), epoch):
         save_checkpoint(
             ckpt_name(save_dir, isbest=True, direction=cfg.direction),

@@ -8,8 +8,7 @@ returns (train, val) loaders over the same data with seeds ``seed`` and
 differently-ordered batches.
 
 Not in the port yet (ROADMAP Queue A): packed roots (``cli.prepare``'s
-``gcc_pack.json``), the device-resident cache, and the unaligned and sr
-folder datasets.
+``gcc_pack.json``) and the device-resident cache.
 """
 
 from __future__ import annotations
@@ -20,23 +19,21 @@ import numpy as np
 import torch
 
 from gcc_tpu_torch.data.datasets import (
-    AlignedDataset, SADataset, SyntheticDataset,
+    AlignedDataset, SADataset, SRDataset, SyntheticDataset, UnalignedDataset,
 )
 from gcc_tpu_torch.data.loader import InfiniteLoader, Loader  # noqa: F401
 
 DATASETS = {
     "aligned": AlignedDataset,
+    "unaligned": UnalignedDataset,
     "sa": SADataset,
+    "sr": SRDataset,
     "synthetic": SyntheticDataset,
 }
 PACK_META = "gcc_pack.json"
 
 
 def find_dataset_using_name(name: str):
-    if name in ("unaligned", "sr"):
-        raise NotImplementedError(
-            f"dataset mode [{name}] comes with the CycleGAN/SRGAN ports "
-            f"(ROADMAP Queue A); available: {sorted(DATASETS)}")
     if name not in DATASETS:
         raise NotImplementedError(
             f"dataset mode [{name}] is not implemented "

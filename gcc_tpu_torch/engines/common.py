@@ -1,6 +1,7 @@
-"""Shared engine machinery (port of gcc_tpu/engines/common.py:38-321): the
+"""Shared engine machinery (port of gcc_tpu/engines/common.py:38-327): the
 engine state, discriminator pair forwards, Adam with an external LR,
-sparsity gradient injection, distillation helpers and the discrepancy EMA.
+sparsity gradient injection (with CycleGAN's heavy weighting), distillation
+helpers and the discrepancy EMA (the replay pool is ops/pool.py).
 
 The JAX engine's train step is a pure function of (params, batch); here the
 nets are ``nn.Module``s updated in place. Gradients are taken with
@@ -20,7 +21,7 @@ import torch
 import torch.nn as nn
 
 from gcc_tpu_torch.losses import gan_loss, gram_pair_err, mse, sqrt_mse
-from gcc_tpu_torch.ops.layers import BatchNorm, Conv, ConvTranspose
+from gcc_tpu_torch.ops.layers import BatchNorm, Conv, ConvTranspose, Dense
 from gcc_tpu_torch.utils.weights import export_jax_variables, load_jax_variables
 
 
@@ -121,26 +122,27 @@ def grads_of(loss: torch.Tensor, params: Sequence[torch.Tensor]
 
 
 def d_pair(net: nn.Module, x_a: torch.Tensor, x_b: torch.Tensor,
-           fused: bool = False, update_stats: bool = True
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Discriminator forwards on an update's (fake, real) input pair.
+           fused: bool = False, update_stats: bool = True):
+    """Discriminator forwards on an update's input pair.
 
     fused=False: the reference's two sequential train-mode forwards
     (models/Pix2Pix.py:464-477): per-half BatchNorm batches, running stats
     updated by each. fused=True (--fused_d_batch): one forward over the pair
     interleaved on a new axis 1 and flattened into the batch, so BatchNorm
     sees the mixed 2B batch (see PARITY.md); per-sample outputs otherwise
-    identical. Returns (p_a, p_b).
+    identical. Returns (p_a, p_b, the captured features of x_b's forward);
+    the fused forward's features are sliced to x_b's half.
     """
     if not fused:
         p_a, _ = net(x_a, update_stats)
-        p_b, _ = net(x_b, update_stats)
-        return p_a, p_b
+        p_b, feats = net(x_b, update_stats)
+        return p_a, p_b, feats
     n = x_a.shape[0]
     both = torch.stack([x_a, x_b], dim=1).reshape((2 * n,) + x_a.shape[1:])
-    p, _ = net(both, update_stats)
+    p, feats = net(both, update_stats)
     p = p.reshape((n, 2) + p.shape[1:])
-    return p[:, 0], p[:, 1]
+    feats = [f.reshape((n, 2) + f.shape[1:])[:, 1] for f in feats]
+    return p[:, 0], p[:, 1], feats
 
 
 # ---------------------------------------------------------------------------
@@ -221,23 +223,41 @@ class DupAdam:
 
 def add_sign_sparsity(net: nn.Module, params: Sequence[torch.Tensor],
                       grads: List[torch.Tensor], lambda_weight: float,
-                      lambda_scale: float) -> List[torch.Tensor]:
-    """grad += lambda * sign(w) on every conv kernel (lambda_weight; the
+                      lambda_scale: float, weight_scale_fn=None
+                      ) -> List[torch.Tensor]:
+    """grad += lambda * sign(w) on every conv and dense kernel (lambda_weight; the
     spectral convs subclass Conv/ConvTranspose, so their raw kernels count,
     as every JAX 'kernel' leaf does) and on the scales of norms named
     '*norm*'/'*bn*' (lambda_scale), for the entries of ``params`` that belong
-    to ``net`` (models/Pix2Pix.py:554-563)."""
+    to ``net`` (models/Pix2Pix.py:554-563). ``weight_scale_fn`` of the
+    kernel's JAX path ('up_0/kernel') multiplies lambda_weight: CycleGAN's
+    heavy sparsity (CycleGAN.py:539-559)."""
     if lambda_weight <= 0.0 and lambda_scale <= 0.0:
         return grads
     lam = {}
     for name, m in net.named_modules():
-        if lambda_weight > 0.0 and isinstance(m, (Conv, ConvTranspose)):
-            lam[id(m.weight)] = lambda_weight
+        if lambda_weight > 0.0 and isinstance(m, (Conv, ConvTranspose,
+                                                  Dense)):
+            scale = 1.0 if weight_scale_fn is None else weight_scale_fn(
+                f"{name.replace('.', '/')}/kernel")
+            lam[id(m.weight)] = lambda_weight * scale
         elif lambda_scale > 0.0 and isinstance(m, BatchNorm) and (
                 "norm" in name or "bn" in name):
             lam[id(m.weight)] = lambda_scale
     return [g + lam[id(p)] * torch.sign(p) if id(p) in lam else g
             for p, g in zip(params, grads)]
+
+
+def cyclegan_heavy_sparsity(name: str) -> float:
+    """1000x on the first upsample deconv, 2x on the stem, the first down and
+    the second up conv (CycleGAN.py:245, 544-559); ``name`` is the kernel's
+    JAX path."""
+    if name.startswith("up_0/"):
+        return 1000.0
+    for prefix in ("conv_in/", "down_0/", "up_1/"):
+        if name.startswith(prefix):
+            return 2.0
+    return 1.0
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +268,8 @@ def distill_losses(feats: Sequence[torch.Tensor],
                    targets: Sequence[torch.Tensor], use_sqrt: bool = True
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Content + gram sums over paired features; targets are detached.
-    pix2pix uses sqrt(MSE)."""
+    pix2pix, SAGAN and SRGAN use sqrt(MSE), CycleGAN plain MSE
+    (CycleGAN.py:513)."""
     err = sqrt_mse if use_sqrt else mse
     content = feats[0].new_zeros(())
     gram_l = feats[0].new_zeros(())

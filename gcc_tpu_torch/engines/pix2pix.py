@@ -186,7 +186,7 @@ class Pix2PixEngine(CheckpointMixin, CombinedStepMixin):
                 tfake, _ = TG(A, t_masks(), update_stats=False)
 
             # ---- teacher D update (D-then-G order, Pix2Pix.py:565-583) ----
-            pf, pr = d_pair(TD, torch.cat([A, tfake], 1), AB, self.fused_d)
+            pf, pr, _ = d_pair(TD, torch.cat([A, tfake], 1), AB, self.fused_d)
             loss = (gan_loss(pf, False, self.gan_mode)
                     + gan_loss(pr, True, self.gan_mode)) * 0.5
             td_params = weight_params(TD)
@@ -211,7 +211,7 @@ class Pix2PixEngine(CheckpointMixin, CombinedStepMixin):
             fake, _ = G(A, masks(), update_stats=False)
 
         # ---- student D update (alphas are constants here) ----
-        pf, pr = d_pair(D, torch.cat([A, fake], 1), AB, self.fused_d)
+        pf, pr, _ = d_pair(D, torch.cat([A, fake], 1), AB, self.fused_d)
         lf = gan_loss(pf, False, self.gan_mode)
         lr_ = gan_loss(pr, True, self.gan_mode)
         d_params = weight_params(D)

@@ -165,7 +165,7 @@ class SAGANEngine(CheckpointMixin, CombinedStepMixin):
                 tfake0, _ = TG(z, update_stats=False)
 
             # ---- teacher D update: real first (SAGAN.py:379), TTUR ----
-            pr, pf = d_pair(TD, real, tfake0, self.fused_d)
+            pr, pf, _ = d_pair(TD, real, tfake0, self.fused_d)
             loss = gan_loss(pf, False, self.gan_mode) \
                 + gan_loss(pr, True, self.gan_mode)
             td_params = weight_params(TD)
@@ -188,7 +188,7 @@ class SAGANEngine(CheckpointMixin, CombinedStepMixin):
         # ---- student D update (alphas are constants here) ----
         with torch.no_grad():
             fake, _ = G(z, update_stats=False)
-        pr, pf = d_pair(D, real, fake, self.fused_d)
+        pr, pf, _ = d_pair(D, real, fake, self.fused_d)
         lf = gan_loss(pf, False, self.gan_mode)
         lr_ = gan_loss(pr, True, self.gan_mode)
         d_params = weight_params(D)

@@ -3,7 +3,9 @@ metric/test_metric.py:15-204).
 
 Protocol quirks kept: eval batches are serial, unflipped, at a fixed
 load_size (test_metric.py:16-21); SAGAN evaluates on 10% of the dataset
-(l.144). ``--eval_batch`` > 1 batches the generator forwards with the same
+(l.144); CycleGAN reports one metric per direction, SRGAN PSNR and SSIM on
+Y per test set (Set5, Set14, B100, Urban100 where the dataroot has them,
+else val). ``--eval_batch`` > 1 batches the generator forwards with the same
 outputs (eval mode: no dropout, running BN stats, per-sample IN).
 
 FID and mIoU need the evaluator networks (InceptionV3, DRN-D-105), which
@@ -18,14 +20,17 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
-from gcc_tpu_torch.data import create_dataset, to_device, to_host
+from gcc_tpu_torch.data import (
+    build_dataset, create_dataset, to_device, to_host,
+)
+from gcc_tpu_torch.data.datasets import SyntheticDataset
 from gcc_tpu_torch.data.resample import BILINEAR, resize
 from gcc_tpu_torch.metrics.fid import activation_statistics, frechet_distance
-from gcc_tpu_torch.metrics.psnr_ssim import psnr_y
+from gcc_tpu_torch.metrics.psnr_ssim import psnr_y, ssim_y
 
 
 def eval_cfg(cfg, **overrides):
@@ -62,14 +67,16 @@ def _refuse_evaluator(flag: str, path: Optional[str]) -> None:
 
 
 def _collect(engine, state, loader, key_in: str, key_out: str,
-             max_items: Optional[int] = None):
+             max_items: Optional[int] = None, direction: Optional[str] = None):
     """Run the generator over a loader in eval mode: (fakes, reals) as NHWC
-    numpy, at most ``max_items`` of each."""
+    numpy, at most ``max_items`` of each. ``direction`` picks CycleGAN's
+    generator."""
     fakes, reals = [], []
     n = 0
+    kw = {} if direction is None else {"direction": direction}
     for batch in loader:
         x = to_device(batch[key_in], engine.device)
-        fakes.append(to_host(engine.generate(state, x)))
+        fakes.append(to_host(engine.generate(state, x, **kw)))
         reals.append(np.asarray(batch[key_out], np.float32))
         n += x.shape[0]
         if max_items is not None and n >= max_items:
@@ -82,11 +89,13 @@ def _collect(engine, state, loader, key_in: str, key_out: str,
 def evaluate_engine(cfg, engine, state, logger, epoch):
     if "pix2pix" in cfg.model:
         return _eval_pix2pix(cfg, engine, state, logger)
+    if cfg.model == "srgan":
+        return _eval_srgan(cfg, engine, state, logger)
     if cfg.model == "sagan":
         return _eval_sagan(cfg, engine, state, logger)
-    raise NotImplementedError(
-        f"{cfg.model} evaluation comes with its family's port (ROADMAP "
-        f"Queue A)")
+    if "cyclegan" in cfg.model:
+        return _eval_cyclegan(cfg, engine, state, logger)
+    raise NotImplementedError(cfg.model)
 
 
 def _eval_pix2pix(cfg, engine, state, logger):
@@ -116,3 +125,48 @@ def _eval_sagan(cfg, engine, state, logger):
     fid = pixel_fid(fakes, reals)
     logger.info(f"[proxy] pixel-FID (no inception weights): {fid:.4f}")
     return fid
+
+
+SR_TEST_SETS = ("Set5", "Set14", "B100", "Urban100")
+
+
+def _eval_srgan(cfg, engine, state, logger) -> Dict[str, float]:
+    """PSNR and SSIM on Y per test set, one image at a time
+    (gcc_tpu/eval/orchestrators.py:157-192)."""
+    available = [t for t in SR_TEST_SETS if cfg.dataroot
+                 and os.path.isdir(os.path.join(cfg.dataroot, t))] or ["val"]
+    results: Dict[str, float] = {}
+    for name in available:
+        if cfg.dataset_mode == "synthetic":
+            ds = SyntheticDataset(eval_cfg(cfg), seed=999, length=8)
+        else:
+            ds = build_dataset(eval_cfg(cfg), seed=0,
+                               test_data_name=None if name == "val" else name)
+        psnrs, ssims = [], []
+        for i in range(len(ds)):
+            item = ds[i]
+            fake = to_host(engine.generate(
+                state, to_device(item["lr"][None], engine.device)))[0]
+            psnrs.append(psnr_y(fake, item["hr"]))
+            ssims.append(ssim_y(fake, item["hr"]))
+        results[f"{name}_psnr"] = float(np.mean(psnrs))
+        results[f"{name}_ssim"] = float(np.mean(ssims))
+        logger.info(f"{name}: PSNR: {results[f'{name}_psnr']:.2f} | "
+                    f"SSIM: {results[f'{name}_ssim']:.4f}")
+    return results
+
+
+def _eval_cyclegan(cfg, engine, state, logger) -> Dict[str, float]:
+    """The proxy pixel-FID of each direction's fakes against the other
+    domain's images (gcc_tpu/eval/orchestrators.py:212-235)."""
+    loader = create_dataset(eval_cfg(cfg, load_size=256), seed=1234)
+    cap = None if cfg.ntest == float("inf") else int(cfg.ntest)
+    _refuse_evaluator("inception_path", cfg.inception_path)
+    out = {}
+    for direction, key_in, key_out in (("AtoB", "A", "B"),
+                                       ("BtoA", "B", "A")):
+        fakes, reals = _collect(engine, state, loader, key_in, key_out, cap,
+                                direction=direction)
+        out[direction] = pixel_fid(fakes, reals)
+        logger.info(f"[proxy] {direction} pixel-FID: {out[direction]:.4f}")
+    return out

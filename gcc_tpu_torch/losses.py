@@ -1,4 +1,4 @@
-"""Loss functions: GAN objectives and distillation (port of gcc_tpu/losses.py:18-117).
+"""Loss functions: GAN objectives and distillation (port of gcc_tpu/losses.py:18-127).
 
 GAN modes replicate models/GANLoss.py:38-59 exactly:
   lsgan   : MSE vs target label
@@ -68,3 +68,13 @@ def gram_pair_err(f: torch.Tensor, t: torch.Tensor,
     """err(gram(f), gram(t)): the per-pair gram distillation term
     (Pix2Pix.py:541-543)."""
     return (sqrt_mse if use_sqrt else mse)(gram(f), gram(t))
+
+
+def tv_loss(x: torch.Tensor, weight: float = 1.0) -> torch.Tensor:
+    """Total-variation loss (models/GANLoss.py:76-93), NCHW input."""
+    b, c, h, w = x.shape
+    count_h = (h - 1) * w * c
+    count_w = h * (w - 1) * c
+    h_tv = torch.sum(torch.square(x[:, :, 1:, :] - x[:, :, :-1, :]))
+    w_tv = torch.sum(torch.square(x[:, :, :, 1:] - x[:, :, :, :-1]))
+    return weight * 2.0 * (h_tv / count_h + w_tv / count_w) / b

@@ -1,6 +1,6 @@
-"""Discriminator networks (port of gcc_tpu/models/discriminators.py:27-112):
-the PatchGAN and the SAGAN discriminator, each plain and mask-gated
-(DARTS-searchable)."""
+"""Discriminator networks (port of gcc_tpu/models/discriminators.py:27-148):
+the PatchGAN, the SAGAN discriminator and SRGAN's VGG-style discriminator,
+each plain and mask-gated (DARTS-searchable)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,9 @@ import torch
 import torch.nn as nn
 
 from gcc_tpu_torch.ops.attention import SelfAttention
-from gcc_tpu_torch.ops.layers import BatchNorm, Conv, InstanceNorm, leaky_relu
+from gcc_tpu_torch.ops.layers import (
+    BatchNorm, Conv, Dense, InstanceNorm, leaky_relu,
+)
 from gcc_tpu_torch.ops.mask import MaskGate
 from gcc_tpu_torch.ops.spectral import SpectralConv
 
@@ -111,3 +113,49 @@ class SAGANDiscriminator(nn.Module):
         h = self.attn2(h)
         feats.append(h)
         return self.last(h).reshape(h.shape[0]), feats
+
+
+class SRGANDiscriminator(nn.Module):
+    """VGG-style: n_blocks conv blocks (even blocks double the channels at
+    stride 1, odd ones halve the resolution at stride 2; the first has no
+    BatchNorm), global average pool, linear head (models/SRGAN.py:199-295).
+    LeakyReLU slope 0.2; masked=True gates each block's output before the
+    activation with ``mask_{i}``. Output (B, 1).
+
+    Captured features ('conv_blocks.1', 'conv_blocks.3', SRGAN.py:322-325):
+    d_feat_0 / d_feat_1 = the activations of blocks 1 and 3.
+    """
+
+    def __init__(self, ndf: int = 64, n_blocks: int = 4,
+                 kernel_size: int = 3, masked: bool = False,
+                 threshold: float = 0.5, input_nc: int = 3):
+        super().__init__()
+        self.n_blocks, self.masked = n_blocks, masked
+        k, in_ch = kernel_size, input_nc
+        for i in range(n_blocks):
+            out_ch = (ndf if i == 0 else in_ch * 2) if i % 2 == 0 else in_ch
+            stride = (1, 1) if i % 2 == 0 else (2, 2)
+            self.add_module(f"conv_{i}", Conv(in_ch, out_ch, (k, k), stride,
+                                              k // 2))
+            if i != 0:
+                self.add_module(f"norm_{i}", BatchNorm(out_ch))
+            if masked:
+                self.add_module(f"mask_{i}", MaskGate(out_ch, threshold))
+            in_ch = out_ch
+        self.fc = Dense(in_ch, 1)
+
+    def forward(self, x: torch.Tensor, update_stats: bool = True
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """``update_stats``: whether a train-mode forward moves the BatchNorm
+        running statistics (the JAX package's ``apply_net`` flag)."""
+        h, feats = x, []
+        for i in range(self.n_blocks):
+            h = getattr(self, f"conv_{i}")(h)
+            if i != 0:
+                h = getattr(self, f"norm_{i}")(h, update_stats)
+            if self.masked:
+                h = getattr(self, f"mask_{i}")(h)
+            h = leaky_relu(h, 0.2)
+            if i in (1, 3):
+                feats.append(h)
+        return self.fc(h.mean(dim=(2, 3))), feats

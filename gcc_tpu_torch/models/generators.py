@@ -1,7 +1,8 @@
 """Generator networks (port of gcc_tpu/models/generators.py): the U-Net
 (models/Pix2Pix.py:79-130), the MobileResnet generator
-(models/CycleGAN.py:77-138 = models/Pix2Pix.py:199-265) and the SAGAN
-generator (models/SAGAN.py:109-171).
+(models/CycleGAN.py:77-138 = models/Pix2Pix.py:199-265), the SAGAN
+generator (models/SAGAN.py:109-171) and SRGAN's SRResNet
+(models/SRGAN.py:139-197).
 
 Submodule names mirror the JAX package's parameter tree (``conv_in``,
 ``block_3_sep1.depthwise``, ...), which is how ``utils/weights.py`` carries
@@ -19,8 +20,8 @@ import torch.nn as nn
 
 from gcc_tpu_torch.ops.attention import SelfAttention
 from gcc_tpu_torch.ops.layers import (
-    BatchNorm, Conv, ConvTranspose, SeparableConv, instance_norm, leaky_relu,
-    reflect_pad,
+    BatchNorm, Conv, ConvTranspose, PReLU, SeparableConv, SubPixelConv,
+    instance_norm, leaky_relu, reflect_pad,
 )
 from gcc_tpu_torch.ops.mobile_block import fused_mobile_block
 from gcc_tpu_torch.ops.spectral import SpectralConvTranspose
@@ -302,3 +303,63 @@ class SAGANGenerator(nn.Module):
         h = self.attn2(h)
         feats.append(h)
         return torch.tanh(self.last(h)), feats
+
+
+class SRResNet(nn.Module):
+    """conv9 PReLU -> n residual blocks (prunable inner width) -> conv3 BN +
+    global skip -> log2(scale) subpixel x2 stages -> conv9 tanh.
+
+    filter_cfgs: each block's inner width, len n_blocks; a block of width 0
+    is elided (SRGAN.py:164-166). Captured features (SRGAN.py:318-321):
+    g_feat_0..3 = outputs of residual blocks 3, 7, 11, 15.
+    """
+
+    FEAT_BLOCKS = (3, 7, 11, 15)
+
+    def __init__(self, n_channels: int = 64, n_blocks: int = 16,
+                 scaling_factor: int = 4, large_kernel: int = 9,
+                 small_kernel: int = 3,
+                 filter_cfgs: Optional[Sequence[int]] = None,
+                 input_nc: int = 3):
+        super().__init__()
+        nc, lk, sk = n_channels, (large_kernel,) * 2, (small_kernel,) * 2
+        f = list(filter_cfgs) if filter_cfgs is not None else [nc] * n_blocks
+        self.filter_cfgs, self.n_blocks = f, n_blocks
+        self.conv_in = Conv(input_nc, nc, lk, (1, 1), large_kernel // 2)
+        self.prelu_in = PReLU()
+        for b, inner in enumerate(f):
+            if inner == 0:
+                continue
+            self.add_module(f"block_{b}_conv1",
+                            Conv(nc, inner, sk, (1, 1), small_kernel // 2))
+            self.add_module(f"block_{b}_bn1", BatchNorm(inner))
+            self.add_module(f"block_{b}_prelu", PReLU())
+            self.add_module(f"block_{b}_conv2",
+                            Conv(inner, nc, sk, (1, 1), small_kernel // 2))
+            self.add_module(f"block_{b}_bn2", BatchNorm(nc))
+        self.conv_mid = Conv(nc, nc, sk, (1, 1), small_kernel // 2)
+        self.bn_mid = BatchNorm(nc)
+        self.n_up = int(math.log2(scaling_factor))
+        for i in range(self.n_up):
+            self.add_module(f"subpixel_{i}", SubPixelConv(nc, sk, 2))
+        self.conv_out = Conv(nc, 3, lk, (1, 1), large_kernel // 2)
+
+    def forward(self, x: torch.Tensor, update_stats: bool = True
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """``update_stats``: whether a train-mode forward moves the BatchNorm
+        running statistics (the JAX package's ``apply_net`` flag)."""
+        h = self.prelu_in(self.conv_in(x))
+        residual, feats = h, []
+        for b in range(self.n_blocks):
+            if self.filter_cfgs[b] != 0:
+                r = getattr(self, f"block_{b}_conv1")(h)
+                r = getattr(self, f"block_{b}_bn1")(r, update_stats)
+                r = getattr(self, f"block_{b}_prelu")(r)
+                r = getattr(self, f"block_{b}_conv2")(r)
+                h = h + getattr(self, f"block_{b}_bn2")(r, update_stats)
+            if b in self.FEAT_BLOCKS:
+                feats.append(h)
+        h = self.bn_mid(self.conv_mid(h), update_stats) + residual
+        for i in range(self.n_up):
+            h = getattr(self, f"subpixel_{i}")(h)
+        return torch.tanh(self.conv_out(h)), feats

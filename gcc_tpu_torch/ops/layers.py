@@ -149,6 +149,60 @@ class SeparableConv(nn.Module):
         return self.pointwise(self.norm(self.depthwise(x)))
 
 
+class PReLU(nn.Module):
+    """Single-parameter PReLU (torch nn.PReLU() default, init 0.25). The
+    parameter is ``weight`` (0-d), as torch names it; the JAX tree's
+    ``alpha`` (a name the port keeps for MaskGate's arch parameters)."""
+
+    def __init__(self):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(()))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.fill_(0.25)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.weight * x)
+
+
+def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Depth-to-space in torch.nn.PixelShuffle's channel order (C, r, r),
+    the order the JAX package's NHWC version unpacks."""
+    return F.pixel_shuffle(x, r)
+
+
+class SubPixelConv(nn.Module):
+    """conv -> pixel-shuffle(r) -> PReLU (models/SRGAN.py:71-101)."""
+
+    def __init__(self, n_channels: int, kernel_size=(3, 3),
+                 scaling_factor: int = 2):
+        super().__init__()
+        self.r = scaling_factor
+        self.conv = Conv(n_channels, n_channels * self.r ** 2, kernel_size,
+                         (1, 1), kernel_size[0] // 2)
+        self.prelu = PReLU()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.prelu(pixel_shuffle(self.conv(x), self.r))
+
+
+class Dense(nn.Module):
+    """Linear layer; the weight is torch's (out, in), the JAX kernel's
+    (in, out) transposed."""
+
+    def __init__(self, in_features: int, features: int,
+                 use_bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(features, in_features))
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
+
+    reset_parameters = Conv.reset_parameters
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
+
+
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
     return torch.where(x >= 0, x, slope * x)
 

@@ -17,6 +17,10 @@ Layouts (as in gcc_tpu/utils/torch_export.py:27-41):
     spectral{u, v}              -> u, v (the port iterates in the JAX
                                    matricization's order: no permutation)
   SelfAttention params{gamma}   -> gamma (a scalar; q/k/v are plain convs)
+  PReLU params{alpha}           -> weight (a scalar)
+  Dense kernel (in, out)        -> weight (out, in)
+  a replay pool {buffer (P, H, W, C), count}
+                                -> ReplayPool buffer (P, C, H, W), count
 
 Both directions are strict: every leaf of the JAX tree is consumed and every
 tensor of the port is written.
@@ -31,8 +35,9 @@ import torch
 import torch.nn as nn
 
 from gcc_tpu_torch.ops.attention import SelfAttention
-from gcc_tpu_torch.ops.layers import BatchNorm, Conv, ConvTranspose
+from gcc_tpu_torch.ops.layers import BatchNorm, Conv, ConvTranspose, Dense, PReLU
 from gcc_tpu_torch.ops.mask import MaskGate
+from gcc_tpu_torch.ops.pool import ReplayPool
 from gcc_tpu_torch.ops.spectral import SpectralNormed
 
 _CONV_PERM = (3, 2, 0, 1)
@@ -63,6 +68,14 @@ def _copy(dst: torch.Tensor, src, name: str) -> None:
 
 def load_jax_variables(net: nn.Module, variables: Dict[str, dict]) -> None:
     """Write one JAX net's variables into ``net`` in place."""
+    if isinstance(net, ReplayPool):
+        if set(variables) != {"buffer", "count"}:
+            raise ValueError(f"a replay pool holds buffer and count, not "
+                             f"{sorted(variables)}")
+        _copy(net.buffer, np.transpose(np.asarray(variables["buffer"]),
+                                       (0, 3, 1, 2)), "pool.buffer")
+        net.count = int(np.asarray(variables["count"]))
+        return
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     arch = variables.get("arch", {})
@@ -83,8 +96,19 @@ def load_jax_variables(net: nn.Module, variables: Dict[str, dict]) -> None:
                 _copy(m.u, st["u"], f"{name}.u")
                 _copy(m.v, st["v"], f"{name}.v")
                 used += 2
+        elif isinstance(m, Dense):
+            node = _node(params, name)
+            _copy(m.weight, np.transpose(np.asarray(node["kernel"])),
+                  f"{name}.weight")
+            used += 1
+            if m.bias is not None:
+                _copy(m.bias, node["bias"], f"{name}.bias")
+                used += 1
         elif isinstance(m, SelfAttention):
             _copy(m.gamma, _node(params, name)["gamma"], f"{name}.gamma")
+            used += 1
+        elif isinstance(m, PReLU):
+            _copy(m.weight, _node(params, name)["alpha"], f"{name}.weight")
             used += 1
         elif isinstance(m, BatchNorm):
             node, st = _node(params, name), _node(stats, name)
@@ -104,6 +128,10 @@ def load_jax_variables(net: nn.Module, variables: Dict[str, dict]) -> None:
 
 def export_jax_variables(net: nn.Module) -> Dict[str, dict]:
     """The JAX-layout variables of one port net, as numpy arrays."""
+    if isinstance(net, ReplayPool):
+        return {"buffer": np.transpose(net.buffer.detach().cpu().numpy(),
+                                       (0, 2, 3, 1)).copy(),
+                "count": np.int32(net.count)}
     out: Dict[str, dict] = {}
 
     def put(coll: str, name: str, leaf: str, t: torch.Tensor, perm=None):
@@ -122,8 +150,14 @@ def export_jax_variables(net: nn.Module) -> Dict[str, dict]:
             if isinstance(m, SpectralNormed):
                 put("spectral", name, "u", m.u)
                 put("spectral", name, "v", m.v)
+        elif isinstance(m, Dense):
+            put("params", name, "kernel", m.weight.t())
+            if m.bias is not None:
+                put("params", name, "bias", m.bias)
         elif isinstance(m, SelfAttention):
             put("params", name, "gamma", m.gamma)
+        elif isinstance(m, PReLU):
+            put("params", name, "alpha", m.weight)
         elif isinstance(m, BatchNorm):
             put("params", name, "scale", m.weight)
             put("params", name, "bias", m.bias)

@@ -9,8 +9,9 @@
   ``None`` metric, a list cfg and 0-d cfg entries.
 * Empty, torn and newer-schema files raise ``CheckpointError``.
 * ``save_state``/``load_state`` carry an engine's full state (nets, every
-  Adam and DupAdam moment and count, EMA, step, dropout generator) bit for
-  bit: a restored state's next iteration equals the saved run's.
+  Adam and DupAdam moment and count, EMA, step, dropout generator,
+  CycleGAN's replay pools and their generator) bit for bit: a restored
+  state's next iteration equals the saved run's.
 """
 
 import numpy as np
@@ -22,8 +23,10 @@ from flax import serialization  # noqa: E402
 
 from gcc_tpu.utils import checkpoint as jckpt  # noqa: E402
 from gcc_tpu_torch.config import Config  # noqa: E402
+from gcc_tpu_torch.engines.cyclegan import CycleGANEngine  # noqa: E402
 from gcc_tpu_torch.engines.pix2pix import Pix2PixEngine  # noqa: E402
 from gcc_tpu_torch.engines.sagan import SAGANEngine  # noqa: E402
+from gcc_tpu_torch.engines.srgan import SRGANEngine  # noqa: E402
 from gcc_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 from gcc_tpu_torch.utils import msgpack_lite  # noqa: E402
 
@@ -145,6 +148,21 @@ def _engine(kind):
                      lambda_L1=100.0, lambda_content=50.0, lambda_gram=1e4)
         return Pix2PixEngine(cfg, device="cpu"), \
             _batches(4, (2, 3, 32, 32), (2, 3, 32, 32), 0)
+    if kind == "cyclegan":
+        # a pool of 3 fills in the first iteration and swaps in the second
+        cfg = Config(model="cyclegan", ngf=4, ndf=4, teacher_ngf=4,
+                     teacher_ndf=4, crop_size=24, pool_size=3,
+                     online_distillation=True, darts_discriminator=True,
+                     lambda_content=0.01, lambda_gram=10.0)
+        return CycleGANEngine(cfg, device="cpu"), \
+            _batches(4, (2, 3, 24, 24), (2, 3, 24, 24), 2)
+    if kind == "srgan":
+        cfg = Config(model="srgan", ngf=4, ndf=4, teacher_ngf=4,
+                     teacher_ndf=4, image_size=16, gan_mode="vanilla",
+                     online_distillation=True, darts_discriminator=True,
+                     lambda_content=1.0, lambda_gram=1.0)
+        return SRGANEngine(cfg, device="cpu"), \
+            _batches(4, (2, 3, 4, 4), (2, 3, 16, 16), 3, keys=("lr", "hr"))
     cfg = Config(model="sagan", ngf=4, ndf=4, teacher_ngf=4, teacher_ndf=4,
                  crop_size=64, z_dim=8, online_distillation=True,
                  darts_discriminator=True, lambda_content=1.0,
@@ -157,7 +175,7 @@ def _step(engine, state, batches):
     return engine.train_arch_step(state, batches[0], batches[1], 2e-4, 0.9)
 
 
-@pytest.mark.parametrize("kind", ["unet", "sagan"])
+@pytest.mark.parametrize("kind", ["unet", "sagan", "cyclegan", "srgan"])
 def test_save_state_round_trip(tmp_path, kind):
     engine, batches = _engine(kind)
     state = engine.init_state(seed=0)

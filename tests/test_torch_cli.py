@@ -3,13 +3,19 @@ the CPU (``--gpu_ids -1``), against the JAX package's.
 
 * The three-stage pix2pix workflow (sparsity pretrain -> prune to a budget
   + GCC train -> test from the checkpoint's cfg) for the U-Net, the same
-  with the resnet backbone and fused blocks, and a SAGAN train -> test:
-  the files and log lines of tests/test_data_cli.py's round trips.
+  with the resnet backbone and fused blocks, a SAGAN train -> test, and
+  the three stages of CycleGAN (per-direction budgets and best
+  checkpoints) and SRGAN (--generator_only pretraining, a teacher from
+  --teacher_initial_path, PSNR/SSIM per set): the files and log lines of
+  tests/test_data_cli.py's round trips.
 * Prune-on-startup from a stage-1 checkpoint written by gcc_tpu gives
-  ``gcc_tpu.cli.train.build_engine``'s cfgs (U-Net, resnet, SAGAN).
+  ``gcc_tpu.cli.train.build_engine``'s cfgs (U-Net, resnet, SAGAN, SRGAN,
+  CycleGAN's two directions and horse2zebra's reference cfgs).
 * A checkpoint trained by the port and one written by the JAX engine, each
   evaluated by ``gcc_tpu.cli.test`` (fp32 convolutions) and by the port's:
-  the same proxy metric within 1e-4 relative.
+  the same proxy metric within 1e-4 relative; the port's CycleGAN and
+  SRGAN checkpoints give gcc_tpu.cli.test's per-direction pixel-FID and
+  per-set PSNR/SSIM within 1e-4 relative.
 * Resume: 2 epochs straight equal 1 epoch + ``--continue_train`` for the
   second, bit for bit (parameters, Adam moments, EMA, step, dropout rng).
 * SIGTERM after the first iteration's log line: exit 0 with
@@ -18,6 +24,7 @@ the CPU (``--gpu_ids -1``), against the JAX package's.
   the CLIs need a card; XLA-only features and evaluator weights raise.
 """
 
+import ast
 import json
 import os
 import re
@@ -75,8 +82,9 @@ def _log(exp, name) -> str:
     return (Path(exp) / name / "logger.log").read_text()
 
 
-def _metric(exp, name) -> float:
-    return float(re.findall(r"metrics: (\S+)", _log(exp, name))[-1])
+def _metric(exp, name):
+    """The test CLI's last metric: a number, or a dict of named ones."""
+    return ast.literal_eval(re.findall(r"metrics: (.+)", _log(exp, name))[-1])
 
 
 def test_three_stage_workflow_unet(tmp_path):
@@ -147,6 +155,121 @@ def test_sagan_round_trip(tmp_path):
         "synthetic_0_fake_img.png", "synthetic_0_real_img.png"]
 
 
+CG = ("--dataroot synthetic --dataset_mode synthetic --model cyclegan "
+      "--ngf 4 --ndf 4 --crop_size 32 --load_size 32 --batch_size 1 "
+      "--max_dataset_size 3 --num_threads 2 --n_epochs 1 --n_epochs_decay 0 "
+      "--save_epoch_freq 1 --print_freq 1 --pool_size 2")
+SR = ("--dataroot synthetic --dataset_mode synthetic --model srgan "
+      "--ngf 8 --ndf 8 --image_size 32 --batch_size 2 --max_dataset_size 4 "
+      "--num_threads 2 --n_epochs 1 --n_epochs_decay 0 --save_epoch_freq 1 "
+      "--print_freq 2")
+
+
+def _close(ours, theirs):
+    """Each named metric within 1e-4 relative."""
+    assert set(ours) == set(theirs)
+    for k in ours:
+        assert np.isfinite(ours[k]), k
+        assert abs(ours[k] - theirs[k]) <= 1e-4 * abs(theirs[k]), \
+            (k, ours[k], theirs[k])
+
+
+def test_cyclegan_three_stages(tmp_path):
+    """scripts/cyclegan/*.sh at tiny widths: heavy-sparsity pretraining,
+    prune each direction to its budget on startup + GCC training, the
+    test CLI; gcc_tpu.cli.test reads the port's checkpoint and gives the
+    same pixel-FID per direction."""
+    exp = tmp_path / "exp"
+    assert _train(f"{CG} --lambda_weight 1e-3 --name c1", exp) == 0
+    s1 = exp / "c1" / "checkpoints"
+    assert {"model_1.ckpt", "model_best_AtoB.ckpt",
+            "model_best_BtoA.ckpt"} <= set(os.listdir(s1))
+    assert _train(f"{CG} --teacher_ngf 8 --teacher_ndf 8 "
+                  f"--darts_discriminator --arch_lr 1e-4 --arch_lr_step "
+                  f"--norm_prune --pretrain_path {s1 / 'model_1.ckpt'} "
+                  f"--target_budget 0.002 --target_budget_B 0.0021 "
+                  f"--online_distillation --lambda_content 0.01 "
+                  f"--lambda_gram 10 --name c2", exp) == 0
+    log = _log(exp, "c2")
+    for line in ("pruned cfg_AtoB", "pruned cfg_BtoA",
+                 "[proxy] AtoB pixel-FID", "[proxy] BtoA pixel-FID",
+                 "d_a/mask_0/alpha sparsity ratio",
+                 "d_b/mask_3/alpha sparsity ratio", "End of epoch 1 / 1",
+                 "saving best [AtoB] at epoch 1",
+                 "saving best [BtoA] at epoch 1"):
+        assert line in log, line
+    best = exp / "c2" / "checkpoints" / "model_best_AtoB.ckpt"
+    cfg_a, cfg_b = ckpt.restore_cfg(ckpt.load_checkpoint(str(best)))
+    assert cfg_a is not None and cfg_b is not None
+    assert _test(f"{CG} --pretrain_path {best} --name c3 --ntest 2",
+                 exp) == 0
+    assert sorted(os.listdir(exp / "c3" / "test_results")) == [
+        f"synthetic_{i}_{v}.png" for i in (0, 1)
+        for v in ("fake_A", "fake_B", "real_A", "real_B", "rec_A", "rec_B")]
+    assert jtest.main(f"{CG} --pretrain_path {best} --ntest 2 "
+                      f"--compute_dtype float32 --checkpoints_dir {exp} "
+                      f"--name j3".split()) == 0
+    _close(_metric(exp, "c3"), _metric(exp, "j3"))
+
+
+def test_srgan_three_stages(tmp_path):
+    """scripts/srgan/*.sh at tiny widths: --generator_only sparsity
+    pretraining, prune on startup + GCC training from a teacher checkpoint,
+    the test CLI; gcc_tpu.cli.test reads the port's checkpoint and gives
+    the same PSNR and SSIM."""
+    exp = tmp_path / "exp"
+    assert _train(f"{SR} --generator_only --name t0", exp) == 0
+    assert _train(f"{SR} --generator_only --lambda_scale 1e-2 --name s1",
+                  exp) == 0
+    assert "content: " in _log(exp, "s1")
+    teacher = exp / "t0" / "checkpoints" / "model_1.ckpt"
+    assert _train(f"{SR} --teacher_ngf 8 --teacher_ndf 8 --scale_prune "
+                  f"--target_budget 0.0037 --pretrain_path "
+                  f"{exp / 's1' / 'checkpoints' / 'model_1.ckpt'} "
+                  f"--teacher_initial_path {teacher} --darts_discriminator "
+                  f"--arch_lr 1e-4 --arch_lr_step --online_distillation "
+                  f"--lambda_gram 0.1 --lambda_content 0.1 --name s2",
+                  exp) == 0
+    log = _log(exp, "s2")
+    for line in ("pruned filter_cfgs", "loaded teacher G from",
+                 "perceptual loss DISABLED", "val: PSNR: ",
+                 "saving best [val_psnr] at epoch 1",
+                 "d/mask_0/alpha sparsity ratio", "End of epoch 1 / 1"):
+        assert line in log, line
+    best = exp / "s2" / "checkpoints" / "model_best_val_psnr.ckpt"
+    fc, _ = ckpt.restore_cfg(ckpt.load_checkpoint(str(best)))
+    assert fc is not None and fc != [8] * 16
+    assert _test(f"{SR} --pretrain_path {best} --name s3 --ntest 2",
+                 exp) == 0
+    assert sorted(os.listdir(exp / "s3" / "test_results")) == [
+        f"synthetic_{i}_{v}.png" for i in (0, 1)
+        for v in ("fake_hr", "real_hr")]
+    assert jtest.main(f"{SR} --pretrain_path {best} --ntest 2 "
+                      f"--compute_dtype float32 --checkpoints_dir {exp} "
+                      f"--name j3".split()) == 0
+    _close(_metric(exp, "s3"), _metric(exp, "j3"))
+
+
+@pytest.mark.parametrize("dataroot", ["synthetic", "synthetic/horse2zebra"])
+def test_cyclegan_prune_on_startup_matches_jax(tmp_path, dataroot):
+    path = str(tmp_path / "s1.ckpt")
+    args = (f"{CG} --dataroot {dataroot} --norm_prune --target_budget 0.002 "
+            f"--target_budget_B 0.0021 --pretrain_path {path}").split()
+    nets = ttrain.engine_class("cyclegan")(parse(args),
+                                           device="cpu").build_nets()
+    rng = np.random.RandomState(0)
+    payload = {f"G_{s}": {"params": _spread_tree(
+        export_jax_variables(nets[f"g_{s.lower()}"])["params"], rng)}
+        for s in "AB"}
+    jckpt.save_checkpoint(path, {**payload, "epoch": 1,
+                                 "cfg": (None, None), "fid": None})
+    ours = ttrain.build_engine(parse(args), device="cpu")
+    theirs = jbuild_engine(jparse(args))
+    assert (ours.cfg_AtoB, ours.cfg_BtoA) == (theirs.cfg_AtoB,
+                                              theirs.cfg_BtoA)
+    assert ours.cfg_AtoB != ours.cfg_BtoA
+
+
 def _spread_tree(tree, rng):
     if isinstance(tree, dict):
         return {k: _spread_tree(tree[k], rng) for k in sorted(tree)}
@@ -159,7 +282,10 @@ def _spread_tree(tree, rng):
     pytest.param(UNET + " --backbone resnet --scale_prune", 0.002,
                  id="resnet"),
     pytest.param("--dataroot synthetic --dataset_mode synthetic --model "
-                 "sagan --ngf 8 --z_dim 16 --scale_prune", 0.004, id="sagan")])
+                 "sagan --ngf 8 --z_dim 16 --scale_prune", 0.004, id="sagan"),
+    pytest.param("--dataroot synthetic/sr --dataset_mode synthetic --model "
+                 "srgan --ngf 8 --image_size 32 --scale_prune", 0.0037,
+                 id="srgan")])
 def test_prune_on_startup_matches_jax(tmp_path, flags, budget):
     """A stage-1 checkpoint written by gcc_tpu (spread weights, as after
     sparsity pretraining) pruned on startup by both packages."""
@@ -331,8 +457,10 @@ def test_cli_off_the_main_thread(tmp_path):
 def test_refusals(tmp_path):
     base = f"{UNET} --n_epochs 1 --checkpoints_dir {tmp_path}"
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA"):
-            ttrain.main(f"{base} --name card".split())
+        for args in (base, f"{CG} --checkpoints_dir {tmp_path}",
+                     f"{SR} --checkpoints_dir {tmp_path}"):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                ttrain.main(f"{args} --name card".split())
     for flag, match in (("--gpu_ids 0,1", "Queue A item 7"),
                         ("--mesh_shape 2,1", "mesh_shape"),
                         ("--spatial_shards 2", "spatial_shards"),

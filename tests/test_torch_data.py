@@ -5,9 +5,10 @@
   sweep of sizes.
 * ``transforms``: crop past the border and every preprocess mode against
   ``gcc_tpu.data.transforms`` on PIL images.
-* Datasets: ``SyntheticDataset`` (aligned, sa), ``AlignedDataset`` and
-  ``SADataset`` from a folder of PNGs (crop and flip draws) give
-  ``gcc_tpu.data``'s items bit for bit.
+* Datasets: ``SyntheticDataset`` (aligned, unaligned, sa, sr),
+  ``AlignedDataset``, ``UnalignedDataset``, ``SADataset`` and ``SRDataset``
+  from a folder of PNGs (crop and flip draws, random B, train and test
+  crops) give ``gcc_tpu.data``'s items bit for bit.
 * ``Loader``: the batch order of every ``set_epoch`` equals JAX's.
 * ``pixel_fid`` equals ``gcc_tpu.eval.orchestrators.pixel_fid`` within
   1e-9 relative; the PNG writer's files decode to the saved pixels.
@@ -123,10 +124,11 @@ def _same_items(port_ds, jax_ds):
 
 
 @pytest.mark.parametrize("model,size", [("pix2pix", 32), ("sagan", 64),
-                                        ("pix2pix", 256)])
+                                        ("pix2pix", 256), ("cyclegan", 32),
+                                        ("srgan", 96)])
 def test_synthetic_dataset_matches_jax(model, size):
     kw = dict(model=model, dataset_mode="synthetic", crop_size=size,
-              z_dim=16, max_dataset_size=5)
+              image_size=size, z_dim=16, max_dataset_size=5)
     _same_items(datasets.SyntheticDataset(Config(**kw), seed=3),
                 jdatasets.SyntheticDataset(JConfig(**kw), seed=3))
 
@@ -158,6 +160,33 @@ def test_sa_dataset_matches_jax(tmp_path, center):
               center_crop=center, z_dim=8)
     _same_items(datasets.SADataset(Config(**kw), seed=2),
                 jdatasets.SADataset(JConfig(**kw), seed=2))
+
+
+@pytest.mark.parametrize("serial,split", [(False, False), (True, False),
+                                          (False, True)])
+def test_unaligned_dataset_matches_jax(tmp_path, serial, split):
+    _write_pngs(str(tmp_path / "trainA"), 5, 45, 40)
+    _write_pngs(str(tmp_path / "trainB"), 3, 37, 50)
+    kw = dict(dataroot=str(tmp_path), phase="train", load_size=36,
+              crop_size=32, serial_batches=serial, split_dataset=split)
+    ours = datasets.UnalignedDataset(Config(**kw), seed=6)
+    theirs = jdatasets.UnalignedDataset(JConfig(**kw), seed=6)
+    assert len(ours) == len(theirs) == (2 if split else 5)
+    _same_items(ours, theirs)
+
+
+@pytest.mark.parametrize("phase,test_set", [("train", None), ("val", None),
+                                            ("train", "Set5")])
+def test_sr_dataset_matches_jax(tmp_path, phase, test_set):
+    for folder in ("train", "val", "Set5"):
+        _write_pngs(str(tmp_path / folder), 3, 103, 98)
+    kw = dict(dataroot=str(tmp_path), phase=phase, image_size=96,
+              upscale_factor=4)
+    ours = datasets.SRDataset(Config(**kw), seed=1, test_data_name=test_set)
+    theirs = jdatasets.SRDataset(JConfig(**kw), seed=1,
+                                 test_data_name=test_set)
+    assert ours.split == theirs.split
+    _same_items(ours, theirs)
 
 
 def test_loader_epoch_order_matches_jax():
