@@ -92,7 +92,15 @@ Phases, each of which exits non-zero on failure:
               --generator_only --ngf 24 --lambda_scale 1e-2, stage 2 pruned
               to 0.20 GMACs on startup with the teacher from
               --teacher_initial_path, no B1 or B2; stage 3 the test CLI on
-              the card and on the CPU: the same PSNR and SSIM within 1e-4).
+              the card and on the CPU: the same PSNR and SSIM within 1e-4),
+              (h) the evaluators through the CLIs: convert --evaluator
+              inception and drn on seeded random .pth files laid out as the
+              reference's (the TF-FID fc head, DRN's 'module.' prefixes and
+              up kernel), get_real_stat on an aligned root of 8 + 8 images
+              at 256 px, a U-Net epoch (ngf 32, ndf 128) whose eval logs the
+              real FID and no [proxy], the test CLI's FID on the card and
+              on the CPU within 1e-4, and the test CLI's cityscapes mIoU
+              (DRN-D-105, labels at 1024x2048).
               Where a two-iteration stage 1 cannot be pruned to its
               budget, its checkpoint is rewritten from phase 9's spread
               weights, and the phase says so. Per stage: wall seconds, ms
@@ -127,17 +135,36 @@ Phases, each of which exits non-zero on failure:
               weights, ndf 64 masked, online distillation, DARTS, content
               0.1, gram 0.1, the VGG19 perceptual term on seeded random
               weights (not the pretrained ones); 1 warm-up and 3 timed
-              iterations, no B1 or B2 launch, one profiled iteration.
-The run is fp32 throughout: TF32 is off for cuDNN and matmul. The last four
-lines are phase 11's JSON record of its stages, the card's name and power
-limit, the kernels' JSON record and {"ok": true, "device": ...}. A kernel's
-"launches" is the main path's count (phase 4 for B2, phase 7 for B1);
-"launches_by_path" adds phase 12's for B2.
+              iterations, no B1 or B2 launch, one profiled iteration;
+ 15. evaluators InceptionV3 (FID) and DRN-D-105 (mIoU) on seeded random
+              weights (NOT the pretrained ones), fp32 with TF32 off: (a)
+              500 images of 256² through InceptionExtractor in batches of
+              50 (images/s, ms per batch, peak memory, one batch's device
+              time by group; card vs CPU on 4 images within 1e-4), (b) the
+              FID of two sets of 100 from the
+              card's and from the CPU's activations (within 1e-4) and the
+              host's sqrtm time, (c) DRN-D-105 at 1024x2048, batch 1, 10
+              images against its fp32 bound (its convolutions' flops at 67
+              TFLOP/s) with peak memory and one image's device time by
+              group, (d) DRN card vs CPU at 256x512
+              (logits within 1e-4, argmax agreement), (e) compute_miou on 4
+              fakes against 1024x2048 labels of a written cityscapes-like
+              root (the histogram counts the labels' pixels), (g) (a)'s and
+              (c)'s forwards with TF32 on, as a finding.
+The run is fp32 throughout: TF32 is off for cuDNN and matmul, except in
+phase 15 (g). The last five lines are phase 11's JSON record of its stages,
+phase 15's, the card's name and power limit, the kernels' JSON record and
+{"ok": true, "device": ...}. A kernel's "launches" is the main path's count
+(phase 4 for B2, phase 7 for B1); "launches_by_path" adds phase 12's for
+B2.
 """
 
 import ast
+import concurrent.futures
 import json
 import math
+import multiprocessing
+import os
 import subprocess
 import sys
 import time
@@ -196,6 +223,13 @@ CYCLEGAN_AGREE_SIZE = 80
 SRGAN_HR, SRGAN_BATCH, SRGAN_BUDGET = 96, 16, 0.20
 SRGAN_WIDTHS = dict(ngf=24, ndf=64, teacher_ngf=64, teacher_ndf=64)
 N_TIMED = 3  # timed iterations of phases 12 and 14, after one warm-up
+# phase 15: InceptionV3 over FID_IMAGES images of FID_SIZE² in batches of
+# FID_BATCH (fid_score.py's 50); (b)'s two sets of FID_SET images each on
+# the card and on the CPU; DRN-D-105 at the cityscapes protocol's 1024x2048
+# (DRN_TIMED images), card vs CPU at DRN_AGREE, compute_miou on
+# MIOU_IMAGES fakes
+FID_IMAGES, FID_BATCH, FID_SIZE, FID_SET = 500, 50, 256, 100
+DRN_FULL, DRN_TIMED, DRN_AGREE, MIOU_IMAGES = (1024, 2048), 10, (256, 512), 4
 # the arch keys read the teachers after their update in the same
 # iteration: tests/test_cooperative_parity_cyclegan.py's chaotic class
 CYCLEGAN_CHAOTIC = {"D_arch_A", "D_arch_B", "D_arch_diff_A", "D_arch_diff_B",
@@ -592,24 +626,31 @@ ATTN_KERNELS = ("attn_fwd_kernel", "attn_bwd_kernel", "attn_dq_reduce_kernel")
 CONV_MARKS = ("conv", "cudnn", "xmma", "cutlass", "implicit", "wgrad", "dgrad")
 
 
-def profile_iteration(torch, engine, state, batch, val_batch, cfg):
-    """One more iteration under torch.profiler: device time by kernel group,
-    by B1 and B2 kernel, and the device's busy share of the iteration's wall
-    time (the profiler's own overhead lengthens the wall time, so the busy
-    share is a floor)."""
+def device_kernels(torch, fn):
+    """(name, device us, calls) of every kernel fn launches, by
+    torch.profiler, and fn's wall us under the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.train_arch_step(state, batch, val_batch, cfg.lr, cfg.ema_beta)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [(e.key, e.self_device_time_total, e.count)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    return [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0], wall_us
+
+
+def profile_iteration(torch, engine, state, batch, val_batch, cfg):
+    """One more iteration under torch.profiler: device time by kernel group,
+    by B1 and B2 kernel, and the device's busy share of the iteration's wall
+    time (the profiler's own overhead lengthens the wall time, so the busy
+    share is a floor)."""
+    kernels, wall_us = device_kernels(torch, lambda: engine.train_arch_step(
+        state, batch, val_batch, cfg.lr, cfg.ema_beta))
     total = sum(t for _, t, _ in kernels)
     if total == 0:
         print("  profile: the profiler saw no device time")
@@ -1063,6 +1104,7 @@ class LogLines:
 
 
 CLI_LOG = ("pruned ", "[proxy]", "metrics: ", "resumed ", "val: ",
+           "FID: ", "mIoU: ", "AtoB FID: ", "BtoA FID: ",
            "loaded ", "SRGAN perceptual")
 
 
@@ -1270,6 +1312,7 @@ def phase_cli(torch, np):
         same_metric("unet", card, cpu)
         cli_cyclegan(torch, np, tmp, counters, records)
         cli_srgan(torch, np, tmp, counters, records)
+        cli_evaluators(torch, np, tmp, counters, records)
     return records
 
 
@@ -1374,6 +1417,144 @@ def cli_srgan(torch, np, tmp, counters, records):
         "--ngf 24 --pretrain_path "
         f"{tmp}/s2/checkpoints/model_best_val_psnr.ckpt").split(), counters,
         records)
+
+
+def write_aligned_root(np, root, phases, size=256, seed=0):
+    """An aligned root of side-by-side AB PNGs (size x 2size): smooth
+    random B, A its edge-like rendition, as the synthetic mode draws them;
+    {phase: [names]}."""
+    from gcc_tpu_torch.data.resample import BICUBIC, resize
+    from gcc_tpu_torch.utils.image import png_bytes
+
+    rng = np.random.RandomState(seed)
+    names = {}
+    for phase, n in phases.items():
+        os.makedirs(os.path.join(root, phase), exist_ok=True)
+        names[phase] = [f"{phase}_{i:03d}" for i in range(n)]
+        for name in names[phase]:
+            b = resize((rng.rand(8, 8, 3) * 255).astype(np.uint8),
+                       (size, size), BICUBIC).astype(np.float32) / 127.5 - 1
+            a = np.sign(b) * np.abs(b) ** 0.5
+            ab = np.concatenate([a, b], 1)
+            with open(os.path.join(root, phase, name + ".png"), "wb") as f:
+                f.write(png_bytes(((ab + 1) * 127.5).clip(0, 255).astype(
+                    np.uint8)))
+    return names
+
+
+def write_labels(np, root, names, hw, seed=0):
+    """trainIds label maps (0-18, 255 ignored) at hw for names, and the
+    reference's table.txt ("<name> <label file> <leftImg8bit file>") in
+    root; the count of pixels the histogram takes."""
+    from gcc_tpu_torch.utils.image import png_bytes
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "labels"), exist_ok=True)
+    lines, counted = [], 0
+    for name in names:
+        # blocks of 16x16 of one class each, 5 % of them ignored
+        blocks = rng.randint(0, 19, (hw[0] // 16, hw[1] // 16))
+        blocks[rng.rand(*blocks.shape) < 0.05] = 255
+        label = np.kron(blocks, np.ones((16, 16), np.int64)).astype(np.uint8)
+        counted += int((label < 19).sum())
+        with open(os.path.join(root, "labels", name + ".png"), "wb") as f:
+            f.write(png_bytes(label))
+        lines.append(f"{name} labels/{name}.png {name}_leftImg8bit.png")
+    with open(os.path.join(root, "table.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return counted
+
+
+def random_evaluator(np, net, seed, extra=None):
+    """A seeded state dict for an evaluator network (NOT the pretrained
+    weights): He-scaled convolutions, BatchNorm near identity with positive
+    running variances, so that InceptionV3's and DRN-D-105's activations
+    stay O(1) through every layer; ``extra`` adds keys a reference file
+    carries."""
+    rng = np.random.RandomState(seed)
+    sd = {}
+    for k, v in net.state_dict().items():
+        shape = tuple(v.shape)
+        if k.endswith("num_batches_tracked"):
+            continue
+        if k.endswith("running_var"):
+            a = 1.0 + 0.2 * rng.rand(*shape)
+        elif k.endswith("running_mean"):
+            a = 0.1 * rng.randn(*shape)
+        elif len(shape) == 4:
+            a = rng.randn(*shape) * np.sqrt(2.0 / np.prod(shape[1:]))
+        elif k.endswith("weight"):  # BatchNorm's scale
+            a = 1.0 + 0.1 * rng.randn(*shape)
+        else:
+            a = 0.05 * rng.randn(*shape)
+        sd[k] = a.astype(np.float32)
+    sd.update(extra or {})
+    return sd
+
+
+def cli_evaluators(torch, np, tmp, counters, records):
+    """(h) the evaluators through the CLIs on the card: convert --evaluator
+    inception and drn (seeded random .pth files laid out as the reference's:
+    the TF-FID file's fc head, DRN's 'module.' prefixes and up kernel),
+    get_real_stat on an aligned root, a U-Net epoch whose eval logs the real
+    FID, the test CLI's FID on the card and on the CPU within 1e-4, and the
+    cityscapes mIoU branch of the test CLI."""
+    from gcc_tpu_torch.cli import convert, get_real_stat
+    from gcc_tpu_torch.metrics.inception import FIDInceptionV3
+    from gcc_tpu_torch.metrics.miou import DRNSeg, bilinear_up_weights
+
+    inc_pth, drn_pth = f"{tmp}/pt_inception.pth", f"{tmp}/drn_d_105.pth"
+    rng = np.random.RandomState(7)
+    torch.save({k: torch.from_numpy(v) for k, v in random_evaluator(
+        np, FIDInceptionV3(), 7, {
+            "fc.weight": (0.01 * rng.randn(1008, 2048)).astype(np.float32),
+            "fc.bias": np.zeros(1008, np.float32)}).items()}, inc_pth)
+    up = np.broadcast_to(bilinear_up_weights(16), (19, 1, 16, 16))
+    torch.save({"module." + k: torch.from_numpy(np.array(v)) for k, v in
+                random_evaluator(np, DRNSeg(), 8, {"up.weight": up}).items()},
+               drn_pth)
+    city = f"{tmp}/cityscapes_synth"
+    os.makedirs(city)
+    for kind, src, out in (("inception", inc_pth, f"{tmp}/inception.npz"),
+                           ("drn", drn_pth, f"{city}/drn.npz")):
+        t0 = time.perf_counter()
+        if convert.main(["--evaluator", kind, "--pretrain_path", src,
+                         "--output", out]) != 0:
+            fail(f"convert --evaluator {kind}")
+        print(f"  convert --evaluator {kind} on the card: "
+              f"{time.perf_counter() - t0:.3f} s")
+    root = f"{tmp}/facades_synth"
+    write_aligned_root(np, root, {"train": 8, "val": 8})
+    flags = (f"--dataroot {root} --dataset_mode aligned --model pix2pix "
+             f"--inception_path {tmp}/inception.npz --num_threads 4 "
+             f"--checkpoints_dir {tmp}").split()
+    t0 = time.perf_counter()
+    if get_real_stat.main(flags + ["--batch_size", "4"]) != 0:
+        fail("get_real_stat")
+    print(f"  get_real_stat on the card, 8 images: "
+          f"{time.perf_counter() - t0:.3f} s")
+    train = flags + ("--ngf 32 --ndf 128 --batch_size 4 --n_epochs 1 "
+                     "--n_epochs_decay 0 --print_freq 4 --name fid1").split()
+    _, _, lines = run_cli(torch, "unet epoch, real FID", train, counters,
+                          records)
+    if not any(x.startswith("FID: ") for x in lines) or any(
+            x.startswith("[proxy]") for x in lines):
+        fail(f"unet epoch: no real FID line: {lines}")
+    best = f"{tmp}/fid1/checkpoints/model_best_AtoB.ckpt"
+    test = flags + ["--ngf", "32", "--pretrain_path", best]
+    cli_test_both(torch, "unet real FID", test, counters, records)
+    names = write_aligned_root(np, city, {"val": 4}, seed=1)["val"]
+    write_labels(np, city, names, (1024, 2048))
+    _, miou, lines = run_cli(torch, "cityscapes mIoU (test)", [
+        "--dataroot", city, "--dataset_mode", "aligned", "--model",
+        "pix2pix", "--phase", "val", "--ngf", "32", "--pretrain_path", best,
+        "--drn_path",
+        f"{city}/drn.npz", "--checkpoints_dir", tmp, "--name", "miou1"],
+        counters, records, test=True)
+    if not any(x.startswith("mIoU: ") for x in lines) or any(
+            x.startswith("[proxy]") for x in lines) or not math.isfinite(
+                float(miou)):
+        fail(f"cityscapes test: no real mIoU line: {lines}")
 
 
 def cyclegan_config(Config, **kw):
@@ -1682,6 +1863,312 @@ def phase_srgan(torch, np):
         fail(f"srgan path launched B1: {fa.LAUNCHES}")
 
 
+def sync_time(torch, dev, fn, n=1):
+    """Host seconds of n calls of fn, each ended by a synchronize."""
+    t0 = time.perf_counter()
+    for _ in range(n):
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n, out
+
+
+def peak_gib(torch, dev):
+    if dev.type != "cuda":
+        return None
+    return round(torch.cuda.max_memory_allocated() / 2 ** 30, 3)
+
+
+def reset_peak(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def conv_flops(torch, net, x):
+    """2 x the multiply-adds of every convolution of net on x."""
+    total = [0]
+
+    def hook(m, inp, out):
+        total[0] += 2 * out.numel() * (m.in_channels // m.groups) * \
+            m.kernel_size[0] * m.kernel_size[1]
+
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        net(x)
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def evaluator_profile(torch, fn, what):
+    """One call of fn under torch.profiler: device time by group (cuDNN's
+    convolutions, batch norm, the rest: ReLU, pools, concatenation, the
+    resize and upsample) and the busy share of its wall time (a floor)."""
+    kernels, wall_us = device_kernels(torch, fn)
+    total = sum(t for _, t, _ in kernels)
+    groups = {"convolutions": 0.0, "batch norm": 0.0, "other": 0.0}
+    for name, t, _ in kernels:
+        low = name.lower()
+        if "bn_fw" in low or "batch_norm" in low:
+            groups["batch norm"] += t
+        elif any(k in low for k in CONV_MARKS):
+            groups["convolutions"] += t
+        else:
+            groups["other"] += t
+    print(f"    profile of {what}: device {total / 1e3:.3f} ms, wall "
+          f"{wall_us / 1e3:.3f} ms, busy {total / max(wall_us, 1e-9):.3f}; "
+          + ", ".join(f"{g} {t / max(total, 1e-9):.3f}"
+                      for g, t in groups.items()))
+    for name, t, n in sorted(kernels, key=lambda k: -k[1])[:5]:
+        print(f"      {t / 1e3:9.3f} ms {n:5d}x  {name[:90]}")
+    return {"device_ms": round(total / 1e3, 3),
+            "busy": round(total / max(wall_us, 1e-9), 3),
+            **{g.replace(" ", "_") + "_share": round(t / max(total, 1e-9), 3)
+               for g, t in groups.items()}}
+
+
+def rel_err(np, ours, ref):
+    ours, ref = np.asarray(ours, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(ours - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+class TF32On:
+    """TF32 on for cuDNN and matmul inside the block: (g)'s comparison."""
+
+    def __init__(self, torch):
+        self.b = torch.backends
+
+    def __enter__(self):
+        self.saved = (self.b.cudnn.allow_tf32, self.b.cuda.matmul.allow_tf32)
+        self.b.cudnn.allow_tf32 = self.b.cuda.matmul.allow_tf32 = True
+
+    def __exit__(self, *exc):
+        self.b.cudnn.allow_tf32, self.b.cuda.matmul.allow_tf32 = self.saved
+
+
+def phase_evaluators(torch, np, dev=None):
+    """Phase 15: InceptionV3 FID and DRN-D-105 mIoU on the card, on seeded
+    random weights (NOT the pretrained ones). Returns the evaluators
+    record."""
+    from gcc_tpu_torch.device import exact_fp32
+    from gcc_tpu_torch.metrics.fid import activation_statistics
+    from gcc_tpu_torch.metrics.inception import (FIDInceptionV3,
+                                                 InceptionExtractor,
+                                                 load_torch_fid_inception)
+
+    dev = torch.device(dev or "cuda")
+    cpu = torch.device("cpu")
+    n_img, batch, size = FID_IMAGES, FID_BATCH, FID_SIZE
+    print(f"== phase 15: the evaluators on the card, fp32 with TF32 off, "
+          f"seeded random weights (NOT the pretrained ones): InceptionV3 "
+          f"{n_img} images of {size}², batches of {batch}; DRN-D-105 at "
+          f"{DRN_FULL[0]}x{DRN_FULL[1]}")
+    rec = {}
+    rng = np.random.RandomState(0)
+    inc_sd = random_evaluator(np, FIDInceptionV3(), 0)
+    card = InceptionExtractor(load_torch_fid_inception(inc_sd), dev, batch)
+    host = InceptionExtractor(load_torch_fid_inception(inc_sd), cpu, batch)
+    imgs = rng.uniform(-1, 1, (n_img, size, size, 3)).astype(np.float32)
+
+    # (a) the full protocol through the extractor, and one batch's forward
+    card.activations(imgs[:batch])  # warm-up
+    reset_peak(torch, dev)
+    secs, acts = sync_time(torch, dev, lambda: card.activations(imgs))
+    u8 = torch.from_numpy(np.clip((imgs[:batch] + 1) / 2 * 255.0, 0, 255)
+                          .astype(np.uint8)).to(dev).permute(0, 3, 1, 2)
+
+    def one_batch():
+        with torch.no_grad():
+            return card.net(u8.float() / 255.0)
+
+    with exact_fp32():
+        batch_s, ref_batch = sync_time(torch, dev, one_batch, n=5)
+    host_acts = host.activations(imgs[:4])
+    rel = rel_err(np, acts[:4], host_acts)
+    rec["inception"] = {
+        "images": n_img, "size": size, "batch": batch,
+        "images_per_s": round(n_img / secs, 3),
+        "protocol_ms_per_batch": round(1e3 * secs / (n_img / batch), 3),
+        "forward_ms_per_batch": round(1e3 * batch_s, 3),
+        "peak_gib": peak_gib(torch, dev), "card_vs_cpu_rel": rel}
+    print(f"  (a) InceptionV3: {n_img} images in {secs:.3f} s = "
+          f"{n_img / secs:.3f} images/s through the extractor (uint8 round "
+          f"trip on the host, batches of {batch}); one batch's forward "
+          f"(resize + network) {1e3 * batch_s:.3f} ms; peak "
+          f"{rec['inception']['peak_gib']} GiB; card vs CPU on 4 images "
+          f"{rel:.3e} (bound 1e-4)")
+    if not (acts.shape == (n_img, 2048) and np.isfinite(acts).all()
+            and rel <= 1e-4):
+        fail(f"InceptionV3: shape {acts.shape}, card vs CPU {rel}")
+    if dev.type == "cuda":
+        with exact_fp32():
+            rec["inception"]["profile"] = evaluator_profile(
+                torch, one_batch, f"one batch of {batch}")
+
+    # (b) FID of two sets on the card and on the CPU. Each Fréchet distance
+    # is the host's 2048-d sqrtm (seconds): the two run side by side in
+    # worker processes of half the host's BLAS threads each
+    other = rng.uniform(-0.5, 0.5, (FID_SET, size, size, 3)).astype(
+        np.float32)
+    card_b = card.activations(other)
+    cpu_s, cpu_ab = sync_time(torch, cpu, lambda: (
+        host.activations(imgs[:FID_SET]), host.activations(other)))
+    with concurrent.futures.ProcessPoolExecutor(
+            2, mp_context=multiprocessing.get_context("spawn"),
+            initializer=blas_threads, initargs=(
+                max(1, (os.cpu_count() or 2) // 2),)) as pool:
+        jobs = {where: pool.submit(timed_frechet, activation_statistics(a)
+                                   + activation_statistics(b))
+                for where, a, b in (("card", acts[:FID_SET], card_b),
+                                    ("cpu", cpu_ab[0], cpu_ab[1]))}
+        fids = {}
+        for where, job in jobs.items():
+            fids[where], secs = job.result()
+            fids[f"{where}_frechet_s"] = round(secs, 3)
+    rel = abs(fids["card"] - fids["cpu"]) / abs(fids["cpu"])
+    rec["fid"] = {"set": FID_SET, **fids, "card_vs_cpu_rel": rel,
+                  "cpu_activations_s": round(cpu_s, 3)}
+    print(f"  (b) FID of two sets of {FID_SET}: card {fids['card']!r}, CPU "
+          f"{fids['cpu']!r}, relative difference {rel:.3e} (bound 1e-4); "
+          f"frechet_distance (host sqrtm, 2048-d; two worker processes side "
+          f"by side) {fids['card_frechet_s']} / "
+          f"{fids['cpu_frechet_s']} s; the CPU's activations of the "
+          f"{2 * FID_SET} images {cpu_s:.3f} s")
+    if not rel <= 1e-4:
+        fail(f"FID card {fids['card']} vs CPU {fids['cpu']}")
+    rec.update(card_gpu_checks(torch, np, dev, rng, one_batch, batch_s,
+                               ref_batch))
+    return rec
+
+
+def blas_threads(n):
+    """A worker's BLAS threads, set before it imports numpy."""
+    for var in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
+        os.environ[var] = str(n)
+
+
+def timed_frechet(stats):
+    """frechet_distance of (mu1, sigma1, mu2, sigma2) and its host seconds:
+    phase 15 (b)'s work for a worker process."""
+    from gcc_tpu_torch.metrics.fid import frechet_distance
+    t0 = time.perf_counter()
+    value = frechet_distance(*stats)
+    return value, time.perf_counter() - t0
+
+
+def card_gpu_checks(torch, np, dev, rng, one_batch, batch_s, ref_batch):
+    """Phase 15 (c)-(e) and (g): DRN-D-105 and compute_miou on the card,
+    then TF32 on as a finding (``one_batch``: (a)'s InceptionV3 batch
+    forward, its fp32 seconds and output)."""
+    import tempfile
+
+    from gcc_tpu_torch.config import Config
+    from gcc_tpu_torch.data.datasets import AlignedDataset
+    from gcc_tpu_torch.device import exact_fp32
+    from gcc_tpu_torch.metrics.miou import (DRNSeg, load_torch_drnseg,
+                                            miou_from_hist, miou_histogram,
+                                            upsample_logits_8x)
+
+    rec = {}
+    # (c) DRN-D-105 at the protocol's resolution, batch 1
+    drn_sd = random_evaluator(np, DRNSeg(), 1)
+    drn = load_torch_drnseg(drn_sd).to(dev)
+    h, w = DRN_FULL
+    x = torch.randn(1, 3, h, w, generator=torch.Generator().manual_seed(0)
+                    ).to(dev)
+    with exact_fp32():
+        flops = conv_flops(torch, drn, x)
+
+    def drn_forward(inp=x):
+        with torch.no_grad():
+            return upsample_logits_8x(drn(inp))
+
+    with exact_fp32():
+        drn_forward()  # warm-up
+        reset_peak(torch, dev)
+        drn_s, logits = sync_time(torch, dev, drn_forward, n=DRN_TIMED)
+    bound = flops / FP32_FLOPS * 1e3
+    rec["drn"] = {"hw": [h, w], "images": DRN_TIMED,
+                  "ms_per_image": round(1e3 * drn_s, 3),
+                  "tflop_per_image": round(flops / 1e12, 4),
+                  "bound_ms": round(bound, 3), "bound_by": "operations",
+                  "peak_gib": peak_gib(torch, dev)}
+    print(f"  (c) DRN-D-105 at {h}x{w}, batch 1: {1e3 * drn_s:.3f} ms an "
+          f"image over {DRN_TIMED} (convolutions {flops / 1e12:.4f} TFLOP; "
+          f"fp32 bound {bound:.3f} ms at {FP32_FLOPS / 1e12:.0f} TFLOP/s, "
+          f"{bound / (1e3 * drn_s):.3f} of it); peak "
+          f"{rec['drn']['peak_gib']} GiB")
+    if not (logits.shape == (1, 19, h, w) and torch.isfinite(logits).all()):
+        fail(f"DRN: logits {tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits).all())}")
+    del logits
+    if dev.type == "cuda":
+        with exact_fp32():
+            rec["drn"]["profile"] = evaluator_profile(torch, drn_forward,
+                                                      "one image")
+
+    # (d) DRN on the card against the CPU
+    ah, aw = DRN_AGREE
+    xs = torch.randn(1, 3, ah, aw, generator=torch.Generator().manual_seed(1))
+    with exact_fp32():
+        ours = drn_forward(xs.to(dev)).cpu()
+    host_drn = load_torch_drnseg(drn_sd)
+    with torch.no_grad():
+        ref = upsample_logits_8x(host_drn(xs))
+    rel = rel_err(np, ours.numpy(), ref.numpy())
+    agree = float((ours.argmax(1) == ref.argmax(1)).float().mean())
+    rec["drn_agree"] = {"hw": [ah, aw], "rel": rel, "argmax_agree": agree}
+    print(f"  (d) DRN card vs CPU at {ah}x{aw}: logits {rel:.3e} (bound "
+          f"1e-4), argmax agreement {agree:.6f}")
+    if not (rel <= 1e-4 and agree >= 0.999):
+        fail(f"DRN card vs CPU: {rel}, argmax {agree}")
+
+    # (e) compute_miou end to end on a cityscapes-like root
+    with tempfile.TemporaryDirectory() as tmp:
+        names = write_aligned_root(np, tmp, {"val": MIOU_IMAGES}, seed=2)
+        counted = write_labels(np, tmp, names["val"], DRN_FULL, seed=3)
+        np.savez(f"{tmp}/drn.npz", **drn_sd)
+        cfg = Config(dataroot=tmp, phase="val", drn_path=f"{tmp}/drn.npz")
+        fakes = rng.uniform(-1, 1, (MIOU_IMAGES, 256, 256, 3)).astype(
+            np.float32)
+        miou_s, hist = sync_time(torch, dev, lambda: miou_histogram(
+            cfg, fakes, AlignedDataset(cfg), device=dev))
+    value = miou_from_hist(hist)
+    rec["miou"] = {"images": MIOU_IMAGES, "label_hw": list(DRN_FULL),
+                   "miou": value, "pixels": int(hist.sum()),
+                   "ms_per_image": round(1e3 * miou_s / MIOU_IMAGES, 3)}
+    print(f"  (e) compute_miou, {MIOU_IMAGES} fakes of 256² against labels "
+          f"at {h}x{w}: mIoU {value}, histogram {int(hist.sum())} pixels "
+          f"(labels' counted {counted}); {1e3 * miou_s / MIOU_IMAGES:.3f} ms "
+          f"an image end to end, loading --drn_path included")
+    if int(hist.sum()) != counted or not math.isfinite(value):
+        fail(f"compute_miou: {value}, {hist.sum()} pixels of {counted}")
+
+    # (g) TF32 on, as a finding only: the evaluators keep it off
+    with TF32On(torch):
+        tf_batch_s, tf_batch = sync_time(torch, dev, one_batch, n=5)
+        tf_drn_s, _ = sync_time(torch, dev, drn_forward, n=DRN_TIMED)
+        tf_small = drn_forward(xs.to(dev)).cpu()
+    rec["tf32"] = {
+        "inception_forward_ms_per_batch": round(1e3 * tf_batch_s, 3),
+        "inception_rel": rel_err(np, tf_batch.cpu().numpy(),
+                                 ref_batch.cpu().numpy()),
+        "drn_ms_per_image": round(1e3 * tf_drn_s, 3),
+        "drn_rel": rel_err(np, tf_small.numpy(), ours.numpy()),
+        "drn_argmax_agree": float((tf_small.argmax(1) == ours.argmax(1))
+                                  .float().mean())}
+    tf = rec["tf32"]
+    print(f"  (g) TF32 on (a finding; the evaluators keep it off): "
+          f"InceptionV3 batch {1e3 * tf_batch_s:.3f} ms (fp32 "
+          f"{1e3 * batch_s:.3f}), activations {tf['inception_rel']:.3e} from "
+          f"fp32's; DRN {1e3 * tf_drn_s:.3f} ms an image (fp32 "
+          f"{1e3 * drn_s:.3f}), logits {tf['drn_rel']:.3e}, argmax "
+          f"agreement {tf['drn_argmax_agree']:.6f}")
+    return rec
+
+
 def main():
     import numpy as np
     import torch
@@ -1726,6 +2213,7 @@ def main():
         by_path[k]["cyclegan"] = v
     phase_cyclegan_agree(torch, np)
     phase_srgan(torch, np)
+    evaluators = phase_evaluators(torch, np)
 
     entries = []
     for k, rec in record.items():
@@ -1741,6 +2229,7 @@ def main():
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     print(json.dumps({"cli": cli}))
+    print(json.dumps({"evaluators": evaluators}))
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

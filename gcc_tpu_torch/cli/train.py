@@ -8,6 +8,9 @@ budget first when --scale_prune/--norm_prune) -> loaders -> epoch loop:
 per-iteration cooperative train step (teacher + student), the DARTS arch
 step on a val batch, periodic loss logging, epoch-end eval -> best
 checkpoint, sparsity report, LR/ema schedules. Same flags as the JAX CLI.
+The epoch-end metric is FID with ``--inception_path`` (the TF-FID ``.pth``
+or its ingested ``.npz``) and real statistics, mIoU on cityscapes with
+``--drn_path``, else the proxies; the best checkpoint follows it.
 
 The run is on the card unless ``--gpu_ids -1`` asks for the CPU; one card
 only. The JAX package's XLA knobs (meshes, spatial shards, the memory guard
@@ -392,7 +395,7 @@ def _train(cfg, dev, run_dir, logger, preempt) -> int:
             val_stream.close()
 
         if epoch % cfg.save_epoch_freq == 0:
-            # the proxy metric until the evaluator networks are ported
+            # FID / mIoU with the evaluator weights, else the proxy
             current_perf = evaluate_engine(cfg, engine, state, logger, epoch)
             _save_best(cfg, engine, state, best, current_perf, epoch, logger)
             if plateau is not None and current_perf is not None:

@@ -18,7 +18,8 @@ preprocessing is the JAX package's, bit for bit (``transforms``):
   * SyntheticDataset  procedurally generated images, so tests and the card
     need no downloads (modes aligned, unaligned, sa and sr).
 
-Decoding an image file needs Pillow; it is imported by ``read_rgb`` alone.
+Decoding an image file (a photo, or a label map for mIoU) needs Pillow; it
+is imported by ``read_rgb`` alone.
 """
 
 from __future__ import annotations
@@ -37,9 +38,10 @@ from gcc_tpu_torch.data.transforms import (
 from gcc_tpu_torch.metrics.vgg import IMAGENET_MEAN, IMAGENET_STD
 
 
-def read_rgb(path: str) -> np.ndarray:
+def read_rgb(path: str, mode: Optional[str] = "RGB") -> np.ndarray:
     """An image file as a uint8 HWC RGB array (``Image.open(path)
-    .convert("RGB")``)."""
+    .convert("RGB")``); ``mode=None`` keeps the file's own mode (a label
+    map's "L" or "P": HW class indices)."""
     try:
         from PIL import Image
     except ImportError as e:
@@ -48,7 +50,7 @@ def read_rgb(path: str) -> np.ndarray:
             f"--dataset_mode synthetic, or install Pillow to read image "
             f"folders") from e
     with Image.open(path) as im:
-        return np.asarray(im.convert("RGB"))
+        return np.asarray(im if mode is None else im.convert(mode))
 
 
 class AlignedDataset:

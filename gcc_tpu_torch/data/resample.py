@@ -15,6 +15,8 @@ Each pass is one float64 matrix product with the fixed-point weights,
 exact in integers (``_pass``), so the work runs in BLAS outside the GIL.
 
 Images are HWC (or HW) uint8 arrays; sizes are PIL's ``(width, height)``.
+``resize_float`` is Pillow's 32-bit float mode ("F") on the same windows,
+with unrounded weights.
 """
 
 from __future__ import annotations
@@ -46,10 +48,10 @@ def _bicubic(x: np.ndarray, a: float = -0.5) -> np.ndarray:
 FILTERS = {BILINEAR: (_bilinear, 1.0), BICUBIC: (_bicubic, 2.0)}
 
 
-def coefficients(in_size: int, out_size: int, method: str
-                 ) -> Tuple[np.ndarray, np.ndarray]:
-    """precompute_coeffs + normalize_coeffs_8bpc: (xmin (out,), fixed-point
-    weights (out, ksize) int64, zero past each row's window)."""
+def float_coefficients(in_size: int, out_size: int, method: str
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """precompute_coeffs: (xmin (out,), float64 weights (out, ksize)
+    normalised to sum 1, zero past each row's window)."""
     filt, fsupport = FILTERS[method]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
@@ -69,21 +71,34 @@ def coefficients(in_size: int, out_size: int, method: str
         ww = ww + w[:, i]
     w = np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None],
                  w)
+    return xmin, w
+
+
+def coefficients(in_size: int, out_size: int, method: str
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """precompute_coeffs + normalize_coeffs_8bpc: (xmin (out,), fixed-point
+    weights (out, ksize) int64, zero past each row's window)."""
+    xmin, w = float_coefficients(in_size, out_size, method)
     one = float(1 << PRECISION_BITS)
     fixed = np.where(w < 0, np.trunc(-0.5 + w * one), np.trunc(0.5 + w * one))
     return xmin, fixed.astype(np.int64)
+
+
+def _dense(xmin: np.ndarray, k: np.ndarray, in_size: int) -> np.ndarray:
+    """Per-row windows (xmin, weights) as a dense (out, in) float64 matrix."""
+    cols = xmin[:, None] + np.arange(k.shape[1])[None, :]
+    rows = np.broadcast_to(np.arange(len(xmin))[:, None], cols.shape)
+    inside = cols < in_size  # past the window the weight is 0
+    w = np.zeros((len(xmin), in_size))
+    w[rows[inside], cols[inside]] = k[inside]
+    return w
 
 
 @functools.lru_cache(maxsize=16)
 def weight_matrix(in_size: int, out_size: int, method: str) -> np.ndarray:
     """The fixed-point coefficients as a dense (out, in) float64 matrix
     (read-only: one per size pair, shared)."""
-    xmin, k = coefficients(in_size, out_size, method)
-    cols = xmin[:, None] + np.arange(k.shape[1])[None, :]
-    rows = np.broadcast_to(np.arange(out_size)[:, None], cols.shape)
-    inside = cols < in_size  # past the window the weight is 0
-    w = np.zeros((out_size, in_size))
-    w[rows[inside], cols[inside]] = k[inside]
+    w = _dense(*coefficients(in_size, out_size, method), in_size)
     w.flags.writeable = False
     return w
 
@@ -116,3 +131,21 @@ def resize(img: np.ndarray, size: Tuple[int, int], method: str = BICUBIC
     if h != img.shape[0]:
         out = _pass(out, 0, h, method)
     return out.copy() if out is img else out
+
+
+def resize_float(img: np.ndarray, size: Tuple[int, int],
+                 method: str = BILINEAR) -> np.ndarray:
+    """``Image.fromarray(img).resize(size, method)`` for a float32 HW array,
+    or each channel of an HWC one (Pillow's mode "F",
+    ImagingResampleHorizontal/Vertical_32bpc): the same windows with float
+    weights, each sum in float64, each pass rounded to float32; the
+    horizontal pass first. ``size`` is (width, height)."""
+    out = np.asarray(img, np.float32)
+    for axis, n in ((1, int(size[0])), (0, int(size[1]))):
+        if n != out.shape[axis]:
+            w = _dense(*float_coefficients(out.shape[axis], n, method),
+                       out.shape[axis])
+            src = np.moveaxis(out, axis, 0).astype(np.float64)
+            out = np.moveaxis((w @ src.reshape(src.shape[0], -1)).reshape(
+                (n,) + src.shape[1:]).astype(np.float32), 0, axis)
+    return np.ascontiguousarray(out)

@@ -2,7 +2,8 @@
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -25,3 +26,19 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
     return dev
+
+
+@contextlib.contextmanager
+def exact_fp32() -> Iterator[None]:
+    """TF32 off for cuDNN convolutions and for matmuls inside the block, the
+    caller's settings restored after it: the evaluator networks' metrics do
+    not depend on what an engine set."""
+    conv = torch.backends.cudnn.allow_tf32
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.backends.cuda.matmul.allow_tf32 = matmul

@@ -8,12 +8,14 @@ Y per test set (Set5, Set14, B100, Urban100 where the dataroot has them,
 else val). ``--eval_batch`` > 1 batches the generator forwards with the same
 outputs (eval mode: no dropout, running BN stats, per-sample IN).
 
-FID and mIoU need the evaluator networks (InceptionV3, DRN-D-105), which
-the port does not have yet (ROADMAP Queue A item 3): pointing
-``--inception_path`` or ``--drn_path`` at a file raises. Without them the
-orchestrator reports the JAX package's proxies and logs the same
-``[proxy]`` lines: pixel-FID (the Fréchet distance of 8x8-downsampled
-pixel statistics) or, on cityscapes, PSNR.
+FID needs the InceptionV3 weights (``--inception_path``: the TF-FID
+``.pth`` or its ingested ``.npz``) and the real statistics
+(``real_stat_<side>.npz`` in the dataroot, ``cli.get_real_stat``); mIoU
+needs DRN-D-105 (``--drn_path``) and a cityscapes dataroot. The evaluators
+run on the engine's device. Without their weights the orchestrator reports
+the JAX package's proxies and logs them as ``[proxy]``: pixel-FID (the
+Fréchet distance of 8x8-downsampled pixel statistics) or, on cityscapes,
+PSNR.
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ from gcc_tpu_torch.data import (
 )
 from gcc_tpu_torch.data.datasets import SyntheticDataset
 from gcc_tpu_torch.data.resample import BILINEAR, resize
-from gcc_tpu_torch.metrics.fid import activation_statistics, frechet_distance
+from gcc_tpu_torch.metrics.fid import (
+    activation_statistics, fid_from_activations, frechet_distance,
+)
 from gcc_tpu_torch.metrics.psnr_ssim import psnr_y, ssim_y
 
 
@@ -58,12 +62,34 @@ def pixel_fid(fakes: np.ndarray, reals: np.ndarray) -> float:
     return frechet_distance(mu1, s1, mu2, s2)
 
 
-def _refuse_evaluator(flag: str, path: Optional[str]) -> None:
-    if path and os.path.exists(path):
-        raise NotImplementedError(
-            f"--{flag} {path}: the evaluator networks (InceptionV3 FID, "
-            f"DRN mIoU) are not in the port yet (ROADMAP Queue A item 3); "
-            f"run without it for the proxy metric")
+def _real_stat_path(cfg, side: Optional[str] = None) -> str:
+    side = side or ("B" if cfg.direction == "AtoB" else "A")
+    return os.path.join(cfg.dataroot, f"real_stat_{side}.npz")
+
+
+def uses_fid(cfg, side: Optional[str] = None) -> bool:
+    """The InceptionV3 weights and real_stat_<side>.npz are there."""
+    return bool(cfg.inception_path) and os.path.exists(
+        cfg.inception_path) and os.path.exists(_real_stat_path(cfg, side))
+
+
+def uses_miou(cfg) -> bool:
+    """pix2pix on cityscapes with DRN weights: the metric is mIoU."""
+    return ("pix2pix" in cfg.model and "cityscapes" in cfg.dataroot
+            and bool(cfg.drn_path) and os.path.exists(cfg.drn_path))
+
+
+def _real_fid(cfg, fakes: np.ndarray, device,
+              side: Optional[str] = None) -> Optional[float]:
+    """FID against real_stat_<side>.npz, or None without the weights or
+    the statistics."""
+    if not uses_fid(cfg, side):
+        return None
+    from gcc_tpu_torch.metrics.inception import InceptionExtractor
+    acts = InceptionExtractor.get(cfg.inception_path, device).activations(
+        fakes)
+    with np.load(_real_stat_path(cfg, side)) as npz:
+        return fid_from_activations(acts, npz["mu"], npz["sigma"])
 
 
 def _collect(engine, state, loader, key_in: str, key_out: str,
@@ -103,10 +129,16 @@ def _eval_pix2pix(cfg, engine, state, logger):
     # direction swap as in set_input
     key_in, key_out = ("B", "A") if cfg.direction == "BtoA" else ("A", "B")
     cap = None if cfg.ntest == float("inf") else int(cfg.ntest)
-    if "cityscapes" in cfg.dataroot:
-        _refuse_evaluator("drn_path", cfg.drn_path)
-    _refuse_evaluator("inception_path", cfg.inception_path)
     fakes, reals = _collect(engine, state, loader, key_in, key_out, cap)
+    if uses_miou(cfg):
+        from gcc_tpu_torch.metrics.miou import compute_miou
+        miou = compute_miou(cfg, fakes, loader.dataset, device=engine.device)
+        logger.info(f"mIoU: {miou:.2f}")
+        return miou
+    fid = _real_fid(cfg, fakes, engine.device)
+    if fid is not None:
+        logger.info(f"FID: {fid:.2f}")
+        return fid
     if "cityscapes" in cfg.dataroot:
         # maximize-direction proxy when DRN weights are absent
         p = float(np.mean([psnr_y(f, r) for f, r in zip(fakes, reals)]))
@@ -120,8 +152,11 @@ def _eval_pix2pix(cfg, engine, state, logger):
 def _eval_sagan(cfg, engine, state, logger):
     loader = create_dataset(eval_cfg(cfg, load_size=64), seed=1234)
     n_eval = max(1, int(0.1 * len(loader.dataset)))  # 10% (test_metric.py:144)
-    _refuse_evaluator("inception_path", cfg.inception_path)
     fakes, reals = _collect(engine, state, loader, "z", "real_img", n_eval)
+    fid = _real_fid(cfg, fakes, engine.device)
+    if fid is not None:
+        logger.info(f"FID: {fid:.2f}")
+        return fid
     fid = pixel_fid(fakes, reals)
     logger.info(f"[proxy] pixel-FID (no inception weights): {fid:.4f}")
     return fid
@@ -157,16 +192,22 @@ def _eval_srgan(cfg, engine, state, logger) -> Dict[str, float]:
 
 
 def _eval_cyclegan(cfg, engine, state, logger) -> Dict[str, float]:
-    """The proxy pixel-FID of each direction's fakes against the other
-    domain's images (gcc_tpu/eval/orchestrators.py:212-235)."""
+    """Each direction's FID against the other domain's real statistics
+    (real_stat_B.npz for AtoB, real_stat_A.npz for BtoA), or the proxy
+    pixel-FID against its images (gcc_tpu/eval/orchestrators.py:212-235)."""
     loader = create_dataset(eval_cfg(cfg, load_size=256), seed=1234)
     cap = None if cfg.ntest == float("inf") else int(cfg.ntest)
-    _refuse_evaluator("inception_path", cfg.inception_path)
     out = {}
     for direction, key_in, key_out in (("AtoB", "A", "B"),
                                        ("BtoA", "B", "A")):
         fakes, reals = _collect(engine, state, loader, key_in, key_out, cap,
                                 direction=direction)
-        out[direction] = pixel_fid(fakes, reals)
-        logger.info(f"[proxy] {direction} pixel-FID: {out[direction]:.4f}")
+        fid = _real_fid(cfg, fakes, engine.device, side=key_out)
+        if fid is not None:
+            out[direction] = fid
+            logger.info(f"{direction} FID: {fid:.2f}")
+        else:
+            out[direction] = pixel_fid(fakes, reals)
+            logger.info(f"[proxy] {direction} pixel-FID: "
+                        f"{out[direction]:.4f}")
     return out

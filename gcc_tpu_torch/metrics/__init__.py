@@ -1,3 +1,4 @@
-"""Evaluation metrics of the port (numpy and scipy), and SRGAN's VGG19
-perceptual feature extractor; the evaluator networks (InceptionV3 FID, DRN
-mIoU) are not in the port yet."""
+"""Evaluation metrics of the port: FID (``inception``: the TF-FID
+InceptionV3; ``fid``: the Fréchet distance), cityscapes mIoU (``miou``:
+DRN-D-105), PSNR/SSIM (``psnr_ssim``), SRGAN's VGG19 perceptual features
+(``vgg``) and the ingestion of their pretrained weights (``ingest``)."""

@@ -1,6 +1,6 @@
 """Fréchet distance and activation statistics (copy of gcc_tpu/metrics/fid.py;
-metric/fid_score.py:219-284). The InceptionV3 feature extractor is a later
-port (ROADMAP Queue A item 3).
+metric/fid_score.py:219-284). The InceptionV3 feature extractor is
+``metrics/inception.py``.
 """
 
 from __future__ import annotations

@@ -23,6 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gcc_tpu_torch.ops.layers import Conv
+from gcc_tpu_torch.utils.weights import read_state_dict
 
 # torchvision vgg19.features conv layer indices (configuration E)
 VGG19_CONV_IDX = [0, 2, 5, 7, 10, 12, 14, 16, 19, 21, 23, 25, 28, 30, 32, 34]
@@ -56,14 +57,7 @@ def load_torch_vgg19(path) -> Dict[str, dict]:
     """A torchvision vgg19 state dict (a file saved by torch, an ``.npz`` of
     it, or an in-memory {key: array} mapping) as the JAX-layout parameter
     tree {conv_<idx>: {kernel (HWIO), bias}} of numpy arrays."""
-    if isinstance(path, dict):
-        sd = {k: np.asarray(v) for k, v in path.items()}
-    elif str(path).endswith(".npz"):
-        with np.load(path) as z:
-            sd = dict(z)
-    else:
-        sd = {k: v.numpy() for k, v in torch.load(
-            path, map_location="cpu", weights_only=True).items()}
+    sd = read_state_dict(path)
     params = {}
     for idx in VGG19_CONV_IDX:
         w = np.asarray(sd[f"features.{idx}.weight"], np.float32)  # OIHW

@@ -1,5 +1,6 @@
-"""Best-metric tracker (copy of gcc_tpu/utils/best_info.py;
-utils/best_information.py:1-55)."""
+"""Best-metric tracker (port of gcc_tpu/utils/best_info.py;
+utils/best_information.py:1-55). The direction follows the metric the
+epoch-end eval reports: mIoU and PSNR rise, FID falls."""
 
 from __future__ import annotations
 
@@ -8,16 +9,23 @@ import math
 
 def maximize_metric(cfg) -> bool:
     """Whether the model's eval metric improves upward (mIoU/PSNR) or
-    downward (FID) — train.py:16-73 best-tracking directions."""
-    return cfg.model == "srgan" or "cityscapes" in cfg.dataroot
+    downward (FID) — train.py:16-73 best-tracking directions. pix2pix on
+    cityscapes reports mIoU, or the PSNR proxy; with InceptionV3 weights
+    and real statistics but no DRN weights it reports FID, which falls
+    (gcc_tpu maximises it there too)."""
+    if cfg.model == "srgan":
+        return True
+    if "pix2pix" not in cfg.model or "cityscapes" not in cfg.dataroot:
+        return False
+    from gcc_tpu_torch.eval.orchestrators import uses_fid, uses_miou
+    return uses_miou(cfg) or not uses_fid(cfg)
 
 
 class BestInfo:
     def __init__(self, cfg):
         self.cfg = cfg
         if "pix2pix" in cfg.model:
-            maximize = "cityscapes" in cfg.dataroot
-            self.best_metric = [0.0] if maximize else [math.inf]
+            self.best_metric = [0.0] if maximize_metric(cfg) else [math.inf]
             self.best_epoch = [0]
         elif cfg.model == "srgan":
             self.best_metric = [0.0] * 8  # PSNR x4 sets + SSIM x4 sets

@@ -3,8 +3,8 @@ utils/util.py:45-95, 208-235).
 
 tensor2im: [-1, 1] float NHWC -> uint8 HWC; save_images writes
 <name>_<label>.png per visual, as the reference's test loops do. The PNG is
-written here (8-bit RGB, zlib, no filter), so the port needs no Pillow;
-``aspect_ratio`` resizes with Pillow's bicubic (``data.resample``).
+written here (8-bit RGB or grayscale, zlib, no filter), so the port needs
+no Pillow; ``aspect_ratio`` resizes with Pillow's bicubic (``data.resample``).
 """
 
 from __future__ import annotations
@@ -31,10 +31,12 @@ def tensor2im(arr, imtype=np.uint8) -> np.ndarray:
 
 
 def png_bytes(img: np.ndarray) -> bytes:
-    """A PNG file of a uint8 HxWx3 image."""
-    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"png_bytes takes uint8 HxWx3, not {img.dtype} "
-                         f"{img.shape}")
+    """A PNG file of a uint8 HxWx3 (RGB) or HxW (grayscale: a label map)
+    image."""
+    if img.dtype != np.uint8 or not (
+            img.ndim == 2 or img.ndim == 3 and img.shape[2] == 3):
+        raise ValueError(f"png_bytes takes uint8 HxWx3 or HxW, not "
+                         f"{img.dtype} {img.shape}")
     h, w = img.shape[:2]
 
     def chunk(kind: bytes, body: bytes) -> bytes:
@@ -42,10 +44,13 @@ def png_bytes(img: np.ndarray) -> bytes:
                 + struct.pack(">I", zlib.crc32(kind + body) & 0xffffffff))
 
     # every row starts with filter type 0 (none)
-    rows = np.concatenate([np.zeros((h, 1), np.uint8),
-                           np.ascontiguousarray(img).reshape(h, w * 3)], 1)
+    channels = 1 if img.ndim == 2 else 3
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), np.ascontiguousarray(
+        img).reshape(h, w * channels)], 1)
+    color = 0 if channels == 1 else 2  # grayscale / truecolour
     return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0,
+                                         0))
             + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
             + chunk(b"IEND", b""))
 

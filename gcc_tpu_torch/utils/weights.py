@@ -24,11 +24,28 @@ Layouts (as in gcc_tpu/utils/torch_export.py:27-41):
 
 Both directions are strict: every leaf of the JAX tree is consumed and every
 tensor of the port is written.
+
+The evaluator networks (``metrics/{inception,miou,vgg}.py``) carry the
+reference's state-dict names instead; ``evaluator_state_dict`` and
+``evaluator_tree`` map them to and from the JAX package's evaluator
+parameter trees (what ``gcc_tpu.metrics.*.load_torch_*`` return), strictly
+both ways:
+
+  InceptionV3  <block>.<branch>.conv.weight OIHW  <-> <block>/<branch>/weight
+               .bn.{weight, bias, running_mean, running_var}
+                                       <-> bn_{scale, bias, mean, var}
+  DRNSeg       base.0.0 / base.<l>.<3i> (conv-bn-relu stacks)
+                                       <-> layer0_0 / layer<l>_<i>/conv, bn_*
+               base.<l>.<b>.conv<j>, .bn<j>, .downsample.{0, 1}
+                                       <-> layer<l>_<b>/conv<j>, bn<j>_*,
+                                           down_conv, bn_down_*
+               seg.{weight, bias}      <-> seg_kernel, seg_bias
+  VGG19        conv_<idx>.{weight, bias} <-> conv_<idx>/{kernel, bias}
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -183,3 +200,138 @@ def from_jax_nets(engine, nets: Dict[str, Dict[str, dict]]):
 def to_jax_nets(state) -> Dict[str, Dict[str, dict]]:
     """The reverse mapping: the port state's nets as a JAX ``state.nets``."""
     return {k: export_jax_variables(v) for k, v in state.nets.items()}
+
+
+# ------------------------------------------------------- evaluator weights
+
+def read_state_dict(path) -> Dict[str, np.ndarray]:
+    """A torch state dict as {key: numpy array}: a file saved by torch (read
+    with ``weights_only=True``), an ``.npz`` of one, or an in-memory
+    {key: array or tensor} mapping."""
+    if isinstance(path, dict):
+        items = path.items()
+    elif str(path).endswith(".npz"):
+        with np.load(path) as z:
+            return {k: z[k] for k in z.files}
+    else:
+        items = torch.load(path, map_location="cpu",
+                           weights_only=True).items()
+    return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+            else np.asarray(v) for k, v in items}
+
+
+def clean_state_dict(sd: Dict[str, np.ndarray], ignore: Iterable[str] = ()
+                     ) -> Dict[str, np.ndarray]:
+    """DataParallel's ``module.`` prefixes stripped; BatchNorm's
+    ``num_batches_tracked`` counters and the keys in ``ignore`` dropped."""
+    out = {}
+    for k, v in sd.items():
+        k = k[len("module."):] if k.startswith("module.") else k
+        if not k.endswith("num_batches_tracked") and k not in ignore:
+            out[k] = v
+    return out
+
+
+_BN = (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"),
+       ("running_var", "var"))
+Leaf = Tuple[str, Tuple[str, ...], bool]  # torch key, JAX path, is a kernel
+
+
+def _conv_bn(torch_conv: str, torch_bn: str, path: Tuple[str, ...],
+             conv_leaf: str, bn: str) -> List[Leaf]:
+    return [(torch_conv, path + (conv_leaf,), True)] + [
+        (f"{torch_bn}.{t}", path + (f"{bn}_{j}",), False) for t, j in _BN]
+
+
+def _tree_drn_layers(tree: dict) -> Tuple[int, ...]:
+    return tuple(sum(1 for k in tree if k.startswith(f"layer{li}_"))
+                 for li in range(1, 9))
+
+
+def _evaluator_leaves(kind: str, layers: Optional[Sequence[int]] = None
+                     ) -> List[Leaf]:
+    """Every tensor of one evaluator: (the port's and the reference's state
+    dict key, the JAX tree path, whether it is a conv kernel)."""
+    if kind == "inception":
+        from gcc_tpu_torch.metrics.inception import (BasicConv2d,
+                                                     FIDInceptionV3)
+        leaves = []
+        for name, m in FIDInceptionV3().named_modules():
+            if isinstance(m, BasicConv2d):
+                leaves += _conv_bn(f"{name}.conv.weight", f"{name}.bn",
+                                   tuple(name.split(".")), "weight", "bn")
+        return leaves
+    if kind == "drn":
+        from gcc_tpu_torch.metrics.miou import DRN_D_105_LAYERS
+        ly = tuple(layers or DRN_D_105_LAYERS)
+        leaves = _conv_bn("base.0.0.weight", "base.0.1", ("layer0_0",),
+                          "conv", "bn")
+        for li in (1, 2, 7, 8):
+            for i in range(ly[li - 1]):
+                leaves += _conv_bn(f"base.{li}.{3 * i}.weight",
+                                   f"base.{li}.{3 * i + 1}",
+                                   (f"layer{li}_{i}",), "conv", "bn")
+        inplanes = 32
+        for li in range(3, 7):
+            planes = (64, 128, 256, 512)[li - 3]
+            for b in range(ly[li - 1]):
+                pre, node = f"base.{li}.{b}", (f"layer{li}_{b}",)
+                for j in (1, 2, 3):
+                    leaves += _conv_bn(f"{pre}.conv{j}.weight",
+                                       f"{pre}.bn{j}", node, f"conv{j}",
+                                       f"bn{j}")
+                stride = 2 if li in (3, 4) else 1
+                if b == 0 and (stride != 1 or inplanes != planes * 4):
+                    leaves += _conv_bn(f"{pre}.downsample.0.weight",
+                                       f"{pre}.downsample.1", node,
+                                       "down_conv", "bn_down")
+                inplanes = planes * 4
+        return leaves + [("seg.weight", ("seg_kernel",), True),
+                         ("seg.bias", ("seg_bias",), False)]
+    if kind == "vgg":
+        from gcc_tpu_torch.metrics.vgg import VGG19_CONV_IDX
+        return [leaf for idx in VGG19_CONV_IDX for leaf in (
+            (f"conv_{idx}.weight", (f"conv_{idx}", "kernel"), True),
+            (f"conv_{idx}.bias", (f"conv_{idx}", "bias"), False))]
+    raise ValueError(f"unknown evaluator {kind!r}")
+
+
+def evaluator_state_dict(kind: str, tree: dict) -> Dict[str, np.ndarray]:
+    """A JAX evaluator parameter tree as the port's state dict (numpy,
+    OIHW kernels); every leaf is consumed and every tensor written."""
+    layers = _tree_drn_layers(tree) if kind == "drn" else None
+    sd = {}
+    for key, path, kernel in _evaluator_leaves(kind, layers):
+        try:
+            leaf = np.asarray(_node(tree, ".".join(path)))
+        except KeyError:
+            raise ValueError(f"{kind}: the JAX tree has no "
+                             f"{'/'.join(path)}") from None
+        sd[key] = np.array(np.transpose(leaf, _CONV_PERM) if kernel
+                           else leaf)
+    if len(sd) != _count_leaves(tree):
+        raise ValueError(f"{kind}: {len(sd)} of the JAX tree's "
+                         f"{_count_leaves(tree)} leaves have a counterpart "
+                         f"in the port")
+    return sd
+
+
+def evaluator_tree(kind: str, sd: Dict[str, np.ndarray]) -> dict:
+    """The reverse: the port's (or the reference's) evaluator state dict as
+    the JAX package's parameter tree (numpy, HWIO kernels)."""
+    from gcc_tpu_torch.metrics.miou import infer_drn_layers
+    sd = clean_state_dict({k: np.asarray(v) for k, v in sd.items()})
+    layers = infer_drn_layers(sd) if kind == "drn" else None
+    leaves = _evaluator_leaves(kind, layers)
+    want = {key for key, _, _ in leaves}
+    if set(sd) != want:
+        raise ValueError(f"{kind}: missing {sorted(want - set(sd))[:5]}, "
+                         f"unexpected {sorted(set(sd) - want)[:5]}")
+    tree: dict = {}
+    for key, path, kernel in leaves:
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.array(np.transpose(sd[key], _INV[_CONV_PERM])
+                                  if kernel else sd[key])
+    return tree

@@ -21,7 +21,9 @@ the CPU (``--gpu_ids -1``), against the JAX package's.
 * SIGTERM after the first iteration's log line: exit 0 with
   ``preempted_in_epoch`` in the meta, then ``--continue_train`` restarts it.
 * ``--check_numerics`` names a non-finite loss; without ``--gpu_ids -1``
-  the CLIs need a card; XLA-only features and evaluator weights raise.
+  the CLIs need a card; XLA-only features raise.
+* ``--inception_path`` naming a file: cli.get_real_stat, then the real
+  FID branch at the epoch end and in the test CLI, the same value twice.
 """
 
 import ast
@@ -468,17 +470,47 @@ def test_refusals(tmp_path):
                         ("--device_cache on", "device_cache")):
         with pytest.raises(NotImplementedError, match=match):
             ttrain.main(f"{base} {flag} --name r".split())
-    weights = tmp_path / "inception.pth"
-    weights.write_bytes(b"x")
-    with pytest.raises(NotImplementedError, match="evaluator networks"):
-        _train(f"{UNET} --n_epochs 1 --inception_path {weights} --name w",
-               tmp_path)
     packed = tmp_path / "packed"
     packed.mkdir()
     (packed / "gcc_pack.json").write_text("{}")
     with pytest.raises(NotImplementedError, match="packed root"):
         _train(f"{UNET} --dataroot {packed} --dataset_mode aligned "
                f"--n_epochs 1 --name p", tmp_path)
+
+
+def test_real_fid_through_the_clis(tmp_path):
+    """--inception_path naming a file (random InceptionV3 weights through
+    the port's ingestion): cli.get_real_stat writes real_stat_B.npz, the
+    epoch-end eval and the test CLI log the real ``FID:`` line and no
+    [proxy] line, and two test runs of one checkpoint give the same FID."""
+    from gcc_tpu.utils import torch_ref_evaluators as tre
+    from gcc_tpu_torch.cli import get_real_stat
+    from gcc_tpu_torch.metrics.ingest import ingest_evaluator
+
+    tm = tre.TFIDInception()
+    tre.randomize(tm, seed=7)
+    pth, weights = tmp_path / "pt_inception.pth", tmp_path / "inception.npz"
+    torch.save(tm.state_dict(), pth)
+    ingest_evaluator("inception", str(pth), str(weights), parity=False,
+                     device="cpu")
+    root = tmp_path / "synthetic_root"  # holds real_stat_B.npz
+    root.mkdir()
+    flags = f"{UNET} --dataroot {root} --inception_path {weights}"
+    assert get_real_stat.main(f"{flags}{CPU}".split()) == 0
+    assert (root / "real_stat_B.npz").exists()
+    exp = tmp_path / "exp"
+    assert _train(f"{flags} --n_epochs 1 --name w", exp) == 0
+    assert re.search(r"FID: [0-9.]+", _log(exp, "w"))
+    assert "[proxy]" not in _log(exp, "w")
+    best = exp / "w" / "checkpoints" / "model_best_AtoB.ckpt"
+    values = []
+    for name in ("f1", "f2"):
+        assert _test(f"{flags} --pretrain_path {best} --ntest 4 "
+                     f"--name {name}", exp) == 0
+        assert "[proxy]" not in _log(exp, name)
+        assert re.search(r"FID: [0-9.]+", _log(exp, name))
+        values.append(_metric(exp, name))
+    assert np.isfinite(values[0]) and values[0] == values[1]
 
 
 def test_plateau_matches_jax():
