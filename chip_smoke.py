@@ -151,12 +151,36 @@ Phases, each of which exits non-zero on failure:
               fakes against 1024x2048 labels of a written cityscapes-like
               root (the histogram counts the labels' pixels), (g) (a)'s and
               (c)'s forwards with TF32 on, as a finding.
+ 16. pipeline the input pipeline on the card (seeded synthetic images at the
+              datasets' shapes and counts; no real dataset is in the
+              repository): (a) 2975 AB pairs of 512x256 (cityscapes' train
+              split; 128 distinct images, every file decoded on its own)
+              written by the port's PNG writer and packed by
+              python -m gcc_tpu_torch.cli.prepare at load 256 (seconds; the
+              store must be 2975*2*256*256*3 bytes); (b) maps' flags (load
+              286, crop 256, flips) on 512 pairs: the device cache's uint8
+              crops equal PackedDataset's, its float32 within 1 ulp, the
+              paths equal, over 8 batches of 128 (two epochs), ms a batch of
+              each path; (c) cli.train --memory_guard strict for one epoch of
+              20 iterations from three sources (--device_cache on, the packed
+              root streaming, the image folder): pix2pix resnet with fused
+              blocks (phase 4's teacher 64/128, the student ngf 24 unpruned,
+              ndf 128, batch 4; B2 108/36/36 every step call, the guard's
+              included) on (a)'s root, SAGAN at batch 64 (B1 6/2) on 1280
+              218x178 images packed as sa; ms a CLI iteration, the engine
+              step, the loader's wait; (d) the guard's projected peak within
+              5 % of max_memory_allocated over the real first step at phase
+              9's U-Net (batch 128) and phase 12's CycleGAN (batch 1), and
+              strict's MemoryGuardError with a suggested batch at U-Net batch
+              512; (e) the native engine (g++): its items within one uint8
+              level of the numpy path's, images/s of each through the
+              Loader's 8 threads over one batch of 128 pairs.
 The run is fp32 throughout: TF32 is off for cuDNN and matmul, except in
-phase 15 (g). The last five lines are phase 11's JSON record of its stages,
-phase 15's, the card's name and power limit, the kernels' JSON record and
-{"ok": true, "device": ...}. A kernel's "launches" is the main path's count
-(phase 4 for B2, phase 7 for B1); "launches_by_path" adds phase 12's for
-B2.
+phase 15 (g). The last six lines are phase 11's JSON record of its stages,
+phase 15's, phase 16's, the card's name and power limit, the kernels' JSON
+record and {"ok": true, "device": ...}. A kernel's "launches" is the main
+path's count (phase 4 for B2, phase 7 for B1); "launches_by_path" adds
+phase 12's for B2 and phase 16 (c)'s cached runs.
 """
 
 import ast
@@ -963,21 +987,16 @@ def unet_config(Config, **kw):
                                   "fused_resblock": "auto", **kw})
 
 
-def phase_unet(torch, np):
+def unet_engine(torch, np, batch):
+    """The bench's U-Net GCC engine on the card at 256 px (bench.py:170-186):
+    the student UnetGenerator(32) at spread weights, pruned to 3.0 GMACs by
+    the port's prune_unet; (engine, cfg)."""
     from gcc_tpu_torch.compress import prune_unet
     from gcc_tpu_torch.config import Config
     from gcc_tpu_torch.engines.pix2pix import Pix2PixEngine
     from gcc_tpu_torch.models.generators import UnetGenerator
-    from gcc_tpu_torch.ops import flash_attention as fa
-    from gcc_tpu_torch.ops import mobile_block as mb
     from gcc_tpu_torch.utils.weights import export_jax_variables
 
-    batch, size, n_timed = UNET_BATCH, 256, 3
-    print(f"== phase 9: default pix2pix path, U-Net GCC iteration, {size}px, "
-          f"batch {batch}, 1 warm-up + {n_timed} timed; cudnn.benchmark "
-          f"{torch.backends.cudnn.benchmark}")
-    # the bench's student: UnetGenerator(32) at spread weights, pruned to
-    # 3.0 GMACs (bench.py:170-186)
     t0 = time.perf_counter()
     tree = export_jax_variables(UnetGenerator(ngf=32))["params"]
     fc, cc, gmacs = prune_unet(spread_tree(np, tree, np.random.RandomState(0)),
@@ -986,8 +1005,19 @@ def phase_unet(torch, np):
     print(f"  pruned student filter_cfgs {fc}, channel_cfgs {cc}: "
           f"{gmacs:.4f} GMACs ({time.perf_counter() - t0:.2f} s)")
     cfg = unet_config(Config, ngf=32, ndf=128, teacher_ngf=64,
-                      teacher_ndf=128, crop_size=size, batch_size=batch)
-    engine = Pix2PixEngine(cfg, filter_cfgs=fc, channel_cfgs=cc)  # the card
+                      teacher_ndf=128, crop_size=256, batch_size=batch)
+    return Pix2PixEngine(cfg, filter_cfgs=fc, channel_cfgs=cc), cfg
+
+
+def phase_unet(torch, np):
+    from gcc_tpu_torch.ops import flash_attention as fa
+    from gcc_tpu_torch.ops import mobile_block as mb
+
+    batch, size, n_timed = UNET_BATCH, 256, 3
+    print(f"== phase 9: default pix2pix path, U-Net GCC iteration, {size}px, "
+          f"batch {batch}, 1 warm-up + {n_timed} timed; cudnn.benchmark "
+          f"{torch.backends.cudnn.benchmark}")
+    engine, cfg = unet_engine(torch, np, batch)  # the card
     batches = make_batches(torch, np, 2 * (n_timed + 1), batch, size, 0,
                            engine.device)
     for k in fa.LAUNCHES:
@@ -1105,7 +1135,8 @@ class LogLines:
 
 CLI_LOG = ("pruned ", "[proxy]", "metrics: ", "resumed ", "val: ",
            "FID: ", "mIoU: ", "AtoB FID: ", "BtoA FID: ",
-           "loaded ", "SRGAN perceptual")
+           "loaded ", "SRGAN perceptual", "data: ", "memory guard",
+           "device_cache")
 
 
 def run_cli(torch, stage, argv, counters, records, test=False):
@@ -2169,6 +2200,383 @@ def card_gpu_checks(torch, np, dev, rng, one_batch, batch_s, ref_batch):
     return rec
 
 
+# phase 16: cityscapes' train split (pix2pix's cityscapes: 2975 AB pairs of
+# 512x256) packed at load 256; maps' flags (load 286, crop 256, flips) on
+# MAPS_PAIRS pairs in batches of MAPS_BATCH for MAPS_BATCHES batches; the
+# CLI runs of (c) take one epoch of PIPE_ITERS iterations; (d) holds the
+# guard to GUARD_TOL at U-Net batch 128 and CycleGAN batch 1 and shows
+# strict at GUARD_OVER, a U-Net batch the card cannot hold
+CITYSCAPES_PAIRS, CITYSCAPES_SIZE = 2975, 256
+MAPS_PAIRS, MAPS_BATCH, MAPS_BATCHES = 512, 128, 8
+PIPE_ITERS, SAGAN_FACE = 20, (218, 178)
+GUARD_TOL, GUARD_OVER = 0.05, 512
+
+
+def write_images(np, folder, n, h, w, seed, pair=False, distinct=128,
+                 threads=8):
+    """n PNGs of h x w (side-by-side AB pairs of h x 2w with pair) written
+    by the port's PNG writer on threads: a smooth random field (an 8x8
+    field resized bicubically) and, for A, its edge-like rendition. File i
+    holds image i % distinct: every file is decoded on its own, and the
+    writing stays a small part of the phase."""
+    from gcc_tpu_torch.data.resample import BICUBIC, resize
+    from gcc_tpu_torch.utils.image import png_bytes
+
+    os.makedirs(folder, exist_ok=True)
+
+    def encode(i):
+        rng = np.random.RandomState(seed * 1000003 + i)
+        b = resize((rng.rand(8, 8, 3) * 255).astype(np.uint8), (w, h),
+                   BICUBIC)
+        if pair:
+            f = b.astype(np.float32) / 127.5 - 1
+            a = ((np.sign(f) * np.abs(f) ** 0.5 + 1) * 127.5).clip(
+                0, 255).astype(np.uint8)
+            b = np.concatenate([a, b], 1)
+        return png_bytes(b)
+
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        files = list(pool.map(encode, range(min(n, distinct))))
+    for i in range(n):
+        with open(os.path.join(folder, f"{i:05d}.png"), "wb") as fh:
+            fh.write(files[i % len(files)])
+
+
+def pack_root(src, flags, phase, extra=""):
+    """python -m gcc_tpu_torch.cli.prepare in this process: (seconds, the
+    packed root, its phase's store bytes)."""
+    import contextlib
+    import io
+
+    from gcc_tpu_torch.cli import prepare
+
+    out = src.rstrip("/") + "_packed"
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = prepare.main(f"{flags} --dataroot {src} --phase {phase} "
+                          f"--pack_output {out} --num_threads 8{extra}"
+                          .split())
+    dt = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"cli.prepare {src} {phase}: exit code {rc}")
+    with open(os.path.join(out, "gcc_pack.json")) as f:
+        keys = json.load(f)["phases"][phase]["keys"].values()
+    return dt, out, sum(os.path.getsize(os.path.join(out, k["bin"]))
+                        for k in keys)
+
+
+def pipe_cache_vs_host(torch, np, root, rec):
+    """(b) maps' flags on a packed root: the device cache's crops against
+    PackedDataset's over MAPS_BATCHES batches of MAPS_BATCH (two epochs'
+    orders), uint8 exactly, float32 within 1 ulp, the same paths; ms per
+    batch of each path."""
+    from gcc_tpu_torch import config
+    from gcc_tpu_torch.data.device_cache import DeviceCacheLoader
+    from gcc_tpu_torch.data.loader import Loader
+    from gcc_tpu_torch.data.packed import PackedDataset, device_normalize
+
+    cfg = config.parse(f"--dataroot {root} --model pix2pix --batch_size "
+                       f"{MAPS_BATCH}".split())
+    if (cfg.load_size, cfg.crop_size, cfg.no_flip) != (286, 256, False):
+        fail(f"maps preset: load {cfg.load_size} crop {cfg.crop_size} "
+             f"no_flip {cfg.no_flip}")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cache = DeviceCacheLoader(PackedDataset(cfg, seed=0), MAPS_BATCH, dev,
+                              seed=0, drop_last=True)
+    torch.cuda.synchronize()
+    upload = time.perf_counter() - t0
+    host = PackedDataset(cfg, seed=0, out_dtype="uint8")
+    hl = Loader(host, MAPS_BATCH, seed=0, drop_last=True)
+    one_ulp = float(np.spacing(np.float32(1.0)))
+    t_cache, t_host, t_up, n, worst = [], [], [], 0, 0.0
+    for epoch in (1, 2):
+        cache.set_epoch(epoch)
+        hl.set_epoch(epoch)
+        for idx_c, idx_h in zip(cache._index_batches(), hl._index_batches()):
+            t0 = time.perf_counter()
+            args, paths = cache.param_batch(idx_c)
+            crops = cache.crops(args)
+            out = cache.materialize(args)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            hb = host.get_batch(idx_h)
+            t2 = time.perf_counter()
+            up = device_normalize({k: torch.from_numpy(hb[k]).to(dev)
+                                   for k in ("A", "B")})
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            t_cache.append(t1 - t0)
+            t_host.append(t2 - t1)
+            t_up.append(t3 - t2)
+            for k in ("A", "B"):
+                if paths[f"{k}_paths"] != hb[f"{k}_paths"]:
+                    fail(f"(b) batch {n}: {k} paths differ")
+                if not torch.equal(crops[k].cpu(), torch.from_numpy(hb[k])):
+                    fail(f"(b) batch {n}: {k} uint8 crops differ")
+                want = (hb[k].astype(np.float32) / 255.0) * 2.0 - 1.0
+                got = out[k].permute(0, 2, 3, 1).cpu().numpy()
+                d = float(np.abs(got - want).max())
+                worst = max(worst, d)
+                if not d <= one_ulp:
+                    fail(f"(b) batch {n}: {k} float32 off by {d}")
+                if not torch.equal(up[k], out[k]):
+                    fail(f"(b) batch {n}: {k} host upload + normalize "
+                         f"differs from the cache's")
+            n += 1
+    if n != MAPS_BATCHES:
+        fail(f"(b) compared {n} batches, expected {MAPS_BATCHES}")
+    ms = (lambda xs: round(1e3 * sum(xs[1:]) / len(xs[1:]), 3))
+    rec["maps"] = {"pairs": MAPS_PAIRS, "batch": MAPS_BATCH, "batches": n,
+                   "store_bytes": host.total_bytes(),
+                   "upload_s": round(upload, 3), "max_abs_err": worst,
+                   "cache_ms": ms(t_cache), "host_batch_ms": ms(t_host),
+                   "host_upload_normalize_ms": ms(t_up)}
+    print(f"  (b) maps' flags (load 286, crop 256, flips), {MAPS_PAIRS} pairs "
+          f"({host.total_bytes()} bytes, uploaded in {upload:.3f} s): "
+          f"{n} batches of {MAPS_BATCH}, uint8 crops and paths equal, "
+          f"float32 max|d| {worst:.3e} (1 ulp {one_ulp:.3e}); ms a batch "
+          f"(mean of {n - 1} after the first): cache (draw + gather + "
+          f"normalize) {rec['maps']['cache_ms']}, host get_batch "
+          f"{rec['maps']['host_batch_ms']} + upload and normalize "
+          f"{rec['maps']['host_upload_normalize_ms']}")
+
+
+def pipe_cli(torch, name, argv, per_iter, counters, records, rec):
+    """One cli.train run of phase 16 (c): the launches of every step call
+    (the guard's measurement included) equal per_iter; ms per iteration
+    over the steady iterations (after the guard's call and the first),
+    the loader's wait and the guard's and cache's log lines."""
+    clock, _, lines = run_cli(torch, name, argv, counters, records)
+    calls = clock.calls
+    launched = [{k: g[k] for k in per_iter} for _, _, g in calls]
+    if len(calls) < PIPE_ITERS or any(g != per_iter for g in launched):
+        fail(f"{name}: {len(calls)} step calls, launches {launched}, "
+             f"expected {per_iter} in each of at least {PIPE_ITERS}")
+    ends = [t1 for _, t1, _ in calls[1:]]
+    gaps = [b - a for a, b in zip(ends, ends[1:])]
+    inside = [t1 - t0 for t0, t1, _ in calls[2:]]
+    wait = [float(x.split("waited ")[1].split(" ms")[0]) for x in lines
+            if x.startswith("data: waited")]
+    guard = [x for x in lines if x.startswith("memory guard")]
+    if not guard or not wait:
+        fail(f"{name}: no memory guard or data line in {lines}")
+    rec[name] = {"iterations": len(calls) - 1,
+                 "ms_per_iter": round(1e3 * sum(gaps) / len(gaps), 3),
+                 "engine_ms": round(1e3 * sum(inside) / len(inside), 3),
+                 "loader_wait_ms": wait[0],
+                 "launches": {k: counters[f][k] for f, c in counters.items()
+                              for k in c if k in per_iter}}
+    print(f"  {name}: {rec[name]['ms_per_iter']} ms a CLI iteration over "
+          f"{len(gaps)} steady iterations (engine step "
+          f"{rec[name]['engine_ms']} ms), the loader's wait {wait[0]} ms an "
+          f"iteration; launches per step call {per_iter}")
+    return rec[name]["launches"]
+
+
+def pipe_guard(torch, np, rec):
+    """(d) the guard's projected peak against max_memory_allocated over the
+    real first step, at phase 9's U-Net (batch UNET_BATCH) and phase 12's
+    CycleGAN (batch 1); strict at U-Net batch GUARD_OVER."""
+    from gcc_tpu_torch.compress import cyclegan_reference_cfgs
+    from gcc_tpu_torch.config import Config
+    from gcc_tpu_torch.engines.cyclegan import CycleGANEngine
+    from gcc_tpu_torch.utils import memory_guard as mg
+
+    class Log:
+        def info(self, msg):
+            print(f"    {msg}")
+
+        warning = info
+
+    def case(what, engine, cfg, batch):
+        state = engine.init_state(seed=0)
+        b, v = make_batches(torch, np, 2, batch, cfg.crop_size, 0,
+                            engine.device)
+
+        def step(n):
+            return engine.train_arch_step(
+                state, {k: x[:n] for k, x in b.items()},
+                {k: x[:n] for k, x in v.items()}, cfg.lr, 0.9)
+
+        t0 = time.perf_counter()
+        r = mg.check_step(step, state, batch, engine.device, logger=Log(),
+                          strict=True)
+        guard_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(batch)
+        measured = mg._read_peak(engine.device)
+        err = abs(r["peak_bytes"] - measured) / measured
+        rec[what] = {"projected_bytes": r["peak_bytes"],
+                     "measured_bytes": measured, "rel_err": round(err, 5),
+                     "guard_s": round(guard_s, 3),
+                     "hbm_bytes": r["hbm_bytes"]}
+        print(f"  (d) {what}: projected {r['peak_bytes'] / 2**30:.3f} GiB, "
+              f"measured over the real first step {measured / 2**30:.3f} "
+              f"GiB: {100 * err:.3f} % apart (the guard took "
+              f"{guard_s:.3f} s)")
+        if not err <= GUARD_TOL:
+            fail(f"(d) {what}: projected {r['peak_bytes']} vs measured "
+                 f"{measured}")
+        return state, step
+
+    engine, cfg = unet_engine(torch, np, UNET_BATCH)
+    case(f"unet batch {UNET_BATCH}", engine, cfg, UNET_BATCH)
+    state = engine.init_state(seed=0)
+    big, bigv = make_batches(torch, np, 2, GUARD_OVER, cfg.crop_size, 0,
+                             engine.device)
+    over = (lambda n: engine.train_arch_step(
+        state, {k: x[:n] for k, x in big.items()},
+        {k: x[:n] for k, x in bigv.items()}, cfg.lr, 0.9))
+    t0 = time.perf_counter()
+    try:
+        mg.check_step(over, state, GUARD_OVER, engine.device, logger=Log(),
+                      strict=True)
+    except mg.MemoryGuardError as e:
+        rec["strict"] = {"batch": GUARD_OVER, "message": str(e),
+                         "seconds": round(time.perf_counter() - t0, 3)}
+        print(f"  (d) strict at U-Net batch {GUARD_OVER} raised "
+              f"MemoryGuardError in {rec['strict']['seconds']} s: {e}")
+    else:
+        fail(f"(d) strict did not raise at U-Net batch {GUARD_OVER}")
+    if "largest projected-to-fit batch" not in rec["strict"]["message"]:
+        fail("(d) strict's message suggests no batch")
+    del engine, state, big, bigv, over
+    cfg_a, cfg_b = cyclegan_reference_cfgs()
+    cfg = cyclegan_config(Config, crop_size=CYCLEGAN_SIZE,
+                          load_size=CYCLEGAN_SIZE, **CYCLEGAN_WIDTHS)
+    case("cyclegan batch 1", CycleGANEngine(cfg, cfg_AtoB=cfg_a,
+                                            cfg_BtoA=cfg_b), cfg, 1)
+
+
+def pipe_native(torch, np, src, rec):
+    """(e) the native engine: its items against the numpy path's within one
+    uint8 level, and images/s of each path through the Loader's threads
+    (decode included) over one batch of src's pairs at maps' flags."""
+    from gcc_tpu_torch import config, native
+    from gcc_tpu_torch.data import build_dataset
+    from gcc_tpu_torch.data.loader import Loader
+
+    t0 = time.perf_counter()
+    native.library()
+    built = time.perf_counter() - t0
+    argv = (f"--dataroot {src} --model pix2pix --batch_size {MAPS_BATCH} "
+            f"--max_dataset_size {MAPS_BATCH}")
+    ds = {flag: build_dataset(config.parse(f"{argv}{flag}".split()), seed=3)
+          for flag in ("", " --native_loader")}
+    worst = 0.0
+    for i in range(min(16, len(ds[""]))):
+        a, b = ds[" --native_loader"][i], ds[""][i]
+        for k in ("A", "B"):
+            worst = max(worst, float(np.abs(a[k] - b[k]).max()))
+    if not worst <= 2.0 / 255.0 + 1e-6:
+        fail(f"(e) native items off the numpy path's by {worst}")
+    rates = {}
+    for flag, d in ds.items():
+        loader = Loader(d, MAPS_BATCH, num_threads=8, seed=0, drop_last=True)
+        t0 = time.perf_counter()
+        n = sum(2 * len(b["A"]) for b in loader)  # A and B halves
+        rates["native" if flag else "numpy"] = round(
+            n / (time.perf_counter() - t0), 3)
+    rec["native"] = {"build_s": round(built, 3), "max_abs_err": worst,
+                     "images_per_s": rates}
+    print(f"  (e) native engine built in {built:.3f} s (g++); its items "
+          f"within {worst:.3e} of the numpy path's (one level "
+          f"{2 / 255:.3e}); images/s through the Loader's 8 threads, decode "
+          f"included: numpy {rates['numpy']}, native {rates['native']}")
+
+
+def phase_pipeline(torch, np, smi):
+    """Phase 16: the input pipeline on the card."""
+    import tempfile
+
+    from gcc_tpu_torch.ops import flash_attention as fa
+    from gcc_tpu_torch.ops import mobile_block as mb
+
+    print(f"== phase 16: the input pipeline on the card ({smi}): packed "
+          f"roots (cli.prepare), the device cache, the memory guard, the "
+          f"native engine")
+    t_phase = time.perf_counter()
+    rec, records, by_path = {}, [], {}
+    counters = {"B2": mb.LAUNCHES, "B1": fa.LAUNCHES}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) cityscapes' train split, packed at load 256
+        city = os.path.join(tmp, "cityscapes")
+        t0 = time.perf_counter()
+        write_images(np, f"{city}/train", CITYSCAPES_PAIRS, CITYSCAPES_SIZE,
+                     CITYSCAPES_SIZE, 0, pair=True)
+        write_images(np, f"{city}/val", 4, CITYSCAPES_SIZE, CITYSCAPES_SIZE,
+                     1, pair=True)
+        wrote = time.perf_counter() - t0
+        flags = (f"--model pix2pix --dataset_mode aligned --load_size "
+                 f"{CITYSCAPES_SIZE}")
+        secs, city_p, nbytes = pack_root(city, flags, "train")
+        want = CITYSCAPES_PAIRS * 2 * CITYSCAPES_SIZE ** 2 * 3
+        rec["cityscapes"] = {"pairs": CITYSCAPES_PAIRS,
+                             "write_s": round(wrote, 3),
+                             "pack_s": round(secs, 3), "store_bytes": nbytes}
+        print(f"  (a) {CITYSCAPES_PAIRS} AB pairs of {2 * CITYSCAPES_SIZE}x"
+              f"{CITYSCAPES_SIZE} written in {wrote:.3f} s; cli.prepare at "
+              f"load {CITYSCAPES_SIZE} packed them in "
+              f"{secs:.3f} s ({CITYSCAPES_PAIRS / secs:.3f} pairs/s, 8 "
+              f"threads): {nbytes} bytes")
+        if nbytes != want:
+            fail(f"(a) store of {nbytes} bytes, expected {want}")
+        pack_root(city, flags, "val")
+        # (b) maps' flags
+        maps = os.path.join(tmp, "maps")
+        write_images(np, f"{maps}/train", MAPS_PAIRS, 256, 256, 2, pair=True)
+        _, maps_p, _ = pack_root(maps, "--model pix2pix", "train")
+        pipe_cache_vs_host(torch, np, maps_p, rec)
+        # (c) cli.train from packed roots: cached, streaming, image folder
+        res = (f"--model pix2pix --backbone resnet --fused_resblock on "
+               f"--ngf 24 --ndf 128 --teacher_ngf 64 --teacher_ndf 128 "
+               f"--online_distillation --darts_discriminator --lambda_content "
+               f"50 --lambda_gram 1e4 --batch_size 4 --max_dataset_size "
+               f"{4 * PIPE_ITERS} --n_epochs 1 --n_epochs_decay 0 "
+               f"--save_epoch_freq 1 --print_freq {4 * PIPE_ITERS} "
+               f"--num_threads 4 --memory_guard strict --checkpoints_dir "
+               f"{tmp}").split()
+        faces = os.path.join(tmp, "celeb")
+        write_images(np, f"{faces}/train", 64 * PIPE_ITERS, *SAGAN_FACE, 3)
+        write_images(np, f"{faces}/val", 32, *SAGAN_FACE, 4)
+        sg_flags = "--model sagan --dataset_mode sa"
+        _, faces_p, _ = pack_root(faces, sg_flags, "train")
+        pack_root(faces, sg_flags, "val")
+        sg = (f"{sg_flags} --ngf 48 --ndf 64 --teacher_ngf 64 --teacher_ndf "
+              f"64 --batch_size 64 --n_epochs 1 --save_epoch_freq 1 "
+              f"--print_freq {64 * PIPE_ITERS} --darts_discriminator "
+              f"--threshold 0.1 --online_distillation --lambda_L1 0 "
+              f"--lambda_content 1 --lambda_gram 1 --num_threads 4 "
+              f"--memory_guard strict --checkpoints_dir {tmp}").split()
+        print(f"  (c) cli.train, one epoch of {PIPE_ITERS} iterations from "
+              f"each source, --memory_guard strict")
+        for path, argv, per_iter, (packed, folder) in (
+                ("pix2pix resnet", res, PER_ITER, (city_p, city)),
+                ("sagan", sg, ATTN_PER_ITER, (faces_p, faces))):
+            for source, extra in (
+                    ("cached", f"--dataroot {packed} --device_cache on"),
+                    ("packed stream", f"--dataroot {packed} --device_cache "
+                                      f"off"),
+                    ("image folder", f"--dataroot {folder}")):
+                name = f"{path}, {source}"
+                launches = pipe_cli(
+                    torch, name, argv + extra.split() + [
+                        "--name", name.replace(" ", "_").replace(",", "")],
+                    per_iter, counters, records, rec)
+                if source == "cached":
+                    by_path.update({k: {f"{path} (packed, cached)": v}
+                                    for k, v in launches.items()})
+        # (e) the native engine on maps' source folder
+        pipe_native(torch, np, maps, rec)
+    # (d) the guard's accuracy, on a card free of (c)'s runs
+    pipe_guard(torch, np, rec)
+    rec["seconds"] = round(time.perf_counter() - t_phase, 3)
+    print(f"  phase 16 took {rec['seconds']} s")
+    return rec, by_path
+
+
 def main():
     import numpy as np
     import torch
@@ -2214,6 +2622,9 @@ def main():
     phase_cyclegan_agree(torch, np)
     phase_srgan(torch, np)
     evaluators = phase_evaluators(torch, np)
+    pipeline, pipe_paths = phase_pipeline(torch, np, smi)
+    for k, v in pipe_paths.items():
+        by_path[k].update(v)
 
     entries = []
     for k, rec in record.items():
@@ -2230,6 +2641,7 @@ def main():
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     print(json.dumps({"cli": cli}))
     print(json.dumps({"evaluators": evaluators}))
+    print(json.dumps({"pipeline": pipeline}))
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,14 @@ or its ingested ``.npz``) and real statistics, mIoU on cityscapes with
 ``--drn_path``, else the proxies; the best checkpoint follows it.
 
 The run is on the card unless ``--gpu_ids -1`` asks for the CPU; one card
-only. The JAX package's XLA knobs (meshes, spatial shards, the memory guard
-and the device cache) are refused when switched on; their ``auto``/``off``
-values and ``--compute_dtype`` are logged once: the port computes in fp32.
+only. A packed root (``cli.prepare``) streams uint8 batches that normalize
+on the device; ``--device_cache`` keeps the packed store on the device
+(``auto``: a store of at most 25 % of the card's memory, on a card) and then
+each iteration ships only the transform parameters. ``--memory_guard``
+measures the first step's peak device memory before the run goes on
+(utils/memory_guard.py; ``auto`` on a card, ``strict`` aborts when it does
+not fit). Meshes and spatial shards are refused; ``--compute_dtype`` and
+``--compile_cache`` are logged once: the port computes in fp32.
 """
 
 from __future__ import annotations
@@ -71,26 +76,21 @@ def run_device(cfg, device=None) -> torch.device:
 
 
 def check_knobs(cfg, logger) -> None:
-    """Refuse the JAX package's XLA-only features; log what is ignored."""
+    """Refuse the JAX package's multi-device features; log what is
+    ignored."""
     refused = []
     if cfg.mesh_shape:
         refused.append(f"--mesh_shape {cfg.mesh_shape}")
     if int(cfg.spatial_shards) > 1:
         refused.append(f"--spatial_shards {cfg.spatial_shards}")
-    if cfg.memory_guard in ("on", "strict"):
-        refused.append(f"--memory_guard {cfg.memory_guard}")
-    if cfg.device_cache == "on":
-        refused.append("--device_cache on")
     if refused:
         raise NotImplementedError(
-            f"{', '.join(refused)}: not in the port yet (ROADMAP Queue A: "
-            f"meshes and spatial shards are item 7, the memory guard and the "
-            f"device cache follow the training run)")
+            f"{', '.join(refused)}: not in the port yet (ROADMAP Queue A "
+            f"item 7: meshes and spatial shards)")
     logger.info(
         f"port: computes in float32 (--compute_dtype {cfg.compute_dtype} "
-        f"ignored); XLA-only --memory_guard {cfg.memory_guard}, "
-        f"--device_cache {cfg.device_cache}, --compile_cache "
-        f"{cfg.compile_cache or 'off'} ignored")
+        f"ignored); XLA-only --compile_cache {cfg.compile_cache or 'off'} "
+        f"ignored")
 
 
 def build_engine(cfg, logger=None, device=None):
@@ -157,13 +157,39 @@ def build_engine(cfg, logger=None, device=None):
 
 def set_input(cfg, batch: Dict, device) -> Dict[str, torch.Tensor]:
     """Direction swap (models/Pix2Pix.py:453-458) + host NHWC numpy ->
-    float32 NCHW tensors on the device; path lists are dropped."""
+    float32 NCHW tensors on the device; path lists are dropped.
+
+    Packed datasets deliver uint8 (data/packed.py): those keys go over raw
+    (4x fewer host->device bytes) and normalize on the device. Device-cached
+    loaders (data/device_cache.py) deliver tensors already there: they
+    pass through."""
     from gcc_tpu_torch.data import to_device
-    out = {k: to_device(v, device) for k, v in batch.items()
-           if isinstance(v, np.ndarray)}
+    from gcc_tpu_torch.data.packed import device_normalize
+    out, u8 = {}, {}
+    for k, v in batch.items():
+        if isinstance(v, np.ndarray):
+            if v.dtype == np.uint8:
+                u8[k] = torch.from_numpy(v).to(device)
+            else:
+                out[k] = to_device(v, device)
+        elif isinstance(v, torch.Tensor):
+            out[k] = v
+    out.update(device_normalize(u8))
     if "A" in out and cfg.direction == "BtoA":
         out["A"], out["B"] = out["B"], out["A"]
     return out
+
+
+def _head(x, n: int):
+    """The first n items of a batch: every array or tensor of a dict or a
+    tuple cut along dim 0 (paths, scalars and the rest as they are)."""
+    if isinstance(x, dict):
+        return {k: _head(v, n) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_head(v, n) for v in x)
+    if isinstance(x, (np.ndarray, torch.Tensor)) and x.ndim > 0:
+        return x[:n]
+    return x
 
 
 def main(argv=None) -> int:
@@ -272,6 +298,9 @@ def run(cfg, device=None) -> int:
 
 def _train(cfg, dev, run_dir, logger, preempt) -> int:
     from gcc_tpu_torch.data import create_split_dataset
+    from gcc_tpu_torch.data.device_cache import (DeviceCacheLoader,
+                                                 FusedCachedStep,
+                                                 InfiniteParams)
     from gcc_tpu_torch.data.loader import InfiniteLoader
     from gcc_tpu_torch.eval.orchestrators import evaluate_engine
     from gcc_tpu_torch.ops.mask import named_alphas, sparsity_report
@@ -279,6 +308,7 @@ def _train(cfg, dev, run_dir, logger, preempt) -> int:
     from gcc_tpu_torch.utils.checkpoint import (ckpt_name, load_state,
                                                 save_checkpoint, save_state)
     from gcc_tpu_torch.utils.logging import JsonlWriter
+    from gcc_tpu_torch.utils.memory_guard import check_step
     from gcc_tpu_torch.utils.numerics import assert_finite_losses
     from gcc_tpu_torch.utils.schedule import (Plateau, ema_beta_for_epoch,
                                               lr_for_epoch)
@@ -312,12 +342,27 @@ def _train(cfg, dev, run_dir, logger, preempt) -> int:
         with open(meta_path, "w") as f:
             json.dump(meta, f)
 
-    train_loader, val_loader = create_split_dataset(cfg, seed=cfg.seed)
+    train_loader, val_loader = create_split_dataset(
+        cfg, seed=cfg.seed, device=dev, logger=logger)
     logger.info(f"The number of training images = "
                 f"{len(train_loader.dataset)}")
 
     darts_mode = (cfg.darts_discriminator and engine.distill
                   and not cfg.generator_only)
+    # device-resident loaders: the iteration takes the transform parameters
+    # and materializes its batches on the device (FusedCachedStep)
+    fused = None
+    if isinstance(train_loader, DeviceCacheLoader) and (
+            not darts_mode or isinstance(val_loader, DeviceCacheLoader)):
+        fused = FusedCachedStep(engine, train_loader,
+                                val_loader if darts_mode else None,
+                                swap_ab=cfg.direction == "BtoA")
+        logger.info("device_cache: batches materialize from the device "
+                    "store inside the training iteration")
+    # the memory guard measures the first iteration's step (auto: on a
+    # card; the CPU has no peak statistics)
+    guard_pending = cfg.memory_guard in ("on", "strict") or (
+        cfg.memory_guard == "auto" and dev.type == "cuda")
     total_epochs = cfg.n_epochs + cfg.n_epochs_decay
     total_iters = 0
     # metric-driven LR (torch ReduceLROnPlateau parity; fed the epoch-end
@@ -339,21 +384,48 @@ def _train(cfg, dev, run_dir, logger, preempt) -> int:
         val_loader.set_epoch(epoch)
         # a fresh DARTS val iterator each epoch (train.py:131); it cycles if
         # val is smaller than train
-        val_stream = InfiniteLoader(val_loader)
+        val_stream = (InfiniteParams(val_loader)
+                      if fused is not None and darts_mode
+                      else InfiniteLoader(val_loader))
         lr = plateau.lr if plateau else lr_for_epoch(cfg, epoch)
         ema_beta = ema_beta_for_epoch(cfg, epoch)
         arch_lr = _arch_lr(cfg, epoch, plateau)
+        # generators: closed when the epoch ends, so a loader's threads
+        # stop on an early return too
+        batches = (train_loader.iter_param_batches() if fused is not None
+                   else iter(train_loader))
+        waited, n_iters = 0.0, 0
+        t_wait = time.perf_counter()
         try:
-            for i, data in enumerate(train_loader):
+            for i, data in enumerate(batches):
+                val_data = next(val_stream) if darts_mode else None
+                waited += time.perf_counter() - t_wait
                 iter_start = time.time()
-                batch = set_input(cfg, data, dev)
-                if darts_mode:
-                    val_batch = set_input(cfg, next(val_stream), dev)
-                    state, losses = engine.train_arch_step(
-                        state, batch, val_batch, lr, ema_beta, arch_lr)
+                if fused is not None:
+                    # the device store: ship only the transform parameters
+                    runner, batch = fused, data[0]
+                    val_batch = val_data[0] if darts_mode else None
                 else:
-                    state, losses = engine.train_step(state, batch, lr)
+                    runner, batch = engine, set_input(cfg, data, dev)
+                    val_batch = (set_input(cfg, val_data, dev)
+                                 if darts_mode else None)
+
+                def step(n, runner=runner, batch=batch, val_batch=val_batch):
+                    """This iteration's step on the first n items."""
+                    if darts_mode:
+                        return runner.train_arch_step(
+                            state, _head(batch, n), _head(val_batch, n), lr,
+                            ema_beta, arch_lr)
+                    return runner.train_step(state, _head(batch, n), lr)
+
+                if guard_pending:
+                    guard_pending = False
+                    check_step(step, state, cfg.batch_size, dev,
+                               logger=logger,
+                               strict=cfg.memory_guard == "strict")
+                state, losses = step(cfg.batch_size)
                 total_iters += cfg.batch_size
+                n_iters += 1
 
                 if cfg.check_numerics:
                     try:
@@ -391,8 +463,13 @@ def _train(cfg, dev, run_dir, logger, preempt) -> int:
                         f"(iters {total_iters}); --continue_train restarts "
                         f"epoch {epoch}")
                     return 0
+                t_wait = time.perf_counter()
         finally:
             val_stream.close()
+            batches.close()
+        if n_iters:
+            logger.info(f"data: waited {1e3 * waited / n_iters:.3f} ms an "
+                        f"iteration for its batches ({n_iters} iterations)")
 
         if epoch % cfg.save_epoch_freq == 0:
             # FID / mIoU with the evaluator weights, else the proxy

@@ -139,7 +139,7 @@ class Config:
     center_crop: bool = False
 
     # ---- TPU-native additions (no reference equivalent) ----
-    native_loader: bool = False  # C++ transform engine (gcc_tpu.native)
+    native_loader: bool = False  # C++ transform engine (gcc_tpu_torch.native; raises if g++ cannot build it)
     debug_nans: bool = False  # jax_debug_nans (SURVEY.md §5 sanitizers row)
     check_numerics: bool = False  # post-step finite-check on the named-loss dict; aborts with the offending loss names (cheaper than --debug_nans: no per-primitive re-execution, one host sync per step)
     profile_steps: int = 0  # capture a jax.profiler trace of the first N iters
@@ -153,9 +153,9 @@ class Config:
     pallas_attn_threshold: int = 1024  # min H*W for the fused flash-attention kernel on TPU
     fused_resblock: str = "auto"  # auto|on|off: fused MobileResnet block kernels (auto = off until measured)
     compile_cache: str = "auto"  # persistent XLA compilation cache dir; auto => <checkpoints_dir>/jax_compile_cache; "" disables
-    memory_guard: str = "auto"  # auto|on|strict|off: project the step's HBM peak before the first iteration (utils/memory_guard.py); auto skips CPU, strict aborts on projected OOM
+    memory_guard: str = "auto"  # auto|on|strict|off: measure the first step's peak device memory before the run goes on (utils/memory_guard.py); auto skips CPU, strict aborts when it does not fit
     prefetch: int = 2  # host->device pipeline depth
-    device_cache: str = "auto"  # auto|on|off: keep packed datasets resident in device HBM (data/device_cache.py); auto caches stores <= 25% of HBM on non-CPU backends
+    device_cache: str = "auto"  # auto|on|off: keep packed datasets resident in device memory (data/device_cache.py); auto caches stores <= 25% of the card's memory, on a card
     eval_batch: int = 1  # generator batch for epoch-end eval; 1 = reference bs=1 protocol (metric/test_metric.py:16-21). >1 batches the eval forwards (same outputs: eval mode has no dropout and uses running BN stats; order/cap preserved) — big win on dispatch-latency-bound hosts. SRGAN's variable-shape test sets always run per-image.
     pack_output: str = ""  # cli.prepare output dir ("" => <dataroot>_packed)
     vgg_path: Optional[str] = None  # torch VGG19 state_dict for SRGAN perceptual loss

@@ -73,7 +73,12 @@ class Loader:
         # batch saturates all workers instead of building serially on one
         # thread. `prefetch` batches of item-futures stay in flight to overlap
         # the next batch's host work with device compute; batch order kept.
+        #
+        # Datasets with get_batch (PackedDataset) take a whole-batch path
+        # instead: one pool task per batch, since there is no decode to
+        # spread, only mmap slicing, and per-item futures would dominate it.
         batches = self._index_batches()
+        whole_batch = hasattr(self.dataset, "get_batch")
         with futures.ThreadPoolExecutor(self.num_threads) as pool:
             pending = []
             it = iter(batches)
@@ -83,8 +88,12 @@ class Loader:
                     b = next(it)
                 except StopIteration:
                     return False
-                pending.append([pool.submit(self.dataset.__getitem__, int(i))
-                                for i in b])
+                if whole_batch:
+                    pending.append(pool.submit(self.dataset.get_batch, b))
+                else:
+                    pending.append(
+                        [pool.submit(self.dataset.__getitem__, int(i))
+                         for i in b])
                 return True
 
             for _ in range(self.prefetch):
@@ -93,7 +102,10 @@ class Loader:
             while pending:
                 futs = pending.pop(0)
                 submit_next()
-                yield collate([f.result() for f in futs])
+                if whole_batch:
+                    yield futs.result()
+                else:
+                    yield collate([f.result() for f in futs])
 
 
 class InfiniteLoader:

@@ -14,6 +14,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from gcc_tpu_torch import native
 from gcc_tpu_torch.data.resample import BICUBIC, resize
 
 
@@ -75,7 +76,23 @@ def apply_transform(cfg, img: np.ndarray, params: Optional[Dict] = None,
                     method=BICUBIC) -> np.ndarray:
     """get_transform(opt, params) applied to one RGB image
     (base_dataset.py:81-112). params=None draws crop/flip from rng (the
-    reference's RandomCrop / RandomHorizontalFlip path)."""
+    reference's RandomCrop / RandomHorizontalFlip path).
+
+    With cfg.native_loader the resize->crop->flip->normalize chain of an
+    RGB image under resize_and_crop runs in the C++ engine
+    (gcc_tpu_torch.native; within one uint8 level of PIL), with the same
+    draws."""
+    if (cfg.native_loader and img.ndim == 3 and img.shape[2] == 3
+            and cfg.preprocess == "resize_and_crop"):
+        if params is None:
+            x = rng.randint(0, max(0, cfg.load_size - cfg.crop_size) + 1)
+            y = rng.randint(0, max(0, cfg.load_size - cfg.crop_size) + 1)
+            flip = (not cfg.no_flip) and rng.rand() > 0.5
+        else:
+            x, y = params["crop_pos"]
+            flip = (not cfg.no_flip) and params["flip"]
+        return native.transform_batch([img], cfg.load_size, cfg.crop_size,
+                                      [(x, y)], [flip], num_threads=1)[0]
     if "resize" in cfg.preprocess:
         img = resize(img, (cfg.load_size, cfg.load_size), method)
     elif "scale_width" in cfg.preprocess:

@@ -21,13 +21,15 @@ PSNR.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from typing import Dict, Optional
 
 import numpy as np
 
 from gcc_tpu_torch.data import (
-    build_dataset, create_dataset, to_device, to_host,
+    PACK_META, build_dataset, create_dataset, is_packed_root, to_device,
+    to_host,
 )
 from gcc_tpu_torch.data.datasets import SyntheticDataset
 from gcc_tpu_torch.data.resample import BILINEAR, resize
@@ -167,9 +169,16 @@ SR_TEST_SETS = ("Set5", "Set14", "B100", "Urban100")
 
 def _eval_srgan(cfg, engine, state, logger) -> Dict[str, float]:
     """PSNR and SSIM on Y per test set, one image at a time
-    (gcc_tpu/eval/orchestrators.py:157-192)."""
-    available = [t for t in SR_TEST_SETS if cfg.dataroot
-                 and os.path.isdir(os.path.join(cfg.dataroot, t))] or ["val"]
+    (gcc_tpu/eval/orchestrators.py:157-192); a packed root names its sets
+    as phases."""
+    if is_packed_root(cfg.dataroot):
+        with open(os.path.join(cfg.dataroot, PACK_META)) as f:
+            packed = json.load(f).get("phases", {})
+        available = [t for t in SR_TEST_SETS if t in packed]
+    else:
+        available = [t for t in SR_TEST_SETS if cfg.dataroot and os.path.isdir(
+            os.path.join(cfg.dataroot, t))]
+    available = available or ["val"]
     results: Dict[str, float] = {}
     for name in available:
         if cfg.dataset_mode == "synthetic":

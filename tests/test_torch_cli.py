@@ -21,7 +21,9 @@ the CPU (``--gpu_ids -1``), against the JAX package's.
 * SIGTERM after the first iteration's log line: exit 0 with
   ``preempted_in_epoch`` in the meta, then ``--continue_train`` restarts it.
 * ``--check_numerics`` names a non-finite loss; without ``--gpu_ids -1``
-  the CLIs need a card; XLA-only features raise.
+  the CLIs need a card; meshes and spatial shards raise; ``--memory_guard
+  strict`` is skipped on the CPU; ``--device_cache on`` raises on a packed
+  store it cannot cache, and a packed root without the phase raises.
 * ``--inception_path`` naming a file: cli.get_real_stat, then the real
   FID branch at the epoch end and in the test CLI, the same value twice.
 """
@@ -465,15 +467,39 @@ def test_refusals(tmp_path):
                 ttrain.main(f"{args} --name card".split())
     for flag, match in (("--gpu_ids 0,1", "Queue A item 7"),
                         ("--mesh_shape 2,1", "mesh_shape"),
-                        ("--spatial_shards 2", "spatial_shards"),
-                        ("--memory_guard strict", "memory_guard"),
-                        ("--device_cache on", "device_cache")):
+                        ("--spatial_shards 2", "spatial_shards")):
         with pytest.raises(NotImplementedError, match=match):
             ttrain.main(f"{base} {flag} --name r".split())
+    # --memory_guard strict runs: measured on a card, skipped on the CPU
+    assert _train(f"{UNET} --n_epochs 1 --memory_guard strict --name g",
+                  tmp_path) == 0
+    assert ("memory guard: no device memory statistics on the CPU; "
+            "skipped") in _log(tmp_path, "g")
+    # --device_cache on raises on a packed store it cannot cache (items of
+    # two shapes)
+    from PIL import Image
+
+    from gcc_tpu_torch.config import Config
+    from gcc_tpu_torch.data.packed import pack_dataset
+    src = tmp_path / "src" / "train"
+    src.mkdir(parents=True)
+    for i, (w, h) in enumerate([(64, 40), (64, 48)]):
+        Image.fromarray(np.zeros((h, w, 3), np.uint8)).save(
+            src / f"{i}.png")
+    flags = ("--dataset_mode aligned --preprocess scale_width_and_crop "
+             "--n_epochs 1 --device_cache on")
+    root = pack_dataset(Config(dataroot=str(tmp_path / "src"),
+                               dataset_mode="aligned", load_size=32,
+                               crop_size=32,
+                               preprocess="scale_width_and_crop"),
+                        num_threads=1)
+    with pytest.raises(ValueError, match="not device-cacheable"):
+        _train(f"{UNET} --dataroot {root} {flags} --name c", tmp_path)
+    # a packed root whose metadata holds no phase
     packed = tmp_path / "packed"
     packed.mkdir()
     (packed / "gcc_pack.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="packed root"):
+    with pytest.raises(FileNotFoundError, match="has no phase"):
         _train(f"{UNET} --dataroot {packed} --dataset_mode aligned "
                f"--n_epochs 1 --name p", tmp_path)
 
