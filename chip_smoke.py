@@ -175,12 +175,33 @@ Phases, each of which exits non-zero on failure:
               512; (e) the native engine (g++): its items within one uint8
               level of the numpy path's, images/s of each through the
               Loader's 8 threads over one batch of 128 pairs.
-The run is fp32 throughout: TF32 is off for cuDNN and matmul, except in
-phase 15 (g). The last six lines are phase 11's JSON record of its stages,
-phase 15's, phase 16's, the card's name and power limit, the kernels' JSON
-record and {"ok": true, "device": ...}. A kernel's "launches" is the main
-path's count (phase 4 for B2, phase 7 for B1); "launches_by_path" adds
-phase 12's for B2 and phase 16 (c)'s cached runs.
+ 17. bf16     the JAX package's default --compute_dtype bfloat16: (a) the
+              three bf16 stage kernels (B2-fwd, -bwd-pw, -bwd-dw in bf16)
+              against their bf16 plain versions at the teacher stage (B 4,
+              C = M = 256, 64x64) and CycleGAN's batch-1 teacher stage, each
+              with relu and with a residual: bf16 outputs within 2 bf16 ulps
+              of their largest value and at most 1 % of elements apart,
+              fp32 weight gradients within 1e-3 of their largest value,
+              two calls the same bits; CUDA-event times of the kernel, the
+              plain version and cuDNN's bf16 route, bounds at 3.35 TB/s and
+              989 TFLOP/s, the device time by launch; (b) phase 9's U-Net
+              iteration on bf16 batches (no B1 or B2 launch); (c) phase 4's
+              pix2pix resnet fused iteration on bf16 batches, B2 108/36/36
+              bf16 launches an iteration, generate in fp32 (18 fp32 stage
+              forwards); (d) tests/test_torch_bf16.py's two configurations
+              at learning rate 0, one iteration on the card in bf16 against
+              the CPU in bf16 and the CPU in fp32: rms(card - CPU bf16) /
+              rms(CPU bf16 - CPU fp32) of the losses, the gradients (Adam's
+              first moments) and the running statistics at most 1/4; (e)
+              one cli.train epoch of the U-Net with default flags, which
+              logs that it computes in bfloat16.
+Phases 1-16 run fp32 (phases 11 and 16 pass --compute_dtype float32): TF32
+is off for cuDNN and matmul, except in phase 15 (g). The last seven lines
+are phase 11's JSON record of its stages, phase 15's, phase 16's, phase
+17's, the card's name and power limit, the kernels' JSON record and
+{"ok": true, "device": ...}. A kernel's "launches" is the main path's count
+(phase 4 for B2, phase 7 for B1, phase 17 (c) for B2's bf16 entry points);
+"launches_by_path" adds phase 12's for B2 and phase 16 (c)'s cached runs.
 """
 
 import ast
@@ -202,10 +223,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # fp32 outside the tensor cores, H100 SXM at 700 W
 # split-TF32: three TF32 tensor-core products (495 TFLOP/s dense) per product
 TF32X3_FLOPS = 495e12 / 3
+BF16_FLOPS = 989e12  # bf16 tensor cores, dense, fp32 accumulation
 PER_ITER = {"stage_fwd": 108, "stage_bwd_pw": 36, "stage_bwd_dw": 36}
 TPU_KERNEL = {"stage_fwd": "gcc_tpu/ops/pallas/mobile_block.py:155",
               "stage_bwd_pw": "gcc_tpu/ops/pallas/mobile_block.py:187",
               "stage_bwd_dw": "gcc_tpu/ops/pallas/mobile_block.py:220",
+              "stage_fwd_bf16": "gcc_tpu/ops/pallas/mobile_block.py:155",
+              "stage_bwd_pw_bf16": "gcc_tpu/ops/pallas/mobile_block.py:187",
+              "stage_bwd_dw_bf16": "gcc_tpu/ops/pallas/mobile_block.py:220",
               "attn_fwd": "gcc_tpu/ops/pallas/attention.py:44",
               "attn_bwd": "gcc_tpu/ops/pallas/attention.py:81, "
                           "gcc_tpu/ops/pallas/attention.py:110"}
@@ -289,11 +314,13 @@ def bound_ms(nbytes, *work):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def stage_bounds(B, C, M, HW, relu, res):
+def stage_bounds(B, C, M, HW, relu, res, act=4, mma=TF32X3_FLOPS):
     """Least time for each wrapper's work at one shape: its inputs read once,
-    outputs written once (fp32); its flops at the peak of the units they run
-    on: the pointwise products (forward b, backward d a-hat and dW) on the
-    tensor cores in split-TF32, everything else on the fp32 CUDA cores. The
+    outputs written once (activations of act bytes: 4 in fp32, 2 in bf16;
+    weights and their gradients fp32); its flops at the peak of the units
+    they run on: the pointwise products (forward b, backward d a-hat and dW)
+    on the tensor cores at mma (split-TF32 in fp32, bf16 in bf16),
+    everything else on the fp32 CUDA cores. The
     bytes are those of the TPU kernel's function (forward: x in, y out;
     backward: x and the upstream gradient in, the gradients out): what the
     port also saves in the forward and reads back in the backward is not the
@@ -302,34 +329,33 @@ def stage_bounds(B, C, M, HW, relu, res):
     every flop on the fp32 cores."""
     act_c, act_m = B * C * HW, B * M * HW
     # inputs x, dwk, pwk, residual; output y
-    fwd_bytes = 4 * (act_c + 9 * C + M * C + (act_m if res else 0) + act_m)
-    saved_bytes = 4 * (act_c + act_m + B * C + B * M)
+    fwd_bytes = (act * (act_c + (act_m if res else 0) + act_m)
+                 + 4 * (9 * C + M * C))
+    saved_bytes = act * (act_c + act_m) + 4 * (B * C + B * M)
     gemm = 2 * act_m * C
     rest = 18 * act_c + 5 * (act_c + act_m) + (act_m if relu or res else 0)
     # backward, pointwise side: inputs x, dwk, pwk, g; outputs d a-hat, d pwk;
     # the port reads g, a-hat, b-hat, 1/std of b and pwk
-    pw_bytes = 4 * (act_c + 9 * C + M * C + act_m + act_c + M * C)
-    pw_saved = 4 * (2 * act_m + B * M + M * C + 2 * act_c + M * C)
+    pw_bytes = act * (act_c + act_m + act_c) + 4 * (9 * C + 2 * M * C)
+    pw_saved = act * (2 * act_m + 2 * act_c) + 4 * (B * M + 2 * M * C)
     pw_prod, pw_rest = 4 * act_m * C, 6 * act_m
     # backward, depthwise side: inputs x, dwk, d a-hat; outputs dx, d dwk;
     # the port also reads a-hat and 1/std of a
-    dw_bytes = 4 * (3 * act_c + 18 * C)
+    dw_bytes = act * 3 * act_c + 4 * 18 * C
     dw_work = (42 * act_c, FP32_FLOPS)
-    return {"stage_fwd": bound_ms(fwd_bytes, (gemm, TF32X3_FLOPS),
-                                  (rest, FP32_FLOPS)),
-            "stage_fwd_saved": bound_ms(fwd_bytes + saved_bytes,
-                                        (gemm, TF32X3_FLOPS),
+    return {"stage_fwd": bound_ms(fwd_bytes, (gemm, mma), (rest, FP32_FLOPS)),
+            "stage_fwd_saved": bound_ms(fwd_bytes + saved_bytes, (gemm, mma),
                                         (rest, FP32_FLOPS)),
             "stage_fwd_fp32": bound_ms(fwd_bytes, (gemm + rest, FP32_FLOPS)),
-            "stage_bwd_pw": bound_ms(pw_bytes, (pw_prod, TF32X3_FLOPS),
+            "stage_bwd_pw": bound_ms(pw_bytes, (pw_prod, mma),
                                      (pw_rest, FP32_FLOPS)),
-            "stage_bwd_pw_saved": bound_ms(pw_saved, (pw_prod, TF32X3_FLOPS),
+            "stage_bwd_pw_saved": bound_ms(pw_saved, (pw_prod, mma),
                                            (pw_rest, FP32_FLOPS)),
             "stage_bwd_pw_fp32": bound_ms(pw_bytes,
                                           (pw_prod + pw_rest, FP32_FLOPS)),
             "stage_bwd_dw": bound_ms(dw_bytes, dw_work),
-            "stage_bwd_dw_saved": bound_ms(dw_bytes + 4 * (act_c + B * C),
-                                           dw_work)}
+            "stage_bwd_dw_saved": bound_ms(
+                dw_bytes + act * act_c + 4 * B * C, dw_work)}
 
 
 def short_name(kernel):
@@ -571,7 +597,7 @@ def make_batches(torch, np, n, batch, size, seed, device):
 
 
 def drive(torch, engine, cfg, batches, gen_in, counters, per_iter, gen_calls,
-          name, generate=None, out_size=None):
+          name, generate=None, out_size=None, record=None):
     """Run the engine's iteration (train_step + arch_step) once per pair of
     batches, the first pair as warm-up, then one generate on gen_in (or the
     outputs of generate(state)), with the kernels' launch counters set to 0
@@ -579,7 +605,8 @@ def drive(torch, engine, cfg, batches, gen_in, counters, per_iter, gen_calls,
     per-iteration launches other than per_iter, on totals other than the
     iterations' plus gen_calls, and on a generated image that is not finite
     or not of gen_in's batch and out_size (crop_size). Returns the
-    launches."""
+    launches; ``record``, when given, takes the iteration's ms, images/s,
+    peak memory and the profile's shares."""
     n, batch = len(batches) // 2, gen_in.shape[0]
     state, times = engine.init_state(seed=0), []
     torch.cuda.synchronize()
@@ -599,8 +626,8 @@ def drive(torch, engine, cfg, batches, gen_in, counters, per_iter, gen_calls,
         losses = {k: float(v) for k, v in m.items()}
         if not all(math.isfinite(v) for v in losses.values()):
             fail(f"iteration {i}: non-finite loss {losses}")
-        grown = {k: counters[k] - before[k] for k in per_iter}
-        if grown != per_iter:
+        grown = {k: counters[k] - before[k] for k in counters}
+        if grown != {k: per_iter.get(k, 0) for k in counters}:
             fail(f"iteration {i}: kernel calls {grown}, expected {per_iter}")
         print(f"  iter {i}{' (warm-up)' if i == 0 else ''}: {dt * 1e3:.3f} ms "
               f"launches {grown} "
@@ -613,7 +640,8 @@ def drive(torch, engine, cfg, batches, gen_in, counters, per_iter, gen_calls,
         if tuple(out.shape) != (batch, 3, size, size) \
                 or not bool(torch.isfinite(out).all()):
             fail(f"generate: shape {tuple(out.shape)} or non-finite values")
-    expected = {k: n * v + gen_calls.get(k, 0) for k, v in per_iter.items()}
+    expected = {k: n * per_iter.get(k, 0) + gen_calls.get(k, 0)
+                for k in counters}
     if launches != expected:
         fail(f"kernel calls {launches}, expected {expected}")
     ms = 1e3 * sum(times) / len(times)
@@ -622,11 +650,16 @@ def drive(torch, engine, cfg, batches, gen_in, counters, per_iter, gen_calls,
           f"(mean of {len(times)}), peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
           f"launches {launches}")
-    profile_iteration(torch, engine, state, batches[0], batches[1], cfg)
+    shares = profile_iteration(torch, engine, state, batches[0], batches[1],
+                               cfg)
+    if record is not None:
+        record.update({"ms_per_iter": ms, "images_per_s": batch / (ms / 1e3),
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       **shares})
     return launches
 
 
-def phase_main(torch, np):
+def phase_main(torch, np, record=None):
     from gcc_tpu_torch.config import Config
     from gcc_tpu_torch.engines.pix2pix import Pix2PixEngine
     from gcc_tpu_torch.ops import mobile_block as mb
@@ -641,11 +674,12 @@ def phase_main(torch, np):
                            engine.device)
     # the student's 9 blocks make 18 stage forwards in generate
     return drive(torch, engine, cfg, batches, batches[0]["A"], mb.LAUNCHES,
-                 PER_ITER, {"stage_fwd": 18}, "main path")
+                 PER_ITER, {"stage_fwd": 18}, "main path", record=record)
 
 
 STAGE_KERNELS = ("dw_in_fwd_kernel", "pw_gemm_kernel", "in_fwd_kernel",
-                 "in_bwd_kernel", "dw_bwd_plane_kernel", "sum_partials_kernel")
+                 "in_bwd_kernel", "dw_bwd_plane_kernel", "sum_partials_kernel",
+                 "pw_gemm_bf16_kernel", "to_bf16_kernel")
 ATTN_KERNELS = ("attn_fwd_kernel", "attn_bwd_kernel", "attn_dq_reduce_kernel")
 CONV_MARKS = ("conv", "cudnn", "xmma", "cutlass", "implicit", "wgrad", "dgrad")
 
@@ -672,13 +706,14 @@ def profile_iteration(torch, engine, state, batch, val_batch, cfg):
     """One more iteration under torch.profiler: device time by kernel group,
     by B1 and B2 kernel, and the device's busy share of the iteration's wall
     time (the profiler's own overhead lengthens the wall time, so the busy
-    share is a floor)."""
+    share is a floor). Returns the busy share and each group's share of
+    device time (empty when the profiler saw no device time)."""
     kernels, wall_us = device_kernels(torch, lambda: engine.train_arch_step(
         state, batch, val_batch, cfg.lr, cfg.ema_beta))
     total = sum(t for _, t, _ in kernels)
     if total == 0:
         print("  profile: the profiler saw no device time")
-        return
+        return {}
     groups = {"stage kernels (B2)": 0.0, "B1 attention kernels": 0.0,
               "convolutions (cuDNN)": 0.0, "other": 0.0}
     ours = []  # (name, us, calls) of every B1 and B2 kernel
@@ -702,6 +737,8 @@ def profile_iteration(torch, engine, state, batch, val_batch, cfg):
         print(f"      {t / 1e3:9.3f} ms {n:5d}x  {short_name(name)}")
     for name, t, n in sorted(kernels, key=lambda k: -k[1])[:12]:
         print(f"    {t / 1e3:9.3f} ms {n:5d}x  {name[:100]}")
+    return {"device_ms": total / 1e3, "busy": total / wall_us,
+            **{f"share {g}": t / total for g, t in groups.items()}}
 
 
 def phase_agree(torch, np):
@@ -1009,7 +1046,7 @@ def unet_engine(torch, np, batch):
     return Pix2PixEngine(cfg, filter_cfgs=fc, channel_cfgs=cc), cfg
 
 
-def phase_unet(torch, np):
+def phase_unet(torch, np, record=None):
     from gcc_tpu_torch.ops import flash_attention as fa
     from gcc_tpu_torch.ops import mobile_block as mb
 
@@ -1023,7 +1060,7 @@ def phase_unet(torch, np):
     for k in fa.LAUNCHES:
         fa.LAUNCHES[k] = 0
     drive(torch, engine, cfg, batches, batches[0]["A"], mb.LAUNCHES,
-          {k: 0 for k in mb.LAUNCHES}, {}, "unet path")
+          {k: 0 for k in mb.LAUNCHES}, {}, "unet path", record=record)
     if any(fa.LAUNCHES.values()):
         fail(f"unet path launched B1: {fa.LAUNCHES}")
 
@@ -1136,7 +1173,7 @@ class LogLines:
 CLI_LOG = ("pruned ", "[proxy]", "metrics: ", "resumed ", "val: ",
            "FID: ", "mIoU: ", "AtoB FID: ", "BtoA FID: ",
            "loaded ", "SRGAN perceptual", "data: ", "memory guard",
-           "device_cache")
+           "device_cache", "port: ")
 
 
 def run_cli(torch, stage, argv, counters, records, test=False):
@@ -1247,10 +1284,13 @@ def phase_cli(torch, np):
     print("== phase 11: the training run through python -m "
           "gcc_tpu_torch.cli.{train,test} on the card, synthetic data")
     with tempfile.TemporaryDirectory() as tmp:
+        # fp32, as this phase has always run: phase 17 (e) runs the
+        # default bf16
         common = (f"--dataroot synthetic --dataset_mode synthetic "
                   f"--model pix2pix --max_dataset_size 8 --batch_size 4 "
                   f"--n_epochs 1 --n_epochs_decay 0 --print_freq 4 "
-                  f"--num_threads 4 --checkpoints_dir {tmp}").split()
+                  f"--num_threads 4 --compute_dtype float32 "
+                  f"--checkpoints_dir {tmp}").split()
         # (a) U-Net, scripts/pix2pix/*.sh at 256 px
         s1 = common + "--lambda_scale 1e-2 --ngf 32 --ndf 128 --name u1".split()
         run_cli(torch, "unet stage 1", s1, counters, records)
@@ -1558,7 +1598,7 @@ def cli_evaluators(torch, np, tmp, counters, records):
     write_aligned_root(np, root, {"train": 8, "val": 8})
     flags = (f"--dataroot {root} --dataset_mode aligned --model pix2pix "
              f"--inception_path {tmp}/inception.npz --num_threads 4 "
-             f"--checkpoints_dir {tmp}").split()
+             f"--compute_dtype float32 --checkpoints_dir {tmp}").split()
     t0 = time.perf_counter()
     if get_real_stat.main(flags + ["--batch_size", "4"]) != 0:
         fail("get_real_stat")
@@ -2536,8 +2576,8 @@ def phase_pipeline(torch, np, smi):
                f"50 --lambda_gram 1e4 --batch_size 4 --max_dataset_size "
                f"{4 * PIPE_ITERS} --n_epochs 1 --n_epochs_decay 0 "
                f"--save_epoch_freq 1 --print_freq {4 * PIPE_ITERS} "
-               f"--num_threads 4 --memory_guard strict --checkpoints_dir "
-               f"{tmp}").split()
+               f"--num_threads 4 --memory_guard strict --compute_dtype "
+               f"float32 --checkpoints_dir {tmp}").split()
         faces = os.path.join(tmp, "celeb")
         write_images(np, f"{faces}/train", 64 * PIPE_ITERS, *SAGAN_FACE, 3)
         write_images(np, f"{faces}/val", 32, *SAGAN_FACE, 4)
@@ -2577,6 +2617,417 @@ def phase_pipeline(torch, np, smi):
     return rec, by_path
 
 
+# phase 17: the bf16 compute path (--compute_dtype bfloat16, the default).
+# B2's bf16 kernels at the main path's teacher and student stages, with relu
+# and with a residual, and at CycleGAN's batch-1 teacher stage, which is off
+# the bf16 path until CycleGAN computes in bf16 (ROADMAP Queue A item 4)
+BF16_CASES = [("teacher_relu", 4, 256, 256, 64, True, False),
+              ("teacher_res", 4, 256, 256, 64, False, True),
+              ("student_relu", 4, 112, 72, 64, True, False),
+              ("student_res", 4, 72, 112, 64, False, True),
+              ("cg_teacher_relu", 1, 256, 256, 64, True, False),
+              ("cg_teacher_res", 1, 256, 256, 64, False, True)]
+PER_ITER_BF16 = {"stage_fwd_bf16": 108, "stage_bwd_pw_bf16": 36,
+                 "stage_bwd_dw_bf16": 36}
+# tests/test_torch_bf16.py's configurations for (d)
+BF16_AGREE = {
+    "unet": (dict(backbone="unet", num_downs=5, fused_resblock="auto"),
+             [3, 6, 12, 20, 24, 20, 12, 6, 5]),
+    "resnet_fused": (dict(backbone="resnet", fused_resblock="on"),
+                     [3, 6, 12, 5, 12] + [0, 0] * 7 + [3, 12, 6, 3])}
+# (d)'s losses, by the update that computes them
+LOSS_GROUPS = {"D": ("D_fake", "D_real"),
+               "G": ("G_GAN", "G_L1", "content", "gram"),
+               "arch": ("D_arch", "D_arch_diff", "teacher_D_arch_diff")}
+# (d)'s bounds of the composed iteration, 1/4 unless named (measured on the
+# card, PR 11). The named results read a resnet teacher forward in which the
+# card's and the CPU's fp32 convolution sums first round to different bf16
+# neighbours (_first_difference), which every later layer spreads; a bound
+# is set from the measurement up to 1/2, and None leaves a result above
+# that without one in the composed iteration: its discriminator work is
+# held to 1/4 on the CPU's own generator outputs instead (_disc_work), the
+# teacher forward by _first_difference
+AGREE_BOUNDS = {("resnet_fused", "grad td"): 0.35,  # measured 0.245
+                ("resnet_fused", "stats td"): 0.4,  # measured 0.296
+                ("resnet_fused", "grad tg"): None,  # measured 0.463
+                ("resnet_fused", "loss arch"): None}  # measured 5.27
+
+
+def check_bf16(torch, name, got, ref, rec):
+    from gcc_tpu_torch.ops import mobile_block as mb
+
+    ulps, err, share = mb.bf16_err(got, ref)
+    print(f"    {name:<14} {ulps:.3f} bf16 ulps of max|ref| (max|d| "
+          f"{err:.3e}), {share:.2e} of elements differ; tol {mb.BF16_ULPS} "
+          f"ulps, {mb.BF16_SHARE}")
+    if got.dtype != torch.bfloat16 or not (ulps <= mb.BF16_ULPS
+                                           and share <= mb.BF16_SHARE):
+        fail(f"bf16 {name}: {got.dtype}, {ulps} ulps, share {share}")
+    rec["max_ulps"] = max(rec["max_ulps"], ulps)
+    rec["max_share"] = max(rec["max_share"], share)
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+
+
+def check_dw(torch, name, got, ref, rec):
+    from gcc_tpu_torch.ops import mobile_block as mb
+
+    rel = max_err(got, ref) / float(ref.abs().max())
+    print(f"    {name:<14} max|d| {rel:.3e} of max|ref| (tol {mb.BF16_DW})")
+    if got.dtype != torch.float32 or not rel <= mb.BF16_DW:
+        fail(f"bf16 {name}: {got.dtype}, relative error {rel}")
+    rec["max_rel_dw"] = max(rec["max_rel_dw"], rel)
+    rec["max_abs_err"] = max(rec["max_abs_err"], max_err(got, ref))
+
+
+def bf16_kernels(torch, F):
+    """(a) The three bf16 entry points against their bf16 plain versions,
+    each on the plain version's inputs; two calls repeat the bits; times
+    of the kernel, the plain version and cuDNN's bf16 route, bounds at
+    3.35 TB/s and 989 TFLOP/s (bf16) / 67 (fp32 CUDA cores)."""
+    from gcc_tpu_torch.ops import mobile_block as mb
+
+    bf = torch.bfloat16
+    record = {k: {"max_abs_err": 0.0, "max_ulps": 0.0, "max_share": 0.0,
+                  "max_rel_dw": 0.0} for k in PER_ITER_BF16}
+    gen = torch.Generator().manual_seed(0)
+    for case, B, C, M, S, relu, has_res in BF16_CASES:
+        print(f"  (a) {case}: B={B} C={C} M={M} {S}x{S} relu={relu} "
+              f"res={has_res}, bf16")
+
+        def rnd(*shape, scale=1.0, dtype=torch.float32):
+            return (torch.randn(*shape, generator=gen) * scale).to(
+                "cuda", dtype)
+
+        x, dwk = rnd(B, C, S, S, dtype=bf), rnd(C, 1, 3, 3, scale=0.2)
+        pwk = rnd(M, C, 1, 1, scale=0.2)
+        res = rnd(B, M, S, S, dtype=bf) if has_res else None
+        g = rnd(B, M, S, S, dtype=bf)
+        out_k = mb.stage_fwd(x, dwk, pwk, res, relu)
+        out_p = [t.contiguous()
+                 for t in mb.stage_fwd_plain(x, dwk, pwk, res, relu)]
+        rec = record["stage_fwd_bf16"]
+        for n, a, b in zip(("fwd y", "fwd a-hat", "fwd b-hat"), out_k[:3],
+                           out_p[:3]):
+            check_bf16(torch, n, a, b, rec)
+        for n, a, b in zip(("fwd 1/std a", "fwd 1/std b"), out_k[3:],
+                           out_p[3:]):
+            check_close(n, a, b, 1e-4 * max(float(b.abs().max()), 1.0))
+        _, ahat, bhat, rstd_a, rstd_b = out_p
+        pw_k = mb.stage_bwd_pw(g, ahat, bhat, rstd_b, pwk, relu)
+        pw_p = mb.stage_bwd_pw_plain(g, ahat, bhat, rstd_b, pwk, relu)
+        rec = record["stage_bwd_pw_bf16"]
+        check_bf16(torch, "bwd_pw d a-hat", pw_k[0], pw_p[0], rec)
+        check_dw(torch, "bwd_pw dW_pw", pw_k[1], pw_p[1], rec)
+        gah = pw_p[0].contiguous()
+        dw_k = mb.stage_bwd_dw(gah, ahat, rstd_a, x, dwk)
+        dw_p = mb.stage_bwd_dw_plain(gah, ahat, rstd_a, x, dwk)
+        rec = record["stage_bwd_dw_bf16"]
+        check_bf16(torch, "bwd_dw dx", dw_k[0], dw_p[0], rec)
+        check_dw(torch, "bwd_dw dW_dw", dw_k[1], dw_p[1], rec)
+        for name, first, again in (
+                ("stage_fwd", out_k, mb.stage_fwd(x, dwk, pwk, res, relu)),
+                ("stage_bwd_pw", pw_k,
+                 mb.stage_bwd_pw(g, ahat, bhat, rstd_b, pwk, relu)),
+                ("stage_bwd_dw", dw_k,
+                 mb.stage_bwd_dw(gah, ahat, rstd_a, x, dwk))):
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                fail(f"{case}: two bf16 {name} calls differ")
+        if has_res:
+            continue
+        bounds = stage_bounds(B, C, M, S * S, relu, has_res, act=2,
+                              mma=BF16_FLOPS)
+        dwk_b, pwk_b = dwk.to(bf), pwk.to(bf)
+
+        def lib_fwd():  # cuDNN's bf16 route of the same function
+            a = F.conv2d(F.pad(x, (1, 1, 1, 1), mode="reflect"), dwk_b,
+                         groups=C)
+            y = F.instance_norm(F.conv2d(F.instance_norm(a), pwk_b))
+            return torch.relu(y) if relu else y
+
+        timings = {
+            "stage_fwd_bf16": (
+                lambda: mb.stage_fwd(x, dwk, pwk, res, relu),
+                lambda: mb.stage_fwd_plain(x, dwk, pwk, res, relu), lib_fwd),
+            "stage_bwd_pw_bf16": (
+                lambda: mb.stage_bwd_pw(g, ahat, bhat, rstd_b, pwk, relu),
+                lambda: mb.stage_bwd_pw_plain(g, ahat, bhat, rstd_b, pwk,
+                                              relu), None),
+            "stage_bwd_dw_bf16": (
+                lambda: mb.stage_bwd_dw(gah, ahat, rstd_a, x, dwk),
+                lambda: mb.stage_bwd_dw_plain(gah, ahat, rstd_a, x, dwk),
+                None)}
+        for k, (kern, plain, lib) in timings.items():
+            t = {"ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain),
+                 "library_ms": cuda_ms(torch, lib) if lib else None}
+            t["bound_ms"], t["bound_by"] = bounds[k.replace("_bf16", "")]
+            print(f"    {k:<18} kernel {t['ms']:.4f} ms  plain "
+                  f"{t['plain_ms']:.4f} ms  library {t['library_ms']} ms  "
+                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+                  f"{t['bound_ms'] / t['ms']:.3f} of it")
+            if case == "teacher_relu":
+                record[k].update(t)
+        for k in timings:
+            split = launch_split(torch, timings[k][0])
+            print(f"    one {k} by launch (profiler): " + ", ".join(
+                f"{name} {ms:.4f} ms" for name, ms in
+                sorted(split.items(), key=lambda kv: -kv[1])))
+    return record
+
+
+def _bf16_batches(torch, batches):
+    return [{k: v.to(torch.bfloat16) for k, v in b.items()} for b in batches]
+
+
+def _ratio(card, cpu, ref):
+    """rms(card - cpu) / rms(cpu - ref) over lists of tensors."""
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(card, cpu))
+    den = sum(float(((a - b) ** 2).sum()) for a, b in zip(cpu, ref))
+    return math.sqrt(num / den) if den else (0.0 if not num else math.inf)
+
+
+def _disc_work(torch, engine, state, batch, val, fakes):
+    """The step's discriminator work that reads a generator's output, on
+    ``fakes`` (teacher fake, val student fake, val teacher fake): the
+    teacher D's update (its gradients and running statistics) and the arch
+    step's three D forwards, as lists of float64 CPU tensors."""
+    from gcc_tpu_torch.engines.common import d_pair, weight_params
+    from gcc_tpu_torch.losses import gan_loss
+
+    A, B, Av, Bv = batch["A"], batch["B"], val["A"], val["B"]
+    tfake, fake_v, tfake_v = fakes
+    TD, D = state.nets["td"], state.nets["d"]
+    pf, pr, _ = d_pair(TD, torch.cat([A, tfake], 1), torch.cat([A, B], 1))
+    loss = (gan_loss(pf, False, engine.gan_mode)
+            + gan_loss(pr, True, engine.gan_mode)) * 0.5
+    grads = torch.autograd.grad(loss, weight_params(TD))
+    stats = [t.clone() for n, t in TD.state_dict().items() if "running" in n]
+    with torch.no_grad():
+        outs = [TD(torch.cat([Av, tfake_v], 1))[0],
+                D(torch.cat([Av, fake_v], 1))[0],
+                D(torch.cat([Av, Bv], 1))[0]]
+    return {k: [t.detach().cpu().double() for t in v] for k, v in
+            (("td gradients", grads), ("td running statistics", stats),
+             ("arch D outputs", outs))}
+
+
+def _first_difference(torch, np, name, device="cuda"):
+    """Where the card's bf16 teacher forward first leaves the CPU's: the
+    configuration's teacher G on (d)'s train and val batch, module by module.
+    The first module whose output differs, if one does, must be a
+    convolution within one bf16 ulp (at the larger magnitude of the two) in
+    at most 1 % of its outputs: the two devices' fp32 sums rounding to
+    different bf16 neighbours; or a fused stage (kernel B2) within (a)'s
+    bounds of the CPU's plain version. Returns {batch: (module, share of
+    its outputs apart, rms(card - CPU) / rms(CPU - CPU fp32) at the
+    teacher's output)}."""
+    from gcc_tpu_torch.config import Config
+    from gcc_tpu_torch.engines.pix2pix import Pix2PixEngine
+    from gcc_tpu_torch.ops import mobile_block as mb
+    from gcc_tpu_torch.ops.layers import Conv, ConvTranspose
+
+    kw, student = BF16_AGREE[name]
+    cfg = main_config(Config, ngf=4, ndf=8, teacher_ngf=8, teacher_ndf=8,
+                      crop_size=32, no_dropout=True, **kw)
+    seen, order = {}, []
+    stage = mb.fused_sep_stage
+
+    def recorded(*a, **k):
+        y = stage(*a, **k)
+        order.append(("fused_sep_stage", None, y))
+        return y
+
+    mb.fused_sep_stage = recorded
+    try:
+        for run, dev, dt in (("cpu", "cpu", torch.bfloat16),
+                             ("ref", "cpu", torch.float32),
+                             ("card", device, torch.bfloat16)):
+            engine = Pix2PixEngine(cfg, filter_cfgs=student, device=dev)
+            tg = engine.init_state(seed=5).nets["tg"]
+            for mname, mod in tg.named_modules():
+                if mname:
+                    mod.register_forward_hook(
+                        lambda m, i, o, n=mname: order.append((n, m, o)))
+            b = make_batches(torch, np, 2, 2, 32, 7, engine.device)
+            for batch, x in (("train", b[0]["A"]), ("val", b[1]["A"])):
+                order.clear()
+                with torch.no_grad():
+                    out = tg(x.to(dt), None, update_stats=False)[0]
+                seen[(run, batch)] = (
+                    out.float().cpu().double(),
+                    [(n, m, o.cpu()) for n, m, o in order
+                     if isinstance(o, torch.Tensor)])
+    finally:
+        mb.fused_sep_stage = stage
+    result = {}
+    for batch in ("train", "val"):
+        (c_out, card), (r_out, cpu), (f_out, _) = (
+            seen[(run, batch)] for run in ("card", "cpu", "ref"))
+        first, share = None, 0.0
+        for (n, m, a), (_, _, b) in zip(card, cpu):
+            if torch.equal(a, b):
+                continue
+            a, b = a.float(), b.float()
+            share = float((a != b).float().mean())
+            if m is None:  # a fused stage: (a)'s bounds
+                ulps = mb.bf16_err(a, b)[0]
+                ok = ulps <= mb.BF16_ULPS and share <= mb.BF16_SHARE
+            else:
+                big = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+                ulps = float(((a - b).abs() / 2.0 ** (
+                    big.log2().floor() - 7)).max())
+                ok = (isinstance(m, (Conv, ConvTranspose)) and ulps <= 1.0
+                      and share <= 0.01)
+            if not ok:
+                fail(f"bf16 {name} {batch}: the teacher first differs at {n} "
+                     f"({type(m).__name__}), {ulps} ulps, share {share}")
+            first = n
+            break
+        result[batch] = (first, share, _ratio([c_out], [r_out], [f_out]))
+    return result
+
+
+def _bf16_agree(torch, np, name, device="cuda"):
+    """(d) One train_step + arch_step at learning rate 0 of
+    tests/test_torch_bf16.py's configuration on the card in bf16, on the CPU
+    in bf16 and on the CPU in fp32, from the same seeded init on the same
+    batches; rms(card - CPU bf16) / rms(CPU bf16 - CPU fp32) for each
+    update's losses, each optimizer's gradients (Adam's first moments) and
+    each net's running statistics. Then the discriminator work that reads a
+    generator's output (_disc_work), on the card and in the CPU bf16 run on
+    that run's generator outputs (the fp32 run on its own): the same ratio.
+    ``device`` stands in for the card in a dry run."""
+    from gcc_tpu_torch.config import Config
+    from gcc_tpu_torch.engines.pix2pix import Pix2PixEngine
+
+    kw, student = BF16_AGREE[name]
+    cfg = main_config(Config, ngf=4, ndf=8, teacher_ngf=8, teacher_ndf=8,
+                      crop_size=32, no_dropout=True, lr=0.0, arch_lr=0.0,
+                      **kw)
+    runs, fakes = {}, {}
+    for run, dev, dt in (("cpu", "cpu", torch.bfloat16),
+                         ("ref", "cpu", torch.float32),
+                         ("card", device, torch.bfloat16)):
+        engine = Pix2PixEngine(cfg, filter_cfgs=student, device=dev)
+        state = engine.init_state(seed=5)  # the same numbers on every device
+        b = make_batches(torch, np, 2, 2, 32, 7, engine.device)
+        b = [{k: v.to(dt) for k, v in x.items()} for x in b]
+        state, m = engine.train_arch_step(state, b[0], b[1], 0.0, 0.9, 0.0)
+        host = lambda ts: [t.detach().cpu().double() for t in ts]  # noqa: E731
+        out = {f"loss {g}": host(m[k] for k in keys)
+               for g, keys in LOSS_GROUPS.items()}
+        out.update({f"grad {k}": host(o.mu) for k, o in state.opts.items()})
+        for n, net in state.nets.items():
+            stats = [t for k, t in net.state_dict().items() if "running" in k]
+            if stats:
+                out[f"stats {n}"] = host(stats)
+        state = engine.init_state(seed=5)
+        if run != "card":
+            nets = state.nets
+            with torch.no_grad():
+                fakes[run] = (
+                    nets["tg"](b[0]["A"], None, update_stats=False)[0],
+                    nets["g"](b[1]["A"])[0], nets["tg"](b[1]["A"])[0])
+        own = fakes["ref" if run == "ref" else "cpu"]
+        work = _disc_work(torch, engine, state, b[0], b[1],
+                          [t.to(engine.device) for t in own])
+        out.update({f"on CPU fakes: {k}": v for k, v in work.items()})
+        runs[run] = out
+    return {k: _ratio(runs["card"][k], runs["cpu"][k], runs["ref"][k])
+            for k in runs["cpu"]}
+
+
+def phase_bf16(torch, np, F, fp32):
+    from gcc_tpu_torch.config import Config
+    from gcc_tpu_torch.engines.pix2pix import Pix2PixEngine
+    from gcc_tpu_torch.ops import flash_attention as fa
+    from gcc_tpu_torch.ops import mobile_block as mb
+
+    t_phase = time.perf_counter()
+    print("== phase 17: the bf16 path (--compute_dtype bfloat16, the JAX "
+          "package's default)")
+    # phases 9's and 4's fp32 iterations, beside (b)'s and (c)'s
+    rec = {"fp32": fp32}
+    record = bf16_kernels(torch, F)
+
+    # (b) the U-Net iteration in bf16 at phase 9's shapes
+    batch, size, n_timed = UNET_BATCH, 256, 3
+    print(f"  (b) U-Net GCC iteration in bf16, {size}px, batch {batch}, 1 "
+          f"warm-up + {n_timed} timed (phase 9's fp32 run above)")
+    engine, cfg = unet_engine(torch, np, batch)
+    batches = make_batches(torch, np, 2 * (n_timed + 1), batch, size, 0,
+                           engine.device)
+    for k in fa.LAUNCHES:
+        fa.LAUNCHES[k] = 0
+    rec["unet"] = {}
+    drive(torch, engine, cfg, _bf16_batches(torch, batches), batches[0]["A"],
+          mb.LAUNCHES, {}, {}, "unet bf16 path", record=rec["unet"])
+    if any(fa.LAUNCHES.values()):
+        fail(f"unet bf16 path launched B1: {fa.LAUNCHES}")
+    del engine, batches
+    torch.cuda.empty_cache()
+
+    # (c) the pix2pix resnet fused iteration in bf16 at phase 4's config
+    batch, size = 4, 256
+    print(f"  (c) pix2pix resnet GCC iteration in bf16, fused blocks, "
+          f"{size}px, batch {batch}, 1 warm-up + {n_timed} timed; generate "
+          f"in fp32, as the epoch-end eval runs")
+    cfg = main_config(Config, ngf=24, ndf=128, teacher_ngf=64,
+                      teacher_ndf=128, crop_size=size, batch_size=batch)
+    engine = Pix2PixEngine(cfg, filter_cfgs=STUDENT_CFG)
+    batches = make_batches(torch, np, 2 * (n_timed + 1), batch, size, 0,
+                           engine.device)
+    rec["resnet"] = {}
+    launches = drive(torch, engine, cfg, _bf16_batches(torch, batches),
+                     batches[0]["A"], mb.LAUNCHES, PER_ITER_BF16,
+                     {"stage_fwd": 18}, "resnet bf16 path",
+                     record=rec["resnet"])
+    del engine, batches
+    torch.cuda.empty_cache()
+
+    # (d) the card against the CPU, in the CPU test's manner
+    print("  (d) card against CPU in bf16, tests/test_torch_bf16.py's "
+          "configurations at learning rate 0, one iteration: rms(card - "
+          "CPU bf16) / rms(CPU bf16 - CPU fp32) by update, optimizer and "
+          "net, bound 1/4 unless AGREE_BOUNDS names it")
+    rec["agree"] = {}
+    for name in BF16_AGREE:
+        got = _bf16_agree(torch, np, name)
+        first = _first_difference(torch, np, name)
+        rec["agree"][name] = {"ratios": got, "teacher first difference": {
+            batch: {"module": n, "share": share, "output ratio": r}
+            for batch, (n, share, r) in first.items()}}
+        for batch, (n, share, r) in first.items():
+            print(f"    {name} teacher forward, {batch} batch: first "
+                  f"differs at {n} ({share:.2e} of its outputs), ratio "
+                  f"{r:.4f} at its output")
+        for k, v in got.items():
+            bound = AGREE_BOUNDS.get((name, k), 0.25)
+            print(f"    {name} {k}: {v:.4f} (bound {bound})")
+            if not (math.isfinite(v) and (bound is None or v <= bound)):
+                fail(f"bf16 {name}: card against CPU, {k} {v} > {bound}")
+
+    # (e) one cli.train epoch of pix2pix U-Net with default flags
+    import tempfile
+    counters = {"B2": mb.LAUNCHES, "B1": fa.LAUNCHES}
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = (f"--dataroot synthetic --dataset_mode synthetic --model "
+                f"pix2pix --max_dataset_size 8 --batch_size 4 --n_epochs 1 "
+                f"--n_epochs_decay 0 --print_freq 4 --num_threads 4 --ngf 32 "
+                f"--ndf 128 --checkpoints_dir {tmp} --name bf").split()
+        records = []
+        _, _, lines = run_cli(torch, "(e) unet, default flags", argv,
+                              counters, records)
+    want = "port: computes in bfloat16 (--compute_dtype bfloat16)"
+    if not any(line.startswith(want) for line in lines):
+        fail(f"(e) the CLI did not log {want!r}")
+    rec["cli"] = records[0]
+    rec["seconds"] = round(time.perf_counter() - t_phase, 3)
+    print(f"  phase 17 took {rec['seconds']} s")
+    return record, launches, rec
+
+
+
+
 def main():
     import numpy as np
     import torch
@@ -2606,7 +3057,8 @@ def main():
     # launches: the main path's (pix2pix resnet for B2, SAGAN for B1);
     # by_path: each path's own count, each read from counters set to 0
     # just before the path
-    launches = phase_main(torch, np)
+    fp32 = {"unet": {}, "resnet": {}}
+    launches = phase_main(torch, np, fp32["resnet"])
     by_path = {k: {"pix2pix resnet": v} for k, v in launches.items()}
     phase_agree(torch, np)
     record.update(phase_attention(torch, F))
@@ -2614,7 +3066,7 @@ def main():
     launches.update(sagan)
     by_path.update({k: {"sagan": v} for k, v in sagan.items()})
     phase_sagan_agree(torch, np)
-    phase_unet(torch, np)
+    phase_unet(torch, np, fp32["unet"])
     phase_unet_agree(torch, np)
     cli = phase_cli(torch, np)
     for k, v in phase_cyclegan(torch, np).items():
@@ -2625,6 +3077,11 @@ def main():
     pipeline, pipe_paths = phase_pipeline(torch, np, smi)
     for k, v in pipe_paths.items():
         by_path[k].update(v)
+    bf16_record, bf16_launches, bf16 = phase_bf16(torch, np, F, fp32)
+    record.update(bf16_record)
+    for k in PER_ITER_BF16:
+        launches[k] = bf16_launches[k]
+        by_path[k] = {"pix2pix resnet bf16": bf16_launches[k]}
 
     entries = []
     for k, rec in record.items():
@@ -2638,10 +3095,13 @@ def main():
             "launches_by_path": by_path[k],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            **{m: rec[m] for m in ("max_ulps", "max_share", "max_rel_dw")
+               if m in rec}})
     print(json.dumps({"cli": cli}))
     print(json.dumps({"evaluators": evaluators}))
     print(json.dumps({"pipeline": pipeline}))
+    print(json.dumps({"bf16": bf16}))
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

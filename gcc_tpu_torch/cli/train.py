@@ -19,8 +19,11 @@ on the device; ``--device_cache`` keeps the packed store on the device
 each iteration ships only the transform parameters. ``--memory_guard``
 measures the first step's peak device memory before the run goes on
 (utils/memory_guard.py; ``auto`` on a card, ``strict`` aborts when it does
-not fit). Meshes and spatial shards are refused; ``--compute_dtype`` and
-``--compile_cache`` are logged once: the port computes in fp32.
+not fit). Meshes and spatial shards are refused. ``--compute_dtype`` (bf16
+by default, as in the JAX package) casts pix2pix's train and val batches,
+and the engine computes in their dtype; the other families compute in fp32
+until their bf16 path is ported, and say so in the log. ``--compile_cache``
+is XLA's and ignored.
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ def engine_class(model: str):
 def run_device(cfg, device=None) -> torch.device:
     """The device of a run: ``device`` when given, else ``--gpu_ids``: -1 is
     the CPU, one id is that card (an error without one), several ids raise
-    (data parallelism is ROADMAP Queue A item 7)."""
+    (data parallelism is ROADMAP Queue A item 5)."""
     from gcc_tpu_torch.device import resolve_device
     if device is not None:
         return resolve_device(device)
@@ -65,7 +68,7 @@ def run_device(cfg, device=None) -> torch.device:
     if len(ids) != 1:
         raise NotImplementedError(
             f"--gpu_ids {cfg.gpu_ids}: the port runs on one card; data "
-            f"parallelism is ROADMAP Queue A item 7")
+            f"parallelism is ROADMAP Queue A item 5")
     resolve_device(None)  # raises without a card
     dev = torch.device("cuda", int(ids[0]))
     if dev.index >= torch.cuda.device_count():
@@ -76,8 +79,9 @@ def run_device(cfg, device=None) -> torch.device:
 
 
 def check_knobs(cfg, logger) -> None:
-    """Refuse the JAX package's multi-device features; log what is
-    ignored."""
+    """Refuse the JAX package's multi-device features; log the dtype the
+    run computes in and what is ignored."""
+    from gcc_tpu_torch.device import compute_dtype
     refused = []
     if cfg.mesh_shape:
         refused.append(f"--mesh_shape {cfg.mesh_shape}")
@@ -86,11 +90,19 @@ def check_knobs(cfg, logger) -> None:
     if refused:
         raise NotImplementedError(
             f"{', '.join(refused)}: not in the port yet (ROADMAP Queue A "
-            f"item 7: meshes and spatial shards)")
-    logger.info(
-        f"port: computes in float32 (--compute_dtype {cfg.compute_dtype} "
-        f"ignored); XLA-only --compile_cache {cfg.compile_cache or 'off'} "
-        f"ignored")
+            f"item 5: meshes and spatial shards)")
+    dtype = str(compute_dtype(cfg)).replace("torch.", "")
+    if not cfg.isTrain:
+        what = ("port: evaluates in float32, as the JAX package's eval "
+                "does")
+    elif dtype == cfg.compute_dtype:
+        what = f"port: computes in {dtype} (--compute_dtype {dtype})"
+    else:
+        what = (f"port: computes in {dtype}: --compute_dtype "
+                f"{cfg.compute_dtype} is not ported for {cfg.model} yet "
+                f"(ROADMAP Queue A item 4)")
+    logger.info(f"{what}; XLA-only --compile_cache "
+                f"{cfg.compile_cache or 'off'} ignored")
 
 
 def build_engine(cfg, logger=None, device=None):
@@ -156,25 +168,29 @@ def build_engine(cfg, logger=None, device=None):
 
 
 def set_input(cfg, batch: Dict, device) -> Dict[str, torch.Tensor]:
-    """Direction swap (models/Pix2Pix.py:453-458) + host NHWC numpy ->
-    float32 NCHW tensors on the device; path lists are dropped.
+    """Direction swap (models/Pix2Pix.py:453-458) + host NHWC numpy -> NCHW
+    tensors on the device in the run's compute dtype (device.compute_dtype:
+    ``--compute_dtype`` for pix2pix, float32 for the others, as
+    gcc_tpu/cli/train.py:92-110 casts); path lists are dropped.
 
     Packed datasets deliver uint8 (data/packed.py): those keys go over raw
     (4x fewer host->device bytes) and normalize on the device. Device-cached
-    loaders (data/device_cache.py) deliver tensors already there: they
-    pass through."""
+    loaders (data/device_cache.py) deliver tensors already there, in their
+    own dtype: they pass through."""
     from gcc_tpu_torch.data import to_device
     from gcc_tpu_torch.data.packed import device_normalize
+    from gcc_tpu_torch.device import compute_dtype
+    dtype = compute_dtype(cfg)
     out, u8 = {}, {}
     for k, v in batch.items():
         if isinstance(v, np.ndarray):
             if v.dtype == np.uint8:
                 u8[k] = torch.from_numpy(v).to(device)
             else:
-                out[k] = to_device(v, device)
+                out[k] = to_device(v, device).to(dtype)
         elif isinstance(v, torch.Tensor):
             out[k] = v
-    out.update(device_normalize(u8))
+    out.update(device_normalize(u8, dtype))
     if "A" in out and cfg.direction == "BtoA":
         out["A"], out["B"] = out["B"], out["A"]
     return out

@@ -1,4 +1,5 @@
-// Fused MobileResnet separable-conv stage for Hopper (sm_90a), fp32, NCHW.
+// Fused MobileResnet separable-conv stage for Hopper (sm_90a), NCHW, in
+// fp32 and in bf16 (the JAX package's default --compute_dtype).
 //
 // One stage is  y = IN(pw1x1(IN(dw3x3(reflectpad1(x))))) [relu] [+ res]
 // with affine-free InstanceNorm (eps 1e-5, two-pass statistics in fp32).
@@ -101,18 +102,50 @@
 //    of blocks per plane only splits the same threads. The best fit, 320
 //    threads (3 blocks an SM), would reach 68 %; it was not tried.
 //
-// Every entry point but gcc_stage_bwd_pw_partials (a count) returns
-// cudaGetLastError() as an int; the Python wrapper raises when it is not 0.
-// Nothing here allocates or synchronises.
+// bf16 (the *_bf16 entry points; the TPU kernels with a bf16 activation):
+// x, y, res, g, a-hat, b-hat, d b-hat, d a-hat and dx are bf16 in device
+// memory; the weights come in fp32, the two 1/std vectors and both weight
+// gradients are fp32. The arithmetic is the TPU kernel's, rounding for
+// rounding (ops/mobile_block.py's plain versions repeat it in PyTorch):
+//  * a = the depthwise taps of bf16 x with fp32 weights, summed in fp32 by
+//    kernel row, ((t0 + t1) + t2) + ((t3 + t4) + t5) + ((t6 + t7) + t8),
+//    with __fmul_rn/__fadd_rn (no contraction), the order XLA sums the TPU
+//    kernel's taps in; a rounds to bf16. IN statistics in fp32 from the
+//    rounded values; a-hat, b, b-hat and y round to bf16; the residual is
+//    added to the rounded y and the sum rounded once more.
+//  * The three products run on pw_gemm_bf16_kernel: bf16 operands (the
+//    pointwise weight rounded to bf16 first, to_bf16_kernel), one
+//    m16n8k16 mma per 16 x 8 x 16 block (bf16_mma.cuh), fp32 sums (each
+//    k step's mma into a zeroed fragment, added in fp32, as the fp32
+//    kernel does). 128 x 128 x 32 block tiles, the same 8 warps of 64 x 32
+//    outputs; cp.async double buffering in 16-byte copies where every row
+//    is a multiple of 8 elements, plain loads otherwise (odd widths).
+//  * The backward's relu test compares b-hat in fp32; d b-hat and d a-hat
+//    round to bf16. In the depthwise backward d a rounds to bf16, and dx is
+//    the TPU kernel's bf16 sum: each transposed tap a product of d a and
+//    the weight rounded to bf16, rounded, added in tap order and rounded,
+//    then the pad adjoint's folds (columns, then rows), each sum rounded.
+//  * dW_pw and dW_dw are fp32 sums, as in fp32. Saving a-hat and b-hat
+//    for the backward now moves half the bytes.
+// The fp32 instantiations (T = float) are the fp32 code as it was: every
+// rounding helper is the identity there.
+//
+// Every entry point but the *_partials counts returns cudaGetLastError()
+// as an int; the Python wrapper raises when it is not 0. Nothing here
+// allocates or synchronises.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
+
+using bf16mma::bf16;
 
 constexpr int kThreads = 256;  // threads a block, in every kernel
 constexpr float kEps = 1e-5f;  // torch InstanceNorm2d default
@@ -128,6 +161,26 @@ constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ int reflect1(int i, int n) {
   return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
+}
+
+// Storage of activations: fp32, or bf16 rounded to nearest even on store.
+template <typename T>
+constexpr bool kF32 = std::is_same<T, float>::value;
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const bf16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+// v as a store to T keeps it (the identity for fp32)
+template <typename T>
+__device__ __forceinline__ float rnd(float v) {
+  if constexpr (kF32<T>)
+    return v;
+  else
+    return bf16mma::round_bf16(v);
 }
 
 // The sums over a block of kThreads of K values at once, returned to every
@@ -163,14 +216,16 @@ __device__ float block_sum(float v, float* sh) {
 }
 
 // One block per (b, c) plane: a = dw3x3(reflectpad1(x)), then a-hat = IN(a)
-// written in place of a, and 1/std of the plane.
+// written in place of a, and 1/std of the plane. bf16: a sums its taps in
+// the TPU kernel's order and rounds, the statistics read the rounded a.
+template <typename T>
 __global__ void __launch_bounds__(kThreads) dw_in_fwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ dw,
-    float* __restrict__ ahat, float* __restrict__ rstd, int C, int H, int W) {
+    const T* __restrict__ x, const float* __restrict__ dw,
+    T* __restrict__ ahat, float* __restrict__ rstd, int C, int H, int W) {
   __shared__ float sh[kThreads / 32];
   const int plane = blockIdx.x, c = plane % C, n = H * W;
-  const float* xp = x + (size_t)plane * n;
-  float* ap = ahat + (size_t)plane * n;
+  const T* xp = x + (size_t)plane * n;
+  T* ap = ahat + (size_t)plane * n;
   float w[9];
 #pragma unroll
   for (int t = 0; t < 9; ++t) w[t] = dw[c * 9 + t];
@@ -178,24 +233,39 @@ __global__ void __launch_bounds__(kThreads) dw_in_fwd_kernel(
   for (int p = threadIdx.x; p < n; p += kThreads) {
     const int i = p / W, j = p - (p / W) * W;
     float acc = 0.f;
+    if constexpr (kF32<T>) {
 #pragma unroll
-    for (int di = 0; di < 3; ++di) {
-      const float* row = xp + (size_t)reflect1(i + di - 1, H) * W;
+      for (int di = 0; di < 3; ++di) {
+        const float* row = xp + (size_t)reflect1(i + di - 1, H) * W;
 #pragma unroll
-      for (int dj = 0; dj < 3; ++dj)
-        acc += row[reflect1(j + dj - 1, W)] * w[di * 3 + dj];
+        for (int dj = 0; dj < 3; ++dj)
+          acc += row[reflect1(j + dj - 1, W)] * w[di * 3 + dj];
+      }
+    } else {
+      float rows[3];
+#pragma unroll
+      for (int di = 0; di < 3; ++di) {
+        const T* row = xp + (size_t)reflect1(i + di - 1, H) * W;
+        float t[3];
+#pragma unroll
+        for (int dj = 0; dj < 3; ++dj)
+          t[dj] = __fmul_rn(ld(row + reflect1(j + dj - 1, W)), w[di * 3 + dj]);
+        rows[di] = __fadd_rn(__fadd_rn(t[0], t[1]), t[2]);
+      }
+      acc = __fadd_rn(__fadd_rn(rows[0], rows[1]), rows[2]);
     }
-    ap[p] = acc;
-    s += acc;
+    st(ap + p, acc);
+    s += rnd<T>(acc);
   }
   const float mean = block_sum(s, sh) / n;
   float v = 0.f;
   for (int p = threadIdx.x; p < n; p += kThreads) {
-    const float d = ap[p] - mean;
+    const float d = ld(ap + p) - mean;
     v += d * d;
   }
   const float r = 1.f / sqrtf(block_sum(v, sh) / n + kEps);
-  for (int p = threadIdx.x; p < n; p += kThreads) ap[p] = (ap[p] - mean) * r;
+  for (int p = threadIdx.x; p < n; p += kThreads)
+    st(ap + p, (ld(ap + p) - mean) * r);
   if (threadIdx.x == 0) rstd[plane] = r;
 }
 
@@ -207,19 +277,21 @@ constexpr int kPPT = 16;
 // One block per (b, m) plane: b-hat = IN(b) in place, 1/std, and
 // y = [relu](b-hat) [+ res]. PPT > 0: the plane's b stays in registers
 // between the passes; PPT = 0: it is re-read (any plane size). Both sum in
-// the same order and give the same bits.
-template <int PPT>
+// the same order and give the same bits. bf16: y is the rounded b-hat
+// [relu], plus the residual rounded once more.
+template <typename T, int PPT>
 __global__ void __launch_bounds__(kThreads) in_fwd_kernel(
-    float* __restrict__ bh, float* __restrict__ rstd,
-    const float* __restrict__ res, float* __restrict__ y, int n, int relu) {
+    T* __restrict__ bh, float* __restrict__ rstd,
+    const T* __restrict__ res, T* __restrict__ y, int n, int relu) {
   __shared__ float sh[kThreads / 32];
   const size_t off = (size_t)blockIdx.x * n;
-  float* bp = bh + off;
+  T* bp = bh + off;
   auto out = [&](int p, float t) {
-    bp[p] = t;
+    st(bp + p, t);
+    t = rnd<T>(t);
     float o = relu ? fmaxf(t, 0.f) : t;
-    if (res != nullptr) o += res[off + p];
-    y[off + p] = o;
+    if (res != nullptr) o += ld(res + off + p);
+    st(y + off + p, o);
   };
   float s = 0.f;
   if constexpr (PPT > 0) {
@@ -227,7 +299,7 @@ __global__ void __launch_bounds__(kThreads) in_fwd_kernel(
 #pragma unroll
     for (int u = 0; u < PPT; ++u) {
       const int p = threadIdx.x + u * kThreads;
-      b[u] = p < n ? bp[p] : 0.f;
+      b[u] = p < n ? ld(bp + p) : 0.f;
       s += b[u];
     }
     const float mean = block_sum(s, sh) / n;
@@ -245,15 +317,16 @@ __global__ void __launch_bounds__(kThreads) in_fwd_kernel(
     }
     if (threadIdx.x == 0) rstd[blockIdx.x] = r;
   } else {
-    for (int p = threadIdx.x; p < n; p += kThreads) s += bp[p];
+    for (int p = threadIdx.x; p < n; p += kThreads) s += ld(bp + p);
     const float mean = block_sum(s, sh) / n;
     float v = 0.f;
     for (int p = threadIdx.x; p < n; p += kThreads) {
-      const float d = bp[p] - mean;
+      const float d = ld(bp + p) - mean;
       v += d * d;
     }
     const float r = 1.f / sqrtf(block_sum(v, sh) / n + kEps);
-    for (int p = threadIdx.x; p < n; p += kThreads) out(p, (bp[p] - mean) * r);
+    for (int p = threadIdx.x; p < n; p += kThreads)
+      out(p, (ld(bp + p) - mean) * r);
     if (threadIdx.x == 0) rstd[blockIdx.x] = r;
   }
 }
@@ -261,15 +334,15 @@ __global__ void __launch_bounds__(kThreads) in_fwd_kernel(
 // One block per (b, m) plane: IN2's backward given the upstream g (masked by
 // b-hat > 0 when relu), gb = r * (g - mean(g) - b-hat * mean(g * b-hat)).
 // PPT > 0: g and b-hat stay in registers between the passes (read once);
-// PPT = 0: they are re-read (any plane size).
-template <int PPT>
+// PPT = 0: they are re-read (any plane size). bf16: out rounds to bf16.
+template <typename T, int PPT>
 __global__ void __launch_bounds__(kThreads) in_bwd_kernel(
-    const float* __restrict__ g, const float* __restrict__ that,
-    const float* __restrict__ rstd, float* __restrict__ out, int n, int relu) {
+    const T* __restrict__ g, const T* __restrict__ that,
+    const float* __restrict__ rstd, T* __restrict__ out, int n, int relu) {
   __shared__ float sh[kThreads / 32 * 2];
   const size_t off = (size_t)blockIdx.x * n;
   auto grad = [&](int p, float t) {
-    return (relu && !(t > 0.f)) ? 0.f : g[off + p];
+    return (relu && !(t > 0.f)) ? 0.f : ld(g + off + p);
   };
   float s[2] = {0.f, 0.f};
   if constexpr (PPT > 0) {
@@ -277,7 +350,7 @@ __global__ void __launch_bounds__(kThreads) in_bwd_kernel(
 #pragma unroll
     for (int u = 0; u < PPT; ++u) {
       const int p = threadIdx.x + u * kThreads;
-      tt[u] = p < n ? that[off + p] : 0.f;
+      tt[u] = p < n ? ld(that + off + p) : 0.f;
       gg[u] = p < n ? grad(p, tt[u]) : 0.f;
       s[0] += gg[u];
       s[1] += gg[u] * tt[u];
@@ -287,21 +360,61 @@ __global__ void __launch_bounds__(kThreads) in_bwd_kernel(
 #pragma unroll
     for (int u = 0; u < PPT; ++u) {
       const int p = threadIdx.x + u * kThreads;
-      if (p < n) out[off + p] = r * (gg[u] - gm - tt[u] * gym);
+      if (p < n) st(out + off + p, r * (gg[u] - gm - tt[u] * gym));
     }
   } else {
     for (int p = threadIdx.x; p < n; p += kThreads) {
-      const float t = that[off + p], gg = grad(p, t);
+      const float t = ld(that + off + p), gg = grad(p, t);
       s[0] += gg;
       s[1] += gg * t;
     }
     block_sums(s, sh);
     const float gm = s[0] / n, gym = s[1] / n, r = rstd[blockIdx.x];
     for (int p = threadIdx.x; p < n; p += kThreads) {
-      const float t = that[off + p];
-      out[off + p] = r * (grad(p, t) - gm - t * gym);
+      const float t = ld(that + off + p);
+      st(out + off + p, r * (grad(p, t) - gm - t * gym));
     }
   }
+}
+
+// dx at one pixel in bf16, as the TPU kernel sums it (_stage_bwd_dw_kernel,
+// ops/pallas/mobile_block.py:220-243): the padded gradient gxp at a padded
+// position is sum over taps t of rnd(w[t] d a[...]), added in tap order,
+// each sum rounded (w is rounded to bf16 already); then the pad adjoint adds
+// column 0 or W + 1 of gxp onto column 1 or W - 2, then row 0 or H + 1 of
+// that onto row 1 or H - 2, each sum rounded. ga holds d a at padded rows
+// i .. i + 2, columns j .. j + 2 around the pixel (i, j) (0 on the frame);
+// r0, r1, c0, c1: the pixel is on row 1, row H - 2, column 1, column W - 2.
+// Of a frame position's taps only those on d a's rows 1, H and columns 1, W
+// are not 0, and the window holds them (adding a zero is exact).
+__device__ __forceinline__ float gx_bf16(const float (&w)[9],
+                                         const float (&ga)[3][3], bool r0,
+                                         bool r1, bool c0, bool c1) {
+  using bf16mma::round_bf16;
+  auto tap = [](float sum, float wt, float g) {
+    return round_bf16(__fadd_rn(sum, round_bf16(__fmul_rn(wt, g))));
+  };
+  auto add = [](float a, float b) { return round_bf16(__fadd_rn(a, b)); };
+  float g = 0.f;  // gxp at the pixel
+#pragma unroll
+  for (int t = 0; t < 9; ++t) g = tap(g, w[t], ga[2 - t / 3][2 - t % 3]);
+  float col = 0.f;  // gxp on column 0 or W + 1, at the pixel's row
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    if (c0) col = tap(col, w[3 * i], ga[2 - i][0]);
+    if (c1) col = tap(col, w[3 * i + 2], ga[2 - i][2]);
+  }
+  if (c0 || c1) g = add(g, col);
+  if (r0 || r1) {
+    const int u = r0 ? 0 : 2;  // the window row that reaches row 0 or H + 1
+    float row = 0.f;           // gxp on row 0 or H + 1, at the pixel's column
+#pragma unroll
+    for (int j = 0; j < 3; ++j) row = tap(row, w[3 * u + j], ga[u][2 - j]);
+    if (c0) row = add(row, round_bf16(__fmul_rn(w[3 * u], ga[u][0])));
+    if (c1) row = add(row, round_bf16(__fmul_rn(w[3 * u + 2], ga[u][2])));
+    g = add(g, row);
+  }
+  return g;
 }
 
 // One block per (b, c) plane: IN1's backward and the depthwise side at once.
@@ -317,19 +430,21 @@ __global__ void __launch_bounds__(kThreads) in_bwd_kernel(
 // Each thread walks one column strip (column j, rows i0 .. i1 - 1; W columns
 // x kThreads / W strips), keeping the 3x3 windows of ga and padded x around
 // its pixel in registers: three new values of each per pixel.
-template <bool SMEM>
+// bf16: the tiles hold fp32 (x is loaded, not copied asynchronously), ga
+// rounds to bf16, and gx is the TPU kernel's bf16 sum (gx_bf16 below).
+template <typename T, bool SMEM>
 __global__ void __launch_bounds__(kThreads, kPlaneBlocksPerSM)
-    dw_bwd_plane_kernel(const float* __restrict__ gah,
-                        const float* __restrict__ ahat,
+    dw_bwd_plane_kernel(const T* __restrict__ gah,
+                        const T* __restrict__ ahat,
                         const float* __restrict__ rstd,
-                        const float* __restrict__ x,
-                        const float* __restrict__ dw, float* __restrict__ gx,
+                        const T* __restrict__ x,
+                        const float* __restrict__ dw, T* __restrict__ gx,
                         float* __restrict__ gdw_part, int C, int H, int W) {
   extern __shared__ float tiles[];  // SMEM: ga, x, a-hat, (H+2) x (W+2) each
   __shared__ float sh[kThreads / 32 * 9];
   const int plane = blockIdx.x, c = plane % C, n = H * W, Wp = W + 2;
   const size_t off = (size_t)plane * n;
-  const float *gp = gah + off, *ap = ahat + off, *xp = x + off;
+  const T *gp = gah + off, *ap = ahat + off, *xp = x + off;
   float *gs = tiles, *xs = gs + (H + 2) * Wp, *as = xs + (H + 2) * Wp;
   const int segs = max(1, kThreads / W), rows = (H + segs - 1) / segs;
   // f(j, i0, i1) on each of this thread's strips
@@ -340,7 +455,7 @@ __global__ void __launch_bounds__(kThreads, kPlaneBlocksPerSM)
     }
   };
 
-  if constexpr (SMEM) {
+  if constexpr (SMEM && kF32<T>) {
     strips([&](int j, int i0, int i1) {
       for (int i = i0; i < i1; ++i)
         tf32x3::cp_async(&xs[(i + 1) * Wp + j + 1], xp + i * W + j, 4, false);
@@ -350,12 +465,13 @@ __global__ void __launch_bounds__(kThreads, kPlaneBlocksPerSM)
   float s[2] = {0.f, 0.f};  // IN1's sums of gah and gah * a-hat
   strips([&](int j, int i0, int i1) {
     for (int i = i0; i < i1; ++i) {
-      const float v = gp[i * W + j], a = ap[i * W + j];
+      const float v = ld(gp + i * W + j), a = ld(ap + i * W + j);
       s[0] += v;
       s[1] += v * a;
       if constexpr (SMEM) {
         gs[(i + 1) * Wp + j + 1] = v;
         as[(i + 1) * Wp + j + 1] = a;
+        if constexpr (!kF32<T>) xs[(i + 1) * Wp + j + 1] = ld(xp + i * W + j);
       }
     }
   });
@@ -365,7 +481,7 @@ __global__ void __launch_bounds__(kThreads, kPlaneBlocksPerSM)
       const int i = e < Wp ? 0 : e < 2 * Wp ? H + 1 : f < H ? f + 1 : f - H + 1;
       const int j = e < Wp ? e : e < 2 * Wp ? e - Wp : f < H ? 0 : W + 1;
       gs[i * Wp + j] = 0.f;
-      xs[i * Wp + j] = xp[reflect1(i - 1, H) * W + reflect1(j - 1, W)];
+      xs[i * Wp + j] = ld(xp + reflect1(i - 1, H) * W + reflect1(j - 1, W));
     }
   block_sums(s, sh);
   const float gm = s[0] / n, gym = s[1] / n, r = rstd[plane];
@@ -373,7 +489,7 @@ __global__ void __launch_bounds__(kThreads, kPlaneBlocksPerSM)
     strips([&](int j, int i0, int i1) {
       for (int i = i0; i < i1; ++i) {
         const int q = (i + 1) * Wp + j + 1;
-        gs[q] = r * (gs[q] - gm - as[q] * gym);
+        gs[q] = rnd<T>(r * (gs[q] - gm - as[q] * gym));
       }
     });
     tf32x3::cp_wait<0>();
@@ -387,19 +503,20 @@ __global__ void __launch_bounds__(kThreads, kPlaneBlocksPerSM)
     } else {
       if (i < 1 || i > H || j < 1 || j > W) return 0.f;
       const int p = (i - 1) * W + j - 1;
-      return r * (gp[p] - gm - ap[p] * gym);
+      return rnd<T>(r * (ld(gp + p) - gm - ld(ap + p) * gym));
     }
   };
   auto XP = [&](int i, int j) -> float {
     if constexpr (SMEM)
       return xs[i * Wp + j];
     else
-      return xp[reflect1(i - 1, H) * W + reflect1(j - 1, W)];
+      return ld(xp + reflect1(i - 1, H) * W + reflect1(j - 1, W));
   };
   float w[9], acc[9];
 #pragma unroll
   for (int t = 0; t < 9; ++t) {
-    w[t] = dw[c * 9 + t];
+    // bf16: the transposed taps take the weight rounded to bf16
+    w[t] = rnd<T>(dw[c * 9 + t]);
     acc[t] = 0.f;
   }
   strips([&](int j, int i0, int i1) {
@@ -423,6 +540,13 @@ __global__ void __launch_bounds__(kThreads, kPlaneBlocksPerSM)
         xw[2][v] = XP(i + 2, j + v);
       }
       const float gc = gw[1][1];
+      if constexpr (!kF32<T>) {
+#pragma unroll
+        for (int t = 0; t < 9; ++t) acc[t] += gc * xw[t / 3][t % 3];
+        st(gx + off + i * W + j, gx_bf16(w, gw, i == 1, i == H - 2, j == 1,
+                                         j == W - 2));
+        continue;
+      }
       float g = 0.f;
 #pragma unroll
       for (int di = 0; di < 3; ++di)
@@ -449,7 +573,7 @@ __global__ void __launch_bounds__(kThreads, kPlaneBlocksPerSM)
         if (r1 && c0) g += w[6] * gw[2][0];
         if (r1 && c1) g += w[8] * gw[2][2];
       }
-      gx[off + i * W + j] = g;
+      st(gx + off + i * W + j, g);
     }
   });
   block_sums(acc, sh);
@@ -597,6 +721,168 @@ __global__ void __launch_bounds__(kThreads, kGemmBlocksPerSM) pw_gemm_kernel(
     }
 }
 
+// pw_gemm_bf16_kernel's tiles: k 32 deep (two m16n8k16 steps); rows of a
+// [row][k] tile 40 bf16 apart (80 B: 16-byte copies stay aligned, and a
+// warp's 32-bit fragment loads hit bank (20g + t) mod 32, all 32), rows of
+// a [k][row] tile 136 apart (272 B).
+constexpr int GKB = 32, LDAB = GKB + 8, LDBB = GN + 8;
+
+// Rows r0 .. r0 + R - 1, columns c0 .. c0 + CC - 1 of a row-major bf16
+// matrix (rows ld apart) into a shared tile of row stride ld_s, rows from
+// r_end and columns from c_end zero-filled. vec: 16-byte cp.async copies of
+// 8 elements, for ld, c0 and c_end multiples of 8 and a 16-byte aligned
+// base; otherwise element by element, synchronously.
+template <int R, int CC>
+__device__ __forceinline__ void load_tile_bf16(bf16* dst, int ld_s,
+                                               const bf16* src, int ld,
+                                               int r0, int r_end, int c0,
+                                               int c_end, int vec) {
+  if (vec) {
+    for (int e = threadIdx.x; e < R * CC / 8; e += kThreads) {
+      const int r = e / (CC / 8), c = 8 * (e % (CC / 8));
+      const bool ok = r0 + r < r_end && c0 + c < c_end;
+      bf16mma::cp_async16(dst + r * ld_s + c,
+                          ok ? src + (size_t)(r0 + r) * ld + c0 + c : src,
+                          ok ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < R * CC; e += kThreads) {
+      const int r = e / CC, c = e % CC;
+      const bool ok = r0 + r < r_end && c0 + c < c_end;
+      dst[r * ld_s + c] = ok ? src[(size_t)(r0 + r) * ld + c0 + c]
+                             : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// pw_gemm_kernel's product with bf16 operands: Cm[z] = A[zb] . B[zb] (same
+// arguments and chunks), one m16n8k16 mma per 16 x 8 x 16 block, fp32 sums;
+// Cm fp32, or bf16 rounded at the store.
+template <bool AT, bool BT, typename TC>
+__global__ void __launch_bounds__(kThreads, kGemmBlocksPerSM)
+    pw_gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
+                        TC* __restrict__ Cm, int M, int N, int K, int lda,
+                        int ldb, long long a_z, long long b_z, int k_chunk,
+                        int splits, int vec) {
+  using bf16mma::ld_pair;
+  using bf16mma::pack;
+  __shared__ __align__(16) bf16 As[2][AT ? GKB * LDBB : GM * LDAB];
+  __shared__ __align__(16) bf16 Bs[2][BT ? GN * LDAB : GKB * LDBB];
+  const int m0 = blockIdx.y * GM, n0 = blockIdx.x * GN;
+  const int zb = blockIdx.z / splits;
+  const int k_begin = (blockIdx.z - zb * splits) * k_chunk,
+            k_end = min(K, k_begin + k_chunk);
+  A += zb * a_z;
+  Bm += zb * b_z;
+  Cm += (size_t)blockIdx.z * M * N;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2,
+            t = lane & 3, wm = 64 * (warp >> 2), wn = 32 * (warp & 3);
+
+  auto load = [&](int k0, int s) {
+    if constexpr (AT)
+      load_tile_bf16<GKB, GM>(As[s], LDBB, A, lda, k0, k_end, m0, M, vec);
+    else
+      load_tile_bf16<GM, GKB>(As[s], LDAB, A, lda, m0, M, k0, k_end, vec);
+    if constexpr (BT)
+      load_tile_bf16<GN, GKB>(Bs[s], LDAB, Bm, ldb, n0, N, k0, k_end, vec);
+    else
+      load_tile_bf16<GKB, GN>(Bs[s], LDBB, Bm, ldb, k0, k_end, n0, N, vec);
+  };
+
+  float acc[4][4][4] = {};  // [m fragment][n fragment][accumulator]
+  const int nk = (k_end - k_begin + GKB - 1) / GKB;
+  load(k_begin, 0);
+  tf32x3::cp_commit();
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt & 1;
+    if (kt + 1 < nk) {  // fetch tile kt + 1 while kt computes
+      load(k_begin + (kt + 1) * GKB, s ^ 1);
+      tf32x3::cp_commit();
+      tf32x3::cp_wait<1>();
+    } else {
+      tf32x3::cp_wait<0>();
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < GKB; ks += 16) {
+      uint32_t bf[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = wn + 8 * j + g;
+        if constexpr (BT) {
+          const bf16* br = &Bs[s][col * LDAB + ks + 2 * t];
+          bf[j][0] = ld_pair(br);
+          bf[j][1] = ld_pair(br + 8);
+        } else {
+          const bf16* br = &Bs[s][(ks + 2 * t) * LDBB + col];
+          bf[j][0] = pack(br[0], br[LDBB]);
+          bf[j][1] = pack(br[8 * LDBB], br[9 * LDBB]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = wm + 16 * i + g;
+        uint32_t af[4];
+        if constexpr (AT) {
+          const bf16* ar = &As[s][(ks + 2 * t) * LDBB + row];
+          af[0] = pack(ar[0], ar[LDBB]);
+          af[1] = pack(ar[8], ar[LDBB + 8]);
+          af[2] = pack(ar[8 * LDBB], ar[9 * LDBB]);
+          af[3] = pack(ar[8 * LDBB + 8], ar[9 * LDBB + 8]);
+        } else {
+          const bf16* ar = &As[s][row * LDAB + ks + 2 * t];
+          af[0] = ld_pair(ar);
+          af[1] = ld_pair(ar + 8 * LDAB);
+          af[2] = ld_pair(ar + 8);
+          af[3] = ld_pair(ar + 8 * LDAB + 8);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {  // one k step, then added in fp32
+          float d[4] = {};
+          bf16mma::mma(d, af, bf[j]);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[i][j][r] += d[r];
+        }
+      }
+    }
+    __syncthreads();  // readers of stage s are done before it is refilled
+  }
+
+  // rows m0 + wm + 16 i + g (+ 8), columns n0 + wn + 8 j + 2t (+ 1)
+  const bool pairs = N % 2 == 0;  // paired stores stay aligned
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + wm + 16 * i + g + 8 * h;
+      if (row >= M) continue;
+      TC* cr = Cm + (size_t)row * N;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + wn + 8 * j + 2 * t;
+        const float x = acc[i][j][2 * h], y = acc[i][j][2 * h + 1];
+        if (pairs && col < N) {
+          if constexpr (kF32<TC>)
+            *reinterpret_cast<float2*>(cr + col) = make_float2(x, y);
+          else
+            *reinterpret_cast<__nv_bfloat162*>(cr + col) =
+                __floats2bfloat162_rn(x, y);
+        } else {
+          if (col < N) st(cr + col, x);
+          if (col + 1 < N) st(cr + col + 1, y);
+        }
+      }
+    }
+}
+
+// out[i] = in[i] rounded to bf16: the pointwise weight as the products take
+// it (the TPU kernel's pwk.astype(cdt)).
+__global__ void __launch_bounds__(kThreads) to_bf16_kernel(
+    const float* __restrict__ in, bf16* __restrict__ out, int n) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i < n) out[i] = __float2bfloat16_rn(in[i]);
+}
+
 // out[i] = sum over z of part[z * N + i] in a fixed order: warp w of a block
 // sums z in [w Z / 8, (w + 1) Z / 8) for 32 neighbouring i, then warp 0 adds
 // the eight warp sums in order. No atomics: the bits repeat.
@@ -641,6 +927,31 @@ int gemm(const float* A, const float* Bm, float* Cm, int M, int N, int K,
   return (int)cudaGetLastError();
 }
 
+// The launch of pw_gemm_bf16_kernel<AT, BT, TC> (arguments as gemm's).
+template <bool AT, bool BT, typename TC>
+int gemm_bf16(const bf16* A, const bf16* Bm, TC* Cm, int M, int N, int K,
+              int lda, int ldb, long long a_z, long long b_z, int k_chunk,
+              int Z, cudaStream_t st) {
+  const int splits = (K + k_chunk - 1) / k_chunk;
+  // 16-byte copies need the contiguous index of every tile a multiple of 8
+  const bool k_fast = !AT || BT;
+  const int vec = lda % 8 == 0 && ldb % 8 == 0 && a_z % 8 == 0 &&
+                  b_z % 8 == 0 && (!AT || M % 8 == 0) &&
+                  (BT || N % 8 == 0) &&
+                  (!k_fast || (K % 8 == 0 && k_chunk % 8 == 0)) &&
+                  ((uintptr_t)A | (uintptr_t)Bm) % 16 == 0;
+  const dim3 grid((N + GN - 1) / GN, (M + GM - 1) / GM, Z * splits);
+  pw_gemm_bf16_kernel<AT, BT, TC><<<grid, kThreads, 0, st>>>(
+      A, Bm, Cm, M, N, K, lda, ldb, a_z, b_z, k_chunk, splits, vec);
+  return (int)cudaGetLastError();
+}
+
+int to_bf16(const float* in, bf16* out, int n, cudaStream_t st) {
+  to_bf16_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(in, out,
+                                                                     n);
+  return (int)cudaGetLastError();
+}
+
 int sum_partials(const float* part, float* out, int Z, long long N,
                  cudaStream_t st) {
   sum_partials_kernel<<<(unsigned)((N + 31) / 32), kThreads, 0, st>>>(
@@ -648,9 +959,10 @@ int sum_partials(const float* part, float* out, int Z, long long N,
   return (int)cudaGetLastError();
 }
 
-int dw_bwd_plane(const float* gah, const float* ahat, const float* rstd_a,
-                 const float* x, const float* dw, float* gx, float* gdw_part,
-                 int B, int C, int H, int W, cudaStream_t st) {
+template <typename T>
+int dw_bwd_plane(const T* gah, const T* ahat, const float* rstd_a, const T* x,
+                 const float* dw, T* gx, float* gdw_part, int B, int C, int H,
+                 int W, cudaStream_t st) {
   const size_t smem = 3 * sizeof(float) * (H + 2) * (W + 2);
   if (smem <= kPlaneSmem) {
     // above 48 KB of dynamic shared memory only when asked for; asked once
@@ -661,31 +973,32 @@ int dw_bwd_plane(const float* gah, const float* ahat, const float* rstd_a,
     if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
     if (!raised[dev]) {
       if (int e = (int)cudaFuncSetAttribute(
-              dw_bwd_plane_kernel<true>,
+              dw_bwd_plane_kernel<T, true>,
               cudaFuncAttributeMaxDynamicSharedMemorySize, kPlaneSmem))
         return e;
       raised[dev] = true;
     }
-    dw_bwd_plane_kernel<true><<<B * C, kThreads, smem, st>>>(
+    dw_bwd_plane_kernel<T, true><<<B * C, kThreads, smem, st>>>(
         gah, ahat, rstd_a, x, dw, gx, gdw_part, C, H, W);
   } else {
-    dw_bwd_plane_kernel<false><<<B * C, kThreads, 0, st>>>(
+    dw_bwd_plane_kernel<T, false><<<B * C, kThreads, 0, st>>>(
         gah, ahat, rstd_a, x, dw, gx, gdw_part, C, H, W);
   }
   return (int)cudaGetLastError();
 }
 
 // Pixels per split-k partial of the pointwise weight gradient (M x C) over
-// B samples of n pixels: a multiple of GK chosen so that output tiles x
+// B samples of n pixels: a multiple of gk (the GEMM's k tile: GK in fp32,
+// GKB in bf16) chosen so that output tiles x
 // (sample, chunk) partials make about as many blocks as sms SMs hold at
 // once, and one chunk where the batch and tiles fill them already. Fixed
 // for a shape and a card, so the ordered sum repeats bit for bit.
-int pw_grad_chunk(int B, int C, int M, int n, int sms) {
+int pw_grad_chunk(int B, int C, int M, int n, int sms, int gk = GK) {
   const int tiles = (M + GM - 1) / GM * ((C + GN - 1) / GN);
   const int splits = std::max(
-      1, std::min((n + GK - 1) / GK, kGemmBlocksPerSM * sms / (tiles * B)));
+      1, std::min((n + gk - 1) / gk, kGemmBlocksPerSM * sms / (tiles * B)));
   const int chunk = (n + splits - 1) / splits;
-  return (chunk + GK - 1) / GK * GK;
+  return (chunk + gk - 1) / gk * gk;
 }
 
 }  // namespace
@@ -701,18 +1014,19 @@ int gcc_stage_fwd(const float* x, const float* dw, const float* pw,
                   int W, int relu, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n = H * W;
-  dw_in_fwd_kernel<<<B * C, kThreads, 0, st>>>(x, dw, ahat, rstd_a, C, H, W);
+  dw_in_fwd_kernel<float><<<B * C, kThreads, 0, st>>>(x, dw, ahat, rstd_a, C, H,
+                                                      W);
   if (int e = (int)cudaGetLastError()) return e;
   // b[b] (M x n) = pw (M x C) . a-hat[b] (C x n)
   if (int e = gemm<false, false>(pw, ahat, bhat, M, n, C, C, n, 0,
                                  (long long)C * n, C, B, st))
     return e;
   if (n <= kThreads * kPPT)  // the plane fits in registers
-    in_fwd_kernel<kPPT><<<B * M, kThreads, 0, st>>>(bhat, rstd_b, res, y, n,
-                                                    relu);
+    in_fwd_kernel<float, kPPT><<<B * M, kThreads, 0, st>>>(bhat, rstd_b, res,
+                                                           y, n, relu);
   else
-    in_fwd_kernel<0><<<B * M, kThreads, 0, st>>>(bhat, rstd_b, res, y, n,
-                                                 relu);
+    in_fwd_kernel<float, 0><<<B * M, kThreads, 0, st>>>(bhat, rstd_b, res, y,
+                                                        n, relu);
   return (int)cudaGetLastError();
 }
 
@@ -735,11 +1049,11 @@ int gcc_stage_bwd_pw(const float* g, const float* ahat, const float* bhat,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n = H * W, k_chunk = pw_grad_chunk(B, C, M, n, sms);
   if (n <= kThreads * kPPT)
-    in_bwd_kernel<kPPT><<<B * M, kThreads, 0, st>>>(g, bhat, rstd_b, gb, n,
-                                                    relu);
+    in_bwd_kernel<float, kPPT><<<B * M, kThreads, 0, st>>>(g, bhat, rstd_b, gb,
+                                                           n, relu);
   else
-    in_bwd_kernel<0><<<B * M, kThreads, 0, st>>>(g, bhat, rstd_b, gb, n,
-                                                 relu);
+    in_bwd_kernel<float, 0><<<B * M, kThreads, 0, st>>>(g, bhat, rstd_b, gb, n,
+                                                        relu);
   if (int e = (int)cudaGetLastError()) return e;
   // gah[b] (C x n) = pw^T (C x M) . gb[b] (M x n)
   if (int e = gemm<true, false>(pw, gb, gah, C, n, M, C, n, 0,
@@ -761,6 +1075,80 @@ int gcc_stage_bwd_dw(const float* gah, const float* ahat, const float* rstd_a,
                      const float* x, const float* dw, float* gx,
                      float* gdw_part, float* gdw, int B, int C, int H, int W,
                      void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (int e = dw_bwd_plane(gah, ahat, rstd_a, x, dw, gx, gdw_part, B, C, H, W,
+                           st))
+    return e;
+  return sum_partials(gdw_part, gdw, B, (long long)C * 9, st);
+}
+
+// bf16 forward (see the head of this file): x, res, y, a-hat, b-hat bf16;
+// dw, pw, the 1/std vectors fp32. Scratch: pw_lp (M, C) bf16, the rounded
+// pointwise weight.
+int gcc_stage_fwd_bf16(const bf16* x, const float* dw, const float* pw,
+                       const bf16* res, bf16* y, bf16* ahat, bf16* bhat,
+                       float* rstd_a, float* rstd_b, bf16* pw_lp, int B,
+                       int C, int M, int H, int W, int relu, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n = H * W;
+  if (int e = to_bf16(pw, pw_lp, M * C, st)) return e;
+  dw_in_fwd_kernel<bf16><<<B * C, kThreads, 0, st>>>(x, dw, ahat, rstd_a, C,
+                                                     H, W);
+  if (int e = (int)cudaGetLastError()) return e;
+  if (int e = gemm_bf16<false, false>(pw_lp, ahat, bhat, M, n, C, C, n, 0,
+                                      (long long)C * n, C, B, st))
+    return e;
+  if (n <= kThreads * kPPT)
+    in_fwd_kernel<bf16, kPPT><<<B * M, kThreads, 0, st>>>(bhat, rstd_b, res,
+                                                          y, n, relu);
+  else
+    in_fwd_kernel<bf16, 0><<<B * M, kThreads, 0, st>>>(bhat, rstd_b, res, y,
+                                                       n, relu);
+  return (int)cudaGetLastError();
+}
+
+// The number of (M, C) partials that gcc_stage_bwd_pw_bf16 sums into gpw.
+int gcc_stage_bwd_pw_bf16_partials(int B, int C, int M, int H, int W,
+                                   int sms) {
+  const int n = H * W, k_chunk = pw_grad_chunk(B, C, M, n, sms, GKB);
+  return B * ((n + k_chunk - 1) / k_chunk);
+}
+
+// bf16 backward, pointwise side: g, a-hat, b-hat, gb, gah bf16; gpw and its
+// partials fp32. Scratch: gb (B,M,H,W) bf16, gpw_part
+// (gcc_stage_bwd_pw_bf16_partials(...), M, C), pw_lp (M, C) bf16.
+int gcc_stage_bwd_pw_bf16(const bf16* g, const bf16* ahat, const bf16* bhat,
+                          const float* rstd_b, const float* pw, bf16* gb,
+                          bf16* gah, float* gpw_part, float* gpw, bf16* pw_lp,
+                          int B, int C, int M, int H, int W, int relu, int sms,
+                          void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n = H * W, k_chunk = pw_grad_chunk(B, C, M, n, sms, GKB);
+  if (int e = to_bf16(pw, pw_lp, M * C, st)) return e;
+  if (n <= kThreads * kPPT)
+    in_bwd_kernel<bf16, kPPT><<<B * M, kThreads, 0, st>>>(g, bhat, rstd_b, gb,
+                                                          n, relu);
+  else
+    in_bwd_kernel<bf16, 0><<<B * M, kThreads, 0, st>>>(g, bhat, rstd_b, gb, n,
+                                                       relu);
+  if (int e = (int)cudaGetLastError()) return e;
+  if (int e = gemm_bf16<true, false>(pw_lp, gb, gah, C, n, M, C, n, 0,
+                                     (long long)M * n, M, B, st))
+    return e;
+  if (int e = gemm_bf16<false, true>(gb, ahat, gpw_part, M, C, n, n, n,
+                                     (long long)M * n, (long long)C * n,
+                                     k_chunk, B, st))
+    return e;
+  const int splits = (n + k_chunk - 1) / k_chunk;
+  return sum_partials(gpw_part, gpw, B * splits, (long long)M * C, st);
+}
+
+// bf16 backward, depthwise side: gah, a-hat, x, gx bf16; gdw fp32.
+// Scratch: gdw_part (B, C, 9) fp32.
+int gcc_stage_bwd_dw_bf16(const bf16* gah, const bf16* ahat,
+                          const float* rstd_a, const bf16* x, const float* dw,
+                          bf16* gx, float* gdw_part, float* gdw, int B, int C,
+                          int H, int W, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (int e = dw_bwd_plane(gah, ahat, rstd_a, x, dw, gx, gdw_part, B, C, H, W,
                            st))

@@ -96,10 +96,14 @@ def _maybe_device_cache(ds, cfg, seed, drop_last, device, logger):
                 f"(> 25% of {hbm / 1e9:.1f} GB device memory); keeping the "
                 f"streaming path")
             return None
+    # batches in the compute dtype on the card, float32 on the CPU, as
+    # gcc_tpu/data/__init__.py:93-95 serves them
+    from gcc_tpu_torch.device import compute_dtype
+    dtype = compute_dtype(cfg) if device.type == "cuda" else torch.float32
     log(f"device_cache: {n_bytes / 1e6:.0f} MB packed store resident on "
-        f"{device}; batches materialize there (no steady-state "
+        f"{device}; batches materialize there in {dtype} (no steady-state "
         f"host->device image traffic)")
-    return DeviceCacheLoader(ds, cfg.batch_size, device,
+    return DeviceCacheLoader(ds, cfg.batch_size, device, dtype=dtype,
                              shuffle=not cfg.serial_batches, seed=seed,
                              drop_last=drop_last)
 

@@ -84,15 +84,16 @@ class DeviceCacheLoader(Loader):
     """Loader over a device_cacheable PackedDataset with device-resident
     blobs.
 
-    Yields dicts of float32 NCHW tensors on ``device`` (already normalized:
-    what data.to_device gives the engines) plus the host-side *_paths lists.
+    Yields dicts of NCHW tensors of ``dtype`` (default float32) on
+    ``device`` (already normalized: what cli.train's set_input gives the
+    engines) plus the host-side *_paths lists.
     Epoch keying, shuffle and batch order are Loader's; the per-item rng
     stream is the dataset's own (sample_params), so a given (seed, epoch,
     index order) gives the same pixels as the streaming path.
     """
 
     def __init__(self, dataset: PackedDataset, batch_size: int, device,
-                 **kw):
+                 dtype=None, **kw):
         if not isinstance(dataset, PackedDataset) \
                 or not dataset.device_cacheable():
             raise ValueError("DeviceCacheLoader needs a device_cacheable "
@@ -100,6 +101,7 @@ class DeviceCacheLoader(Loader):
                              "aligned/unaligned/sa)")
         super().__init__(dataset, batch_size, **kw)
         self.device = torch.device(device)
+        self.dtype = torch.float32 if dtype is None else dtype
         self._shapes = dataset.uniform_shapes()
         self._data = {key: shared_blob(dataset._mm[key], shape, self.device)
                       for key, shape in self._shapes.items()}
@@ -168,9 +170,9 @@ class DeviceCacheLoader(Loader):
                     self.device)}
 
     def materialize(self, args: tuple) -> Dict[str, torch.Tensor]:
-        """The engine batch for one parameter batch: float32 NCHW images
-        in [-1, 1] on the device (z as drawn)."""
-        return {k: v if k == "z" else normalize_tensor(v, "m11")
+        """The engine batch for one parameter batch: NCHW images in
+        [-1, 1] of the loader's dtype on the device (z as drawn)."""
+        return {k: v if k == "z" else normalize_tensor(v, "m11", self.dtype)
                 for k, v in self.crops(args).items()}
 
     def __iter__(self):

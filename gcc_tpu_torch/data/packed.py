@@ -516,11 +516,13 @@ class PackedDataset:
 # device-side normalization for the uint8 path
 # --------------------------------------------------------------------------
 
-def normalize_tensor(x, spec: str):
-    """A uint8 NHWC (or HWC) tensor as float32 NCHW (CHW) on its device:
-    x/255*2-1, or the imagenet normalization for ``spec == "imagenet"``; the
-    host path's float32 arithmetic, op for op."""
+def normalize_tensor(x, spec: str, dtype=None):
+    """A uint8 NHWC (or HWC) tensor as NCHW (CHW) on its device: x/255*2-1,
+    or the imagenet normalization for ``spec == "imagenet"``, in the host
+    path's float32 arithmetic op for op, then cast to ``dtype`` (default
+    float32), as the JAX package's device_normalize casts."""
     import torch
+    dtype = torch.float32 if dtype is None else dtype
     y = x.to(torch.float32) / 255.0
     if spec == "imagenet":
         mean = torch.as_tensor(IMAGENET_MEAN, device=x.device)
@@ -528,12 +530,13 @@ def normalize_tensor(x, spec: str):
         y = (y - mean) / std
     else:
         y = y * 2.0 - 1.0
-    return y.movedim(-1, -3).contiguous()
+    return y.movedim(-1, -3).to(dtype).contiguous()
 
 
-def device_normalize(batch: Dict) -> Dict:
-    """A dict of uint8 NHWC tensors -> float32 NCHW tensors on their device:
-    SRGAN's 'lr' imagenet-normalized, every other key to [-1, 1], as the
-    host path normalizes them. Within 1 ulp of its float32 values."""
-    return {k: normalize_tensor(v, "imagenet" if k == "lr" else "m11")
+def device_normalize(batch: Dict, dtype=None) -> Dict:
+    """A dict of uint8 NHWC tensors -> NCHW tensors of ``dtype`` (default
+    float32) on their device: SRGAN's 'lr' imagenet-normalized, every other
+    key to [-1, 1], as the host path normalizes them. In float32 within 1
+    ulp of its values; a bf16 batch is those values rounded once."""
+    return {k: normalize_tensor(v, "imagenet" if k == "lr" else "m11", dtype)
             for k, v in batch.items()}

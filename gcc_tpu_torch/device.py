@@ -1,4 +1,4 @@
-"""Device resolution for the port's entry points."""
+"""Device resolution and the compute dtype of the port's entry points."""
 
 from __future__ import annotations
 
@@ -21,11 +21,42 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run the "
                 "plain PyTorch versions on the CPU")
-        return torch.device("cuda")
-    dev = torch.device(device)
+        dev = torch.device("cuda")
+    else:
+        dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
     return dev
+
+
+def configure_precision(device: torch.device) -> None:
+    """The bf16 settings of an engine that computes in bf16 on ``device``.
+
+    The TPU sums the products of bf16 operands in fp32 (the MXU's
+    preferred_element_type=f32), so on the card cuBLAS may not reduce a bf16
+    matmul in bf16: allow_bf16_reduced_precision_reduction goes off, for the
+    whole process, as torch keeps it. cuDNN's bf16 convolutions accumulate
+    in fp32 already, and the stage kernels sum in fp32 (csrc/). Nothing
+    changes on the CPU."""
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
+
+
+# The families whose bf16 path is ported; the others compute in float32
+# whatever --compute_dtype says until theirs is (ROADMAP Queue A item 4).
+BF16_FAMILIES = ("pix2pix",)
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    """The dtype a run's batches are cast to, and so the dtype its engine
+    computes in (the dtype follows the data, as in the JAX package):
+    ``--compute_dtype`` for a family in BF16_FAMILIES, float32 for the
+    rest."""
+    if cfg.compute_dtype == "bfloat16" and any(
+            f in cfg.model for f in BF16_FAMILIES):
+        return torch.bfloat16
+    return torch.float32
 
 
 @contextlib.contextmanager

@@ -271,8 +271,9 @@ def distill_losses(feats: Sequence[torch.Tensor],
     pix2pix, SAGAN and SRGAN use sqrt(MSE), CycleGAN plain MSE
     (CycleGAN.py:513)."""
     err = sqrt_mse if use_sqrt else mse
-    content = feats[0].new_zeros(())
-    gram_l = feats[0].new_zeros(())
+    # the sums in float32 whatever the features' dtype, as the JAX package's
+    content = feats[0].new_zeros((), dtype=torch.float32)
+    gram_l = feats[0].new_zeros((), dtype=torch.float32)
     for f, t in zip(feats, targets):
         t = t.detach()
         content = content + err(f, t)

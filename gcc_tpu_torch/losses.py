@@ -6,9 +6,9 @@ GAN modes replicate models/GANLoss.py:38-59 exactly:
   hinge   : D: -E[min(+-pred - 1, 0)]; G: -E[pred] (target must be real)
   wgangp  : -+E[pred]
 
-The slice runs in fp32, where the JAX package's ``gram_pair_err`` takes the
-direct gram path; its bf16 kernel-matrix identity comes with the port's bf16
-work.
+Every loss is float32 whatever its inputs' dtype. ``gram_pair_err`` takes the
+JAX package's kernel-matrix identity for bf16 features with 2 h w <= c, the
+direct grams otherwise (fp32 always).
 """
 
 from __future__ import annotations
@@ -51,7 +51,9 @@ def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def gram(x: torch.Tensor) -> torch.Tensor:
     """Gram matrix G = f f^T / (c*h*w), f = (B, C, H*W) (Pix2Pix.py:733-740).
-    Input NCHW; output (B, C, C) in float32."""
+    Input NCHW; output (B, C, C) in float32. A bf16 input is taken as float32
+    copies: its products are exact there and sum in float32, as the JAX
+    einsum's preferred_element_type=f32 does (a bf16 bmm would return bf16)."""
     b, c, h, w = x.shape
     f = x.float().reshape(b, c, h * w)
     return torch.bmm(f, f.transpose(1, 2)) / (c * h * w)
@@ -66,7 +68,25 @@ def sqrt_mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def gram_pair_err(f: torch.Tensor, t: torch.Tensor,
                   use_sqrt: bool = True) -> torch.Tensor:
     """err(gram(f), gram(t)): the per-pair gram distillation term
-    (Pix2Pix.py:541-543)."""
+    (Pix2Pix.py:541-543).
+
+    For bf16 f and t with 2 h w <= c (rank-deficient grams, larger than the
+    features), the JAX package's Frobenius identity (gcc_tpu/losses.py:
+    96-110): ||Gf - Gt||^2 = ||Kff||^2 - 2 ||Kft||^2 + ||Ktt||^2 with the
+    (hw, hw) kernel matrices Kxy = x^T y, floored at 0, on float32 copies of
+    the bf16 features. Every other case takes the direct grams."""
+    b, c, h, w = f.shape
+    n = h * w
+    if f.dtype == torch.bfloat16 and t.dtype == torch.bfloat16 and 2 * n <= c:
+        fr = f.float().reshape(b, c, n)
+        tr = t.float().reshape(b, c, n)
+
+        def sq_k(x, y):  # ||x^T y||_F^2 per sample
+            return torch.bmm(x.transpose(1, 2), y).square().sum(dim=(1, 2))
+
+        per = sq_k(fr, fr) - 2.0 * sq_k(fr, tr) + sq_k(tr, tr)
+        m = per.clamp(min=0.0).mean() / (float(c) * n) ** 2 / (c * c)
+        return torch.sqrt(torch.clamp(m, min=1e-12)) if use_sqrt else m
     return (sqrt_mse if use_sqrt else mse)(gram(f), gram(t))
 
 

@@ -21,7 +21,7 @@ import torch.nn as nn
 from gcc_tpu_torch.ops.attention import SelfAttention
 from gcc_tpu_torch.ops.layers import (
     BatchNorm, Conv, ConvTranspose, PReLU, SeparableConv, SubPixelConv,
-    instance_norm, leaky_relu, reflect_pad,
+    instance_norm, leaky_relu, reflect_pad, tanh,
 )
 from gcc_tpu_torch.ops.mobile_block import fused_mobile_block
 from gcc_tpu_torch.ops.spectral import SpectralConvTranspose
@@ -153,7 +153,7 @@ class UnetGenerator(nn.Module):
             if d in (1, 3):
                 feats[3 - d // 2] = h  # g_feat_2 at depth 3, g_feat_3 at 1
             if d == 0:
-                return torch.tanh(self.up_0(h)), feats
+                return tanh(self.up_0(h)), feats
             h2 = getattr(self, f"up_norm_{d}")(getattr(self, f"up_{d}")(h),
                                                update_stats)
             if self.use_dropout and self.training and 4 <= d <= n - 2:
@@ -251,7 +251,7 @@ class MobileResnetGenerator(nn.Module):
                 feats.append(h)
         h = torch.relu(instance_norm(self.up_0(h)))
         h = torch.relu(instance_norm(self.up_1(h)))
-        return torch.tanh(self.conv_out(reflect_pad(h, 3))), feats
+        return tanh(self.conv_out(reflect_pad(h, 3))), feats
 
 
 def sagan_default_filter_cfgs(ngf: int, image_size: int = 64) -> list:
@@ -302,7 +302,7 @@ class SAGANGenerator(nn.Module):
         h = torch.relu(self.bn4(self.l4(h, update_stats), update_stats))
         h = self.attn2(h)
         feats.append(h)
-        return torch.tanh(self.last(h)), feats
+        return tanh(self.last(h)), feats
 
 
 class SRResNet(nn.Module):
@@ -362,4 +362,4 @@ class SRResNet(nn.Module):
         h = self.bn_mid(self.conv_mid(h), update_stats) + residual
         for i in range(self.n_up):
             h = getattr(self, f"subpixel_{i}")(h)
-        return torch.tanh(self.conv_out(h)), feats
+        return tanh(self.conv_out(h)), feats

@@ -28,7 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes of every C entry point, by source name (pointers and the stream
 # as c_void_p, ints as c_int); every entry point returns cudaError_t as int,
-# but gcc_stage_bwd_pw_partials and gcc_attn_bwd_groups, which return a
+# but the *_partials entry points and gcc_attn_bwd_groups, which return a
 # count and take no stream
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "mobile_block": {
@@ -36,6 +36,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "gcc_stage_bwd_pw_partials": [_I] * 6,
         "gcc_stage_bwd_pw": [_P] * 9 + [_I] * 7 + [_P],
         "gcc_stage_bwd_dw": [_P] * 8 + [_I] * 4 + [_P],
+        "gcc_stage_fwd_bf16": [_P] * 10 + [_I] * 6 + [_P],
+        "gcc_stage_bwd_pw_bf16_partials": [_I] * 6,
+        "gcc_stage_bwd_pw_bf16": [_P] * 10 + [_I] * 7 + [_P],
+        "gcc_stage_bwd_dw_bf16": [_P] * 8 + [_I] * 4 + [_P],
     },
     "flash_attention": {
         "gcc_attn_fwd": [_P] * 5 + [_I] * 4 + [_P],
@@ -120,11 +124,14 @@ def launch(name: str, fn: str, *args) -> None:
         raise RuntimeError(f"{fn} failed with CUDA error {err}")
 
 
-def check(device: torch.device, name: str, t: torch.Tensor, shape) -> None:
-    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
-    ``device``: what every kernel entry point takes."""
-    if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous float32 tensor on "
+def check(device: torch.device, name: str, t: torch.Tensor, shape,
+          dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what every kernel entry point takes (weights are float32,
+    activations float32 or, where an entry point has a bf16 variant,
+    bfloat16)."""
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {dtype} tensor on "
                          f"{device}, got {t.dtype} on {t.device}"
                          f"{'' if t.is_contiguous() else ', non-contiguous'}")
     if tuple(t.shape) != tuple(shape):

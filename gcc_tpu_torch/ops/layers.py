@@ -12,9 +12,17 @@ variance.
 
 Parameters are created uninitialised; ``init_params`` draws them from an
 explicit ``torch.Generator`` with the JAX package's initialisers.
+
+The dtype follows the data, as in the JAX package: parameters stay fp32 and
+each layer computes in its input's dtype. A bf16 conv takes its weight
+rounded to bf16, adds the fp32 bias to its bf16 output and rounds once
+(gcc_tpu/ops/layers.py:70-80); the norms take fp32 statistics and return the
+input's dtype. An fp32 input takes the fp32 code as it was, bit for bit.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn as nn
@@ -42,8 +50,12 @@ class Conv(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight, self.bias, self.stride, self.padding,
-                        groups=self.groups)
+        if x.dtype == self.weight.dtype:
+            return F.conv2d(x, self.weight, self.bias, self.stride,
+                            self.padding, groups=self.groups)
+        return add_bias(F.conv2d(x, self.weight.to(x.dtype), None,
+                                 self.stride, self.padding,
+                                 groups=self.groups), self.bias)
 
 
 class ConvTranspose(nn.Module):
@@ -63,8 +75,12 @@ class ConvTranspose(nn.Module):
     reset_parameters = Conv.reset_parameters
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(x, self.weight, self.bias, self.stride,
-                                  self.padding, self.output_padding)
+        if x.dtype == self.weight.dtype:
+            return F.conv_transpose2d(x, self.weight, self.bias, self.stride,
+                                      self.padding, self.output_padding)
+        return add_bias(F.conv_transpose2d(
+            x, self.weight.to(x.dtype), None, self.stride, self.padding,
+            self.output_padding), self.bias)
 
 
 class BatchNorm(nn.Module):
@@ -96,9 +112,14 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, update_stats: bool = True
                 ) -> torch.Tensor:
+        xf = x.float()
         if self.training:
-            mean = x.mean(dim=(0, 2, 3))
-            var = (x - mean[None, :, None, None]).square().mean(dim=(0, 2, 3))
+            mean = xf.mean(dim=(0, 2, 3))
+            if x.dtype == torch.float32:
+                var = (xf - mean[None, :, None, None]).square().mean(
+                    dim=(0, 2, 3))
+            else:  # the JAX package's one-pass form, E[x^2] - E[x]^2
+                var = xf.square().mean(dim=(0, 2, 3)) - mean.square()
             if update_stats:
                 n = x.shape[0] * x.shape[2] * x.shape[3]
                 unbias = n / max(n - 1, 1)  # torch stores unbiased running var
@@ -110,15 +131,23 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
-        return ((x - mean[None, :, None, None]) * inv[None, :, None, None]
-                + self.bias[None, :, None, None])
+        return ((xf - mean[None, :, None, None]) * inv[None, :, None, None]
+                + self.bias[None, :, None, None]).to(x.dtype)
+
+
+def add_bias(y: torch.Tensor, bias) -> torch.Tensor:
+    """A low-precision conv output plus its fp32 bias, rounded once to the
+    output's dtype (torch would otherwise promote the sum to fp32)."""
+    return y if bias is None else (y + bias[None, :, None, None]).to(y.dtype)
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Affine-free InstanceNorm2d over (H, W), two-pass variance."""
-    mean = x.mean(dim=(2, 3), keepdim=True)
-    var = (x - mean).square().mean(dim=(2, 3), keepdim=True)
-    return (x - mean) * torch.rsqrt(var + eps)
+    """Affine-free InstanceNorm2d over (H, W), two-pass variance in fp32,
+    returned in x's dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=(2, 3), keepdim=True)
+    var = (xf - mean).square().mean(dim=(2, 3), keepdim=True)
+    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
 class InstanceNorm(nn.Module):
@@ -203,7 +232,40 @@ class Dense(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
+class _Tanh(torch.autograd.Function):
+    """tanh whose backward is the JAX package's derivative op for op in the
+    gradient's dtype, (g + g y) (1 - y) with y = tanh(x), each product and
+    sum rounded (jax's tanh rule); torch's tanh backward rounds
+    g (1 - y^2) once."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.tanh(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return (g + g * y) * (1 - y)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    """torch.tanh in fp32; below fp32 with the JAX package's derivative."""
+    return torch.tanh(x) if x.dtype == torch.float32 else _Tanh.apply(x)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    return torch.tensor(value, dtype=dtype).item()
+
+
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    """Below fp32 the slope is rounded to x's dtype, as JAX multiplies by a
+    Python scalar in x's dtype (weak typing): 0.2 is 0.2001953125 in bf16,
+    where torch would multiply by fp32's 0.2 and round the product."""
+    if x.dtype != torch.float32:
+        slope = _rounded(slope, x.dtype)
     return torch.where(x >= 0, x, slope * x)
 
 

@@ -52,7 +52,8 @@ class MaskGate(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mask = mask_from_alpha(self.alpha, self.threshold)
-        return x * mask[None, :, None, None]
+        # the mask in x's dtype, as the JAX gate casts it: a bf16 x stays bf16
+        return x * mask.to(x.dtype)[None, :, None, None]
 
 
 def clip_alphas(alphas: Iterable[torch.Tensor]) -> None:

@@ -465,7 +465,7 @@ def test_refusals(tmp_path):
                      f"{SR} --checkpoints_dir {tmp_path}"):
             with pytest.raises(RuntimeError, match="CUDA"):
                 ttrain.main(f"{args} --name card".split())
-    for flag, match in (("--gpu_ids 0,1", "Queue A item 7"),
+    for flag, match in (("--gpu_ids 0,1", "Queue A item 5"),
                         ("--mesh_shape 2,1", "mesh_shape"),
                         ("--spatial_shards 2", "spatial_shards")):
         with pytest.raises(NotImplementedError, match=match):

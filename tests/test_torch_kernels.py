@@ -22,7 +22,13 @@ the main-path shapes that chip_smoke.py checks, and logits up to ~80
 forward within 1e-4, B1 forward within 1e-5 * max(|ref|, 1), gradients
 within 1e-4 * max(|ref|, 1) (reduction order; the split-TF32 products of
 B2 and B1 stay within a few fp32 roundings of fp32 ones,
-tests/test_torch_attention.py, tests/test_torch_mobile_block.py).
+tests/test_torch_attention.py, tests/test_torch_mobile_block.py). B2's bf16
+entry points against the bf16 plain versions: bf16 outputs within 2 bf16
+ulps of their largest value with at most 1 % of elements apart (the
+kernels round where the plain versions round; fp32 sums in another order
+move a few values to their other bf16 neighbour), fp32 weight gradients
+within 1e-3 of their largest value (``mobile_block.bf16_err`` and its
+bounds, which chip_smoke.py applies too).
 """
 
 import pytest
@@ -82,7 +88,8 @@ def test_kernels_match_plain(cuda, case):
     for a, b in zip(dw_k, mb.stage_bwd_dw_plain(gah, ahat, rstd_a, x, dwk)):
         _close(a, b, scale=True)
     assert {k: mb.LAUNCHES[k] - before[k] for k in before} == \
-        {"stage_fwd": 1, "stage_bwd_pw": 1, "stage_bwd_dw": 1}
+        {"stage_fwd": 1, "stage_bwd_pw": 1, "stage_bwd_dw": 1,
+         "stage_fwd_bf16": 0, "stage_bwd_pw_bf16": 0, "stage_bwd_dw_bf16": 0}
     # no float atomics: a second call gives the same bits
     assert all(torch.equal(a, b) for a, b in zip(
         pw_k, mb.stage_bwd_pw(g, ahat, bhat, rstd_b, pwk, relu)))
@@ -118,6 +125,102 @@ def test_wrapper_rejects_bad_input(cuda):
         mb.stage_fwd(x, dwk, torch.zeros(6, 5, 1, 1, device=cuda))
     with pytest.raises(ValueError):
         mb.stage_fwd(x, dwk.cpu(), pwk)
+
+
+# bf16 stages (B, C, M, H, W, relu, residual): the main path's teacher
+# stage (B 4, C = M = 256, 64x64) and its student stages (112 -> 72 with
+# relu, 72 -> 112 with the residual: partial 128-wide GEMM tiles), both
+# with relu and with a residual; CycleGAN's batch-1 teacher stage, off the
+# bf16 path until CycleGAN computes in bf16 (ROADMAP Queue A item 4); odd
+# widths (C, M off a multiple of 16, and of 8, which takes the GEMM's
+# element-wise copies), a ragged plane
+BF16_CASES = [(4, 256, 256, 64, 64, True, False),
+              (4, 256, 256, 64, 64, False, True),
+              (4, 112, 72, 64, 64, True, False),
+              (4, 72, 112, 64, 64, False, True),
+              (1, 256, 256, 64, 64, True, False),
+              (1, 256, 256, 64, 64, False, True),
+              (2, 24, 40, 20, 20, True, True), (2, 5, 7, 8, 12, True, False),
+              (3, 130, 70, 9, 33, False, True)]
+
+
+def _close_bf16(name, a, b):
+    """A bf16 kernel output against its plain version, within
+    mobile_block's BF16_ULPS and BF16_SHARE."""
+    assert a.dtype == b.dtype == torch.bfloat16, name
+    ulps, _, share = mb.bf16_err(a, b)
+    assert ulps <= mb.BF16_ULPS and share <= mb.BF16_SHARE, (name, ulps, share)
+
+
+def _close_dw(a, b):
+    """An fp32 weight gradient within BF16_DW of its plain version's
+    largest value."""
+    assert a.dtype == torch.float32
+    assert float((a - b).abs().max()) <= mb.BF16_DW * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16_CASES)
+def test_bf16_kernels_match_plain(cuda, case):
+    """The three bf16 entry points against the bf16 plain versions, each on
+    the plain version's inputs: bf16 outputs by _close_bf16, the fp32
+    weight gradients by _close_dw; a second call repeats the bits;
+    the bf16 launch counters move, the fp32 ones do not."""
+    B, C, M, H, W, relu, has_res = case
+    gen = torch.Generator().manual_seed(1)
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen) * scale).to(cuda, dtype)
+
+    bf = torch.bfloat16
+    x, dwk = rnd(B, C, H, W, dtype=bf), rnd(C, 1, 3, 3, scale=0.2)
+    pwk = rnd(M, C, 1, 1, scale=0.2)
+    res = rnd(B, M, H, W, dtype=bf) if has_res else None
+    g = rnd(B, M, H, W, dtype=bf)
+    before = dict(mb.LAUNCHES)
+    out_k = mb.stage_fwd(x, dwk, pwk, res, relu)
+    out_p = [t.contiguous() for t in mb.stage_fwd_plain(x, dwk, pwk, res, relu)]
+    for n, a, b in zip(("y", "a-hat", "b-hat"), out_k[:3], out_p[:3]):
+        _close_bf16(n, a, b)
+    for a, b in zip(out_k[3:], out_p[3:]):  # the 1/std vectors, fp32
+        _close(a, b, scale=True)
+    _, ahat, bhat, rstd_a, rstd_b = out_p
+    pw_k = mb.stage_bwd_pw(g, ahat, bhat, rstd_b, pwk, relu)
+    pw_p = mb.stage_bwd_pw_plain(g, ahat, bhat, rstd_b, pwk, relu)
+    _close_bf16("d a-hat", pw_k[0], pw_p[0])
+    _close_dw(pw_k[1], pw_p[1])
+    gah = pw_p[0].contiguous()
+    dw_k = mb.stage_bwd_dw(gah, ahat, rstd_a, x, dwk)
+    dw_p = mb.stage_bwd_dw_plain(gah, ahat, rstd_a, x, dwk)
+    _close_bf16("dx", dw_k[0], dw_p[0])
+    _close_dw(dw_k[1], dw_p[1])
+    assert {k: mb.LAUNCHES[k] - before[k] for k in before} == \
+        {"stage_fwd": 0, "stage_bwd_pw": 0, "stage_bwd_dw": 0,
+         "stage_fwd_bf16": 1, "stage_bwd_pw_bf16": 1, "stage_bwd_dw_bf16": 1}
+    assert all(torch.equal(a, b) for a, b in zip(
+        out_k, mb.stage_fwd(x, dwk, pwk, res, relu)))
+    assert all(torch.equal(a, b) for a, b in zip(
+        pw_k, mb.stage_bwd_pw(g, ahat, bhat, rstd_b, pwk, relu)))
+    assert all(torch.equal(a, b) for a, b in zip(
+        dw_k, mb.stage_bwd_dw(gah, ahat, rstd_a, x, dwk)))
+
+
+@pytest.mark.cuda
+def test_bf16_stage_function(cuda):
+    """fused_sep_stage on bf16 CUDA tensors: y and dx bf16, the weight
+    gradients fp32, through the bf16 kernels; an fp16 activation raises."""
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(2, 16, 12, 12, generator=gen).to(cuda, torch.bfloat16)
+    dwk = (torch.randn(16, 1, 3, 3, generator=gen) * 0.2).to(cuda)
+    pwk = (torch.randn(16, 16, 1, 1, generator=gen) * 0.2).to(cuda)
+    leaves = [x.clone().requires_grad_(True), dwk.requires_grad_(True),
+              pwk.requires_grad_(True)]
+    y = mb.fused_sep_stage(leaves[0], leaves[1], leaves[2], leaves[0], True)
+    assert y.dtype == torch.bfloat16
+    gx, gdw, gpw = torch.autograd.grad(y.float().sum(), leaves)
+    assert gx.dtype == torch.bfloat16 and gdw.dtype == gpw.dtype == torch.float32
+    with pytest.raises(ValueError):
+        mb.stage_fwd(x.half(), dwk, pwk)
 
 
 # (B, N, dq, dv, scale of q and k): scale 2 gives logits up to ~80, where

@@ -29,7 +29,11 @@ UNET = ("--model pix2pix --dataset_mode aligned --ngf 4 --ndf 4 "
         "--num_downs 5 --crop_size 32 --load_size 36 --batch_size 4 "
         "--num_threads 1 --n_epochs 1 --n_epochs_decay 0 --save_epoch_freq 1 "
         "--print_freq 4 --teacher_ngf 8 --teacher_ndf 8 --online_distillation "
-        "--darts_discriminator --lambda_content 50 --lambda_gram 1e4")
+        "--darts_discriminator --lambda_content 50 --lambda_gram 1e4 "
+        # fp32: on the CPU the device cache serves float32 whatever
+        # --compute_dtype says (gcc_tpu/data/__init__.py:93-95), so only fp32
+        # runs of the three sources can be equal
+        "--compute_dtype float32")
 SAGAN = ("--model sagan --dataset_mode sa --ngf 4 --ndf 4 --z_dim 16 "
          "--batch_size 4 --num_threads 1 --n_epochs 1 --print_freq 4 "
          "--save_epoch_freq 1 --teacher_ngf 8 --teacher_ndf 8 "
