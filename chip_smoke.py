@@ -195,13 +195,38 @@ Phases, each of which exits non-zero on failure:
               first moments) and the running statistics at most 1/4; (e)
               one cli.train epoch of the U-Net with default flags, which
               logs that it computes in bfloat16.
-Phases 1-16 run fp32 (phases 11 and 16 pass --compute_dtype float32): TF32
-is off for cuDNN and matmul, except in phase 15 (g). The last seven lines
-are phase 11's JSON record of its stages, phase 15's, phase 16's, phase
-17's, the card's name and power limit, the kernels' JSON record and
-{"ok": true, "device": ...}. A kernel's "launches" is the main path's count
-(phase 4 for B2, phase 7 for B1, phase 17 (c) for B2's bf16 entry points);
-"launches_by_path" adds phase 12's for B2 and phase 16 (c)'s cached runs.
+ 18. bf16 families SAGAN, CycleGAN and SRGAN in bf16: (a) B1's bf16 entry
+              points against their bf16 plain versions at phase 6's
+              shapes: O, dq, dk and dv within flash_attention.BF16_ULPS of
+              their largest plain value and at most BF16_SHARE of
+              elements apart (an output farther than that from its plain
+              version held to the float64 answer: no farther from it than
+              the plain version, flash_attention.bf16_share_ok), lse
+              within 1e-5, the
+              backward also on the kernel forward's own O and lse, two calls
+              the same bits; CUDA-event times of the kernel and the plain
+              version, F.scaled_dot_product_attention(scale=1) on bf16
+              tensors at the main path's shapes, bounds with 2-byte
+              operands and the TF32 mma the bf16 kernels issue
+              (attn_bounds); (b) phase 7's SAGAN iteration on bf16 batches, 6/2
+              bf16 B1 launches an iteration and no fp32 one, generate in
+              fp32; (c) phase 12's CycleGAN iteration on bf16 batches,
+              288/216/216 bf16 B2 launches an iteration; (d) phase 14's
+              SRGAN iteration on bf16 batches; (e) the tiny configurations
+              of tests/test_torch_bf16_{sagan,cyclegan,srgan}.py, one
+              iteration at learning rate 0 on the card in bf16 against the
+              CPU in bf16 and in fp32, as phase 17 (d); (f) one cli.train
+              epoch of SAGAN with default flags, which logs bfloat16 and
+              launches only B1's bf16 entry points.
+Phases 1-16 run fp32 (phases 7, 8, 12 and 14 on fp32 batches; phases 11 and
+16 pass --compute_dtype float32): TF32 is off for cuDNN and matmul, except
+in phase 15 (g). The last eight lines are phase 11's JSON record of its
+stages, phase 15's, phase 16's, phase 17's, phase 18's, the card's name and
+power limit, the kernels' JSON record and {"ok": true, "device": ...}. A
+kernel's "launches" is the main path's count (phase 4 for B2, phase 7 for
+B1, phase 17 (c) for B2's bf16 entry points, phase 18 (b) for B1's);
+"launches_by_path" adds phase 12's for B2, phase 16 (c)'s cached runs and
+phase 18 (c)'s for B2 in bf16.
 """
 
 import ast
@@ -221,8 +246,9 @@ STUDENT_CASES = [("student_relu", 4, 112, 72, 64, True, False),
 STUDENT_CFG = [24, 48, 112] + [72, 112] * 9 + [48, 24]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # fp32 outside the tensor cores, H100 SXM at 700 W
-# split-TF32: three TF32 tensor-core products (495 TFLOP/s dense) per product
-TF32X3_FLOPS = 495e12 / 3
+TF32_FLOPS = 495e12  # TF32 tensor cores, dense
+# split-TF32: three TF32 tensor-core products per product
+TF32X3_FLOPS = TF32_FLOPS / 3
 BF16_FLOPS = 989e12  # bf16 tensor cores, dense, fp32 accumulation
 PER_ITER = {"stage_fwd": 108, "stage_bwd_pw": 36, "stage_bwd_dw": 36}
 TPU_KERNEL = {"stage_fwd": "gcc_tpu/ops/pallas/mobile_block.py:155",
@@ -772,22 +798,35 @@ def phase_agree(torch, np):
         fail(f"generate differs by {err}")
 
 
-def attn_bounds(B, N, dq, dv):
-    """Least time for each B1 wrapper's work (fp32): its inputs read once and
-    outputs written once; its multiply-adds (2 flops each) at the peak of
-    the units it runs on: the forward's S = q^T k on the fp32 CUDA cores and
-    its P V^T on the tensor cores in split-TF32, every product of the
-    backward in split-TF32. "attn_fwd_fp32" and "attn_bwd_fp32" are the
-    bounds with every flop on the fp32 CUDA cores, printed beside them."""
-    pairs, bn = B * N * N, 4 * B * N
-    fwd_bytes = bn * (2 * dq + 2 * dv + 1)  # q, k, v in; O, lse out
+def attn_bounds(B, N, dq, dv, act=4):
+    """Least time for each B1 wrapper's work: its inputs read once and
+    outputs written once (q, k, v, dO, O and the gradients of act bytes: 4
+    in fp32, 2 in bf16; lse and delta fp32); its multiply-adds (2 flops
+    each) at the peak of the units the kernel runs them on. The forward's
+    S = q^T k is on the fp32 CUDA cores in both dtypes. The tensor-core
+    products are split-TF32, three TF32 mma a product in fp32; in bf16
+    (act 2) an operand read as bf16 has a zero lo part whose mma the kernels
+    skip: two TF32 mma for a product with one fp32 operand (P V^T, dQ = ds
+    k, dK = ds^T q, dV = p^T dO), one for the backward's S and dP (both
+    operands bf16). "attn_fwd_fp32" and "attn_bwd_fp32" are the bounds with
+    every flop on the fp32 CUDA cores, printed beside them."""
+    pairs, bn = B * N * N, B * N
+    fwd_bytes = bn * (act * (2 * dq + 2 * dv) + 4)  # q, k, v in; O, lse out
     # q, k, v, dO, lse, delta in; dq, dk, dv out
-    bwd_bytes, bwd_flops = bn * (4 * dq + 3 * dv + 2), 2 * pairs * (3 * dq + 2 * dv)
-    return {"attn_fwd": bound_ms(fwd_bytes, (2 * pairs * dq, FP32_FLOPS),
-                                 (2 * pairs * dv, TF32X3_FLOPS)),
+    bwd_bytes = bn * (act * (4 * dq + 3 * dv) + 8)
+    bwd_flops = 2 * pairs * (3 * dq + 2 * dv)
+    if act == 2:
+        # the tensor cores' time in TF32 mma units: S, dP one mma a
+        # product; P V^T, dQ, dK, dV two
+        pv = (2 * pairs * dv, TF32_FLOPS / 2)
+        bwd = (2 * pairs * (5 * dq + 3 * dv), TF32_FLOPS)
+    else:
+        pv = (2 * pairs * dv, TF32X3_FLOPS)
+        bwd = (bwd_flops, TF32X3_FLOPS)
+    return {"attn_fwd": bound_ms(fwd_bytes, (2 * pairs * dq, FP32_FLOPS), pv),
             "attn_fwd_fp32": bound_ms(fwd_bytes,
                                       (2 * pairs * (dq + dv), FP32_FLOPS)),
-            "attn_bwd": bound_ms(bwd_bytes, (bwd_flops, TF32X3_FLOPS)),
+            "attn_bwd": bound_ms(bwd_bytes, bwd),
             "attn_bwd_fp32": bound_ms(bwd_bytes, (bwd_flops, FP32_FLOPS))}
 
 
@@ -1332,7 +1371,7 @@ def phase_cli(torch, np):
         sg = (f"--dataroot synthetic/celeb --dataset_mode synthetic "
               f"--model sagan --max_dataset_size 128 --n_epochs 1 "
               f"--save_epoch_freq 1 --print_freq 64 --num_threads 4 "
-              f"--checkpoints_dir {tmp}").split()
+              f"--compute_dtype float32 --checkpoints_dir {tmp}").split()
         g1 = sg + "--lambda_scale 1e-2 --ngf 48 --ndf 64 --name g1".split()
         run_cli(torch, "sagan stage 1", g1, counters, records)
         gbest = f"{tmp}/g1/checkpoints/model_best_AtoB.ckpt"
@@ -1427,7 +1466,7 @@ def cli_cyclegan(torch, np, tmp, counters, records):
           f"--model cyclegan --max_dataset_size 4 --n_epochs 1 "
           f"--n_epochs_decay 0 --save_epoch_freq 1 --print_freq 1 "
           f"--crop_size {size} --load_size {size} --num_threads 4 "
-          f"--checkpoints_dir {tmp}").split()
+          f"--compute_dtype float32 --checkpoints_dir {tmp}").split()
     run_cli(torch, "cyclegan stage 1",
             cg + "--lambda_weight 1e-3 --ndf 64 --ngf 48 --name c1".split(),
             counters, records)
@@ -1463,7 +1502,8 @@ def cli_srgan(torch, np, tmp, counters, records):
     sr = (f"--dataroot synthetic/sr --dataset_mode synthetic --model srgan "
           f"--max_dataset_size 32 --n_epochs 1 --n_epochs_decay 0 "
           f"--save_epoch_freq 1 --print_freq 16 --image_size {SRGAN_HR} "
-          f"--num_threads 4 --checkpoints_dir {tmp}").split()
+          f"--num_threads 4 --compute_dtype float32 --checkpoints_dir {tmp}"
+          ).split()
     run_cli(torch, "srgan teacher",
             sr + "--generator_only --ngf 64 --name t0".split(), counters,
             records)
@@ -1889,7 +1929,9 @@ def random_vgg19(np):
     return load_torch_vgg19(sd)
 
 
-def phase_srgan(torch, np):
+def phase_srgan(torch, np, dtype=None, record=None):
+    """Phase 14 (and phase 18 (d) with dtype bfloat16: the batches cast to
+    it, generate on the fp32 batch, as the epoch-end eval runs)."""
     from gcc_tpu_torch.compress import prune_srresnet
     from gcc_tpu_torch.config import Config
     from gcc_tpu_torch.engines.srgan import SRGANEngine
@@ -1900,7 +1942,8 @@ def phase_srgan(torch, np):
 
     hr, batch, w = SRGAN_HR, SRGAN_BATCH, SRGAN_WIDTHS
     lr_size = hr // 4
-    print(f"== phase 14: SRGAN GCC iteration (scripts/srgan/train.sh), "
+    print(f"{'  (d) bf16 batches' if dtype else '== phase 14'}: SRGAN GCC "
+          f"iteration (scripts/srgan/train.sh), "
           f"{hr}px from {lr_size}px (x4), batch {batch}, vanilla GAN, "
           f"teacher ngf {w['teacher_ngf']} / ndf {w['teacher_ndf']}, ndf "
           f"{w['ndf']} masked, content 0.1, gram 0.1; VGG19 perceptual term "
@@ -1928,8 +1971,12 @@ def phase_srgan(torch, np):
                for _ in range(2 * (N_TIMED + 1))]
     for k in fa.LAUNCHES:
         fa.LAUNCHES[k] = 0
-    drive(torch, engine, cfg, batches, batches[0]["lr"], mb.LAUNCHES,
-          {k: 0 for k in mb.LAUNCHES}, {}, "srgan path", out_size=hr)
+    gen_in = batches[0]["lr"]
+    if dtype is not None:
+        batches = [{k: v.to(dtype) for k, v in b.items()} for b in batches]
+    drive(torch, engine, cfg, batches, gen_in, mb.LAUNCHES,
+          {k: 0 for k in mb.LAUNCHES}, {}, "srgan path", out_size=hr,
+          record=record)
     if any(fa.LAUNCHES.values()):
         fail(f"srgan path launched B1: {fa.LAUNCHES}")
 
@@ -2589,7 +2636,8 @@ def phase_pipeline(torch, np, smi):
               f"--print_freq {64 * PIPE_ITERS} --darts_discriminator "
               f"--threshold 0.1 --online_distillation --lambda_L1 0 "
               f"--lambda_content 1 --lambda_gram 1 --num_threads 4 "
-              f"--memory_guard strict --checkpoints_dir {tmp}").split()
+              f"--memory_guard strict --compute_dtype float32 "
+              f"--checkpoints_dir {tmp}").split()
         print(f"  (c) cli.train, one epoch of {PIPE_ITERS} iterations from "
               f"each source, --memory_guard strict")
         for path, argv, per_iter, (packed, folder) in (
@@ -2619,8 +2667,8 @@ def phase_pipeline(torch, np, smi):
 
 # phase 17: the bf16 compute path (--compute_dtype bfloat16, the default).
 # B2's bf16 kernels at the main path's teacher and student stages, with relu
-# and with a residual, and at CycleGAN's batch-1 teacher stage, which is off
-# the bf16 path until CycleGAN computes in bf16 (ROADMAP Queue A item 4)
+# and with a residual, and at CycleGAN's batch-1 teacher stage (phase 18
+# (c)'s path)
 BF16_CASES = [("teacher_relu", 4, 256, 256, 64, True, False),
               ("teacher_res", 4, 256, 256, 64, False, True),
               ("student_relu", 4, 112, 72, 64, True, False),
@@ -2654,9 +2702,10 @@ AGREE_BOUNDS = {("resnet_fused", "grad td"): 0.35,  # measured 0.245
 
 
 def check_bf16(torch, name, got, ref, rec):
+    from gcc_tpu_torch.ops import kernels
     from gcc_tpu_torch.ops import mobile_block as mb
 
-    ulps, err, share = mb.bf16_err(got, ref)
+    ulps, err, share = kernels.bf16_err(got, ref)
     print(f"    {name:<14} {ulps:.3f} bf16 ulps of max|ref| (max|d| "
           f"{err:.3e}), {share:.2e} of elements differ; tol {mb.BF16_ULPS} "
           f"ulps, {mb.BF16_SHARE}")
@@ -2822,6 +2871,7 @@ def _first_difference(torch, np, name, device="cuda"):
     teacher's output)}."""
     from gcc_tpu_torch.config import Config
     from gcc_tpu_torch.engines.pix2pix import Pix2PixEngine
+    from gcc_tpu_torch.ops import kernels
     from gcc_tpu_torch.ops import mobile_block as mb
     from gcc_tpu_torch.ops.layers import Conv, ConvTranspose
 
@@ -2869,7 +2919,7 @@ def _first_difference(torch, np, name, device="cuda"):
             a, b = a.float(), b.float()
             share = float((a != b).float().mean())
             if m is None:  # a fused stage: (a)'s bounds
-                ulps = mb.bf16_err(a, b)[0]
+                ulps = kernels.bf16_err(a, b)[0]
                 ok = ulps <= mb.BF16_ULPS and share <= mb.BF16_SHARE
             else:
                 big = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
@@ -3028,6 +3078,397 @@ def phase_bf16(torch, np, F, fp32):
 
 
 
+# phase 18: SAGAN, CycleGAN and SRGAN in bf16, and kernel B1's bf16 entry
+# points. B1 in bf16 on the main path: SAGAN's generators' attn2 at N 1024,
+# three teacher and three student forwards and two backwards an iteration
+ATTN_PER_ITER_BF16 = {"attn_fwd_bf16": 6, "attn_bwd_bf16": 2}
+TPU_KERNEL.update({"attn_fwd_bf16": TPU_KERNEL["attn_fwd"],
+                   "attn_bwd_bf16": TPU_KERNEL["attn_bwd"]})
+# (e)'s bounds of the composed iteration, 1/4 unless named (None: finite
+# only), as phase 17 (d)'s AGREE_BOUNDS (measured on an H100). The
+# named results are the teachers' gradients: they read a teacher forward in
+# which the card's and the CPU's convolution sums first round to different
+# bf16 neighbours (family_first_difference), which the deep teacher
+# spreads, and the teacher D's backward on its fakes; the CPU test files
+# name the same results against gcc_tpu for the same cause
+FAMILY_BOUNDS = {("sagan", "grad td"): 0.4,  # measured 0.319
+                 ("sagan", "grad tg"): 0.5,  # measured 0.449
+                 ("cyclegan", "grad tg"): 0.5,  # measured 0.439
+                 ("cyclegan", "grad td"): None}  # measured 0.551
+
+
+def check_attn_bf16(torch, fa, name, got, plain, rec, exact=None):
+    """A bf16 kernel output against its plain version: within fa.BF16_ULPS
+    of the plain version's largest value, and fa.bf16_share_ok (the share
+    apart, or, for an output more than fa.BF16_SHARE from its plain
+    version, no farther from the float64 answer than the plain version)."""
+    from gcc_tpu_torch.ops import kernels
+
+    ulps, err, _ = kernels.bf16_err(got, plain)
+    ok, share, plain_off, got_off = fa.bf16_share_ok(got, plain, exact)
+    print(f"    {name:<10} {ulps:.3f} bf16 ulps of max|plain| (max|d| "
+          f"{err:.3e}), {share:.2e} of elements apart"
+          + (f"; from the float64 answer: the plain version {plain_off:.4e},"
+             f" the kernel {got_off:.4e}" if exact is not None else "")
+          + f"; tol {fa.BF16_ULPS} ulps, {fa.BF16_SHARE}")
+    if got.dtype != torch.bfloat16 or not (ulps <= fa.BF16_ULPS and ok):
+        fail(f"bf16 {name}: {got.dtype}, {ulps} ulps, share {share}")
+    rec["max_ulps"] = max(rec["max_ulps"], ulps)
+    rec["max_share"] = max(rec["max_share"], share)
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    if exact is not None:
+        rec["float64_share"] = max(rec.get("float64_share", 0.0), got_off)
+        rec["plain_float64_share"] = max(rec.get("plain_float64_share", 0.0),
+                                         plain_off)
+    return share
+
+
+def attention_bf16(torch, F):
+    """(a) B1's bf16 entry points against their bf16 plain versions at
+    phase 6's shapes."""
+    from gcc_tpu_torch.ops import flash_attention as fa
+
+    bf = torch.bfloat16
+    record = {k: {"max_abs_err": 0.0, "max_ulps": 0.0, "max_share": 0.0}
+              for k in ATTN_PER_ITER_BF16}
+    gen = torch.Generator().manual_seed(0)
+    for case, B, N, dq, dv, qk_scale in ATTN_CASES:
+        print(f"  (a) {case}: B={B} N={N} dq={dq} dv={dv} q, k scale "
+              f"{qk_scale}, bf16")
+
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen) * scale).to(
+                "cuda", bf)
+
+        q, k = rnd(B, dq, N, scale=qk_scale), rnd(B, dq, N, scale=qk_scale)
+        v, do = rnd(B, dv, N), rnd(B, dv, N)
+        o, lse = fa.attn_fwd(q, k, v)
+        o_p, lse_p = fa.attn_fwd_plain(q, k, v)
+        check_attn_bf16(torch, fa, "fwd O", o, o_p, record["attn_fwd_bf16"])
+        check_close("fwd lse", lse, lse_p,
+                    1e-5 * max(float(lse_p.abs().max()), 1.0))
+        rec = record["attn_bwd_bf16"]
+        # the backward on the plain forward's O and lse, then on the kernel
+        # forward's own, each against the plain backward on the same O and
+        # lse (the bf16 rounding of O moves delta more than the kernels do)
+        for what, (oo, ll) in (("", (o_p, lse_p)), (" on kernel O", (o, lse))):
+            delta = (do.float() * oo.float()).sum(1)
+            args = (q, k, v, do, ll.contiguous(), delta)
+            got, plain = fa.attn_bwd(*args), fa.attn_bwd_plain(*args)
+            exact = None
+            if any(not fa.bf16_share_ok(a, b)[0] for a, b in zip(got, plain)):
+                # the float64 answer: the plain version on float64 inputs
+                exact = fa.attn_bwd_plain(*(t.double() for t in args))
+            for i, n in enumerate(("dq", "dk", "dv")):
+                check_attn_bf16(torch, fa, f"bwd {n}{what}", got[i], plain[i],
+                                rec, None if exact is None else exact[i])
+            del exact
+        if not all(torch.equal(a, b) for a, b in zip(got, fa.attn_bwd(*args))):
+            fail(f"{case}: two bf16 attn_bwd calls differ")
+        if not all(torch.equal(a, b)
+                   for a, b in zip((o, lse), fa.attn_fwd(q, k, v))):
+            fail(f"{case}: two bf16 attn_fwd calls differ")
+        bounds = {f"{k}_bf16": v for k, v in
+                  attn_bounds(B, N, dq, dv, act=2).items()}
+        timed = {"attn_fwd_bf16": (lambda: fa.attn_fwd(q, k, v),
+                                   lambda: fa.attn_fwd_plain(q, k, v)),
+                 "attn_bwd_bf16": (lambda: fa.attn_bwd(*args),
+                                   lambda: fa.attn_bwd_plain(*args))}
+        main = case in ("teacher", "student")
+        if main:
+            tok = [t.transpose(1, 2).unsqueeze(1).contiguous()
+                   .requires_grad_(True) for t in (q, k, v)]
+            do_tok = do.transpose(1, 2).unsqueeze(1).contiguous()
+
+            def sdpa():
+                return F.scaled_dot_product_attention(*tok, scale=1.0)
+
+            lib_fwd = cuda_ms(torch, sdpa)
+            lib = {"attn_fwd_bf16": lib_fwd, "attn_bwd_bf16": cuda_ms(
+                torch, lambda: torch.autograd.grad(sdpa(), tok, do_tok))
+                - lib_fwd}
+        for key, (kern, plain) in timed.items():
+            n = 20 if main else 3
+            t = {"ms": cuda_ms(torch, kern, n=n),
+                 "plain_ms": cuda_ms(torch, plain, n=n),
+                 "library_ms": lib[key] if main else None}
+            t["bound_ms"], t["bound_by"] = bounds[key]
+            print(f"    {key:<14} kernel {t['ms']:.4f} ms  plain "
+                  f"{t['plain_ms']:.4f} ms  library {t['library_ms']} ms  "
+                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+                  f"{t['bound_ms'] / t['ms']:.3f} of it")
+            if case == "teacher":
+                record[key].update(t)
+        del q, k, v, do, o, lse, o_p, lse_p, got, plain
+        torch.cuda.empty_cache()
+    return record
+
+
+def family_engine(torch, np, family, dev):
+    """The tests' tiny configuration of a family on ``dev`` at learning
+    rate 0 (tests/test_torch_bf16_{sagan,cyclegan,srgan}.py) and its two
+    batches' maker: (engine, batches(dtype))."""
+    from gcc_tpu_torch.config import Config
+    if family == "sagan":
+        from gcc_tpu_torch.engines.sagan import SAGANEngine
+        cfg = sagan_config(Config, ngf=8, ndf=8, teacher_ngf=8,
+                           teacher_ndf=8, z_dim=8, lambda_L1=0.5, lr=0.0,
+                           arch_lr=0.0, lambda_weight=1e-4)
+        engine = SAGANEngine(cfg, filter_cfgs=[20, 12, 9, 16], device=dev)
+        shapes = {"z": (2, 8), "real_img": (2, 3, 64, 64)}
+    elif family == "cyclegan":
+        from gcc_tpu_torch.engines.cyclegan import CycleGANEngine
+        cfg = cyclegan_config(Config, ngf=4, ndf=8, teacher_ngf=8,
+                              teacher_ndf=8, crop_size=32, load_size=32,
+                              pool_size=0, lr=0.0, arch_lr=0.0,
+                              lambda_L1=1.0, lambda_weight=1e-3)
+        engine = CycleGANEngine(cfg, cfg_AtoB=[
+            3, 6, 12, 5, 12, 7, 12, 4, 12, 2, 12, 0, 0, 6, 12, 5, 12, 3, 12,
+            8, 12, 6, 3], device=dev)
+        shapes = {"A": (2, 3, 32, 32), "B": (2, 3, 32, 32)}
+    else:
+        from gcc_tpu_torch.engines.srgan import SRGANEngine
+        cfg = Config(model="srgan", ngf=8, ndf=8, teacher_ngf=8,
+                     teacher_ndf=8, image_size=32, gan_mode="vanilla",
+                     online_distillation=True, darts_discriminator=True,
+                     lr=0.0, arch_lr=0.0, lambda_SR_adversarial=1e-3,
+                     lambda_SR_perceptual=1.0, lambda_content=1.0,
+                     lambda_gram=1.0, lambda_L1=1.0)
+        engine = SRGANEngine(cfg, filter_cfgs=[4, 6, 8, 4, 6, 8, 4, 0, 8, 4,
+                                               6, 8, 4, 6, 8, 4],
+                             device=dev, vgg_params=random_vgg19(np))
+        shapes = {"lr": (2, 3, 8, 8), "hr": (2, 3, 32, 32)}
+
+    def batches(dtype):
+        rng = np.random.RandomState(7)
+        out = []
+        for _ in range(2):
+            b = {}
+            for k, shp in shapes.items():
+                a = rng.randn(*shp) if k == "z" else rng.rand(*shp) * 2 - 1
+                b[k] = torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+            out.append(b)
+        return out
+
+    return engine, batches
+
+
+def family_agree(torch, np, family, device="cuda"):
+    """(e) One train_step + arch_step at learning rate 0 of the family's
+    test configuration on the card in bf16, on the CPU in bf16 and on the
+    CPU in fp32, from the same seeded init on the same batches:
+    rms(card - CPU bf16) / rms(CPU bf16 - CPU fp32) of each update's losses
+    (D, G, arch), each optimizer's gradients (first moments) and each
+    net's running statistics. ``device`` stands in for the card in a dry
+    run."""
+    runs = {}
+    for run, dev, dt in (("cpu", "cpu", torch.bfloat16),
+                         ("ref", "cpu", torch.float32),
+                         ("card", device, torch.bfloat16)):
+        engine, batches = family_engine(torch, np, family, dev)
+        state = engine.init_state(seed=5)
+        for net in state.nets.values():  # attention gammas non-zero
+            for name, mod in net.named_modules():
+                if hasattr(mod, "gamma") and name.endswith("attn1"):
+                    mod.gamma.data.fill_(0.5)
+                elif hasattr(mod, "gamma"):
+                    mod.gamma.data.fill_(-0.3)
+        b = batches(dt)
+        state, m = engine.train_arch_step(state, b[0], b[1], 0.0, 0.9, 0.0)
+        host = lambda ts: [t.detach().cpu().double() for t in ts]  # noqa: E731
+        arch = sorted(k for k in m if "arch" in k)
+        d = sorted(k for k in m if k in ("D_A", "D_B", "D_fake", "D_real"))
+        g = sorted(k for k in m if k not in arch and k not in d)
+        out = {f"loss {n}": host(m[k] for k in keys)
+               for n, keys in (("D", d), ("G", g), ("arch", arch))}
+        out.update({f"grad {k}": host(o.mu) for k, o in state.opts.items()})
+        for n, net in state.nets.items():
+            stats = [t for k, t in net.state_dict().items() if "running" in k]
+            if stats:
+                out[f"stats {n}"] = host(stats)
+        runs[run] = out
+    return {k: _ratio(runs["card"][k], runs["cpu"][k], runs["ref"][k])
+            for k in runs["cpu"]}
+
+
+def family_first_difference(torch, np, family, device="cuda"):
+    """Where the card's bf16 teacher G forward first leaves the CPU's, on
+    (e)'s train batch, module by module: the first module whose output
+    differs, if one does, must be a convolution or a BatchNorm within one
+    bf16 ulp of its largest output in at most 1 % of its outputs (the two
+    devices' fp32 sums, a conv's products or a BatchNorm's batch
+    statistics, rounding to different bf16 neighbours), a self-attention
+    within B1's bf16 bounds or a fused stage within B2's. Returns (module, share
+    of its outputs apart, rms(card - CPU) / rms(CPU - CPU fp32) at the
+    teacher's output)."""
+    from gcc_tpu_torch.ops import flash_attention as fa
+    from gcc_tpu_torch.ops import kernels
+    from gcc_tpu_torch.ops import mobile_block as mb
+    from gcc_tpu_torch.ops.attention import SelfAttention
+    from gcc_tpu_torch.ops.layers import BatchNorm, Conv, ConvTranspose
+
+    seen, order = {}, []
+    stage = mb.fused_sep_stage
+
+    def recorded(*a, **k):
+        y = stage(*a, **k)
+        order.append(("fused_sep_stage", None, y))
+        return y
+
+    mb.fused_sep_stage = recorded
+    try:
+        for run, dev, dt in (("cpu", "cpu", torch.bfloat16),
+                             ("ref", "cpu", torch.float32),
+                             ("card", device, torch.bfloat16)):
+            engine, batches = family_engine(torch, np, family, dev)
+            nets = engine.init_state(seed=5).nets
+            tg = nets["tg_a" if family == "cyclegan" else "tg"]
+            for name, mod in tg.named_modules():
+                if isinstance(mod, SelfAttention):
+                    mod.gamma.data.fill_(0.5 if name == "attn1" else -0.3)
+                if name:
+                    mod.register_forward_hook(
+                        lambda m, i, o, n=name: order.append((n, m, o)))
+            x = next(iter(batches(dt)[0].values()))
+            order.clear()
+            with torch.no_grad():
+                out = tg(x)[0]
+            seen[run] = (out.float().cpu().double(),
+                         [(n, m, o.cpu()) for n, m, o in order
+                          if isinstance(o, torch.Tensor)])
+    finally:
+        mb.fused_sep_stage = stage
+    (c_out, card), (r_out, cpu), (f_out, _) = (
+        seen[run] for run in ("card", "cpu", "ref"))
+    for (n, m, a), (_, _, b) in zip(card, cpu):
+        if torch.equal(a, b):
+            continue
+        ulps, _, share = kernels.bf16_err(a, b)
+        if m is None:  # a fused stage: B2's bounds
+            ok = ulps <= mb.BF16_ULPS and share <= mb.BF16_SHARE
+        elif isinstance(m, SelfAttention):  # B1's bounds
+            ok = ulps <= fa.BF16_ULPS and fa.bf16_share_ok(a, b)[0]
+        else:
+            ok = (isinstance(m, (Conv, ConvTranspose, BatchNorm))
+                  and ulps <= 1.0 and share <= 0.01)
+        if not ok:
+            fail(f"bf16 {family}: the teacher first differs at {n} "
+                 f"({type(m).__name__}), {ulps} ulps, share {share}")
+        return n, share, _ratio([c_out], [r_out], [f_out])
+    return None, 0.0, _ratio([c_out], [r_out], [f_out])
+
+
+def phase_bf16_families(torch, np, F):
+    from gcc_tpu_torch.compress import cyclegan_reference_cfgs
+    from gcc_tpu_torch.config import Config
+    from gcc_tpu_torch.engines.cyclegan import CycleGANEngine
+    from gcc_tpu_torch.engines.sagan import SAGANEngine
+    from gcc_tpu_torch.ops import flash_attention as fa
+    from gcc_tpu_torch.ops import mobile_block as mb
+
+    t_phase = time.perf_counter()
+    print("== phase 18: bf16 families: SAGAN (kernel B1 in bf16), CycleGAN "
+          "and SRGAN in --compute_dtype bfloat16")
+    rec = {}
+    record = attention_bf16(torch, F)
+
+    # (b) SAGAN at phase 7's full width on bf16 batches
+    batch, n_timed = 64, 3
+    print(f"  (b) SAGAN GCC iteration in bf16, 64px, batch {batch}, 1 "
+          f"warm-up + {n_timed} timed (phase 7's fp32 run above); generate "
+          f"in fp32, as the epoch-end eval runs")
+    cfg = sagan_config(Config, ngf=48, ndf=64, teacher_ngf=64, teacher_ndf=64,
+                       z_dim=128, batch_size=batch)
+    engine = SAGANEngine(cfg, filter_cfgs=SAGAN_STUDENT_CFG)
+    batches = make_sagan_batches(torch, np, 2 * (n_timed + 1), batch,
+                                 cfg.z_dim, 0, engine.device)
+    rec["sagan"] = {}
+    launches = drive(torch, engine, cfg, _bf16_batches(torch, batches),
+                     batches[0]["z"], fa.LAUNCHES, ATTN_PER_ITER_BF16,
+                     {"attn_fwd": 1}, "sagan bf16 path", record=rec["sagan"])
+    del engine, batches
+    torch.cuda.empty_cache()
+
+    # (c) CycleGAN at phase 12's full width on bf16 batches
+    cfg_a, cfg_b = cyclegan_reference_cfgs()
+    size, w = CYCLEGAN_SIZE, CYCLEGAN_WIDTHS
+    print(f"  (c) CycleGAN GCC iteration in bf16, {size}px, batch 1, fused "
+          f"blocks, 1 warm-up + {N_TIMED} timed (phase 12's fp32 run above)")
+    cfg = cyclegan_config(Config, crop_size=size, load_size=size, **w)
+    engine = CycleGANEngine(cfg, cfg_AtoB=cfg_a, cfg_BtoA=cfg_b)
+    batches = make_batches(torch, np, 2 * (N_TIMED + 1), 1, size, 0,
+                           engine.device)
+    per_iter, gen_calls = cyclegan_launches(cfg_a, cfg_b)
+    per_iter = {f"{k}_bf16": v for k, v in per_iter.items()}
+    for k in fa.LAUNCHES:
+        fa.LAUNCHES[k] = 0
+    b0 = batches[0]
+    rec["cyclegan"] = {}
+    cg_launches = drive(
+        torch, engine, cfg, _bf16_batches(torch, batches), b0["A"],
+        mb.LAUNCHES, per_iter, gen_calls, "cyclegan bf16 path",
+        generate=lambda st: [engine.generate(st, b0["A"], "AtoB"),
+                             engine.generate(st, b0["B"], "BtoA")],
+        record=rec["cyclegan"])
+    if any(fa.LAUNCHES.values()):
+        fail(f"cyclegan bf16 path launched B1: {fa.LAUNCHES}")
+    del engine, batches
+    torch.cuda.empty_cache()
+
+    # (d) SRGAN at phase 14's full width on bf16 batches
+    rec["srgan"] = {}
+    phase_srgan(torch, np, dtype=torch.bfloat16, record=rec["srgan"])
+    torch.cuda.empty_cache()
+
+    # (e) the card against the CPU in bf16, in the CPU tests' manner
+    print("  (e) card against CPU in bf16, the tiny configurations of "
+          "tests/test_torch_bf16_{sagan,cyclegan,srgan}.py at learning rate "
+          "0, one iteration: rms(card - CPU bf16) / rms(CPU bf16 - CPU "
+          "fp32) by update, optimizer and net, bound 1/4 unless "
+          "FAMILY_BOUNDS names it")
+    rec["agree"], over = {}, []
+    for family in ("sagan", "cyclegan", "srgan"):
+        got = family_agree(torch, np, family)
+        n, share, r = family_first_difference(torch, np, family)
+        print(f"    {family} teacher forward, train batch: first differs "
+              f"at {n} ({share:.2e} of its outputs), ratio {r:.4f} at its "
+              f"output")
+        rec["agree"][family] = {"ratios": got, "teacher first difference": {
+            "module": n, "share": share, "output ratio": r}}
+        for k, v in got.items():
+            bound = FAMILY_BOUNDS.get((family, k), 0.25)
+            print(f"    {family} {k}: {v:.4f} (bound {bound})")
+            if not (math.isfinite(v) and (bound is None or v <= bound)):
+                over.append(f"{family} {k} {v} > {bound}")
+    if over:
+        fail(f"bf16 card against CPU: {over}")
+
+    # (f) one cli.train epoch of SAGAN with default flags
+    import tempfile
+    counters = {"B2": mb.LAUNCHES, "B1": fa.LAUNCHES}
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = (f"--dataroot synthetic/celeb --dataset_mode synthetic "
+                f"--model sagan --max_dataset_size 128 --n_epochs 1 "
+                f"--save_epoch_freq 1 --print_freq 64 --num_threads 4 "
+                f"--ngf 48 --ndf 64 --checkpoints_dir {tmp} --name bf").split()
+        records = []
+        clock, _, lines = run_cli(torch, "(f) sagan, default flags", argv,
+                                  counters, records)
+    want = "port: computes in bfloat16 (--compute_dtype bfloat16)"
+    if not any(line.startswith(want) for line in lines):
+        fail(f"(f) the CLI did not log {want!r}")
+    b1 = [{k: g[k] for k in fa.LAUNCHES} for g in clock.summary()[2]]
+    print(f"  (f) B1 launches per iteration through the CLI: {b1}")
+    if not b1 or any(g["attn_fwd"] or g["attn_bwd"] or not g["attn_fwd_bf16"]
+                     or not g["attn_bwd_bf16"] for g in b1):
+        fail(f"(f) sagan default flags: B1 launches {b1}")
+    rec["cli"] = records[0]
+    rec["seconds"] = round(time.perf_counter() - t_phase, 3)
+    print(f"  phase 18 took {rec['seconds']} s")
+    return record, launches, cg_launches, rec
+
+
+
 def main():
     import numpy as np
     import torch
@@ -3082,6 +3523,14 @@ def main():
     for k in PER_ITER_BF16:
         launches[k] = bf16_launches[k]
         by_path[k] = {"pix2pix resnet bf16": bf16_launches[k]}
+    attn_record, sagan_bf16, cg_bf16, families = phase_bf16_families(
+        torch, np, F)
+    record.update(attn_record)
+    for k in ATTN_PER_ITER_BF16:
+        launches[k] = sagan_bf16[k]
+        by_path[k] = {"sagan bf16": sagan_bf16[k]}
+    for k in PER_ITER_BF16:
+        by_path[k]["cyclegan bf16"] = cg_bf16[k]
 
     entries = []
     for k, rec in record.items():
@@ -3096,12 +3545,14 @@ def main():
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-            **{m: rec[m] for m in ("max_ulps", "max_share", "max_rel_dw")
+            **{m: rec[m] for m in ("max_ulps", "max_share", "max_rel_dw",
+                                   "float64_share", "plain_float64_share")
                if m in rec}})
     print(json.dumps({"cli": cli}))
     print(json.dumps({"evaluators": evaluators}))
     print(json.dumps({"pipeline": pipeline}))
     print(json.dumps({"bf16": bf16}))
+    print(json.dumps({"bf16_families": families}))
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -20,10 +20,9 @@ each iteration ships only the transform parameters. ``--memory_guard``
 measures the first step's peak device memory before the run goes on
 (utils/memory_guard.py; ``auto`` on a card, ``strict`` aborts when it does
 not fit). Meshes and spatial shards are refused. ``--compute_dtype`` (bf16
-by default, as in the JAX package) casts pix2pix's train and val batches,
-and the engine computes in their dtype; the other families compute in fp32
-until their bf16 path is ported, and say so in the log. ``--compile_cache``
-is XLA's and ignored.
+by default, as in the JAX package) casts every family's train and val
+batches, and the engine computes in their dtype. ``--compile_cache`` is
+XLA's and ignored.
 """
 
 from __future__ import annotations
@@ -95,12 +94,8 @@ def check_knobs(cfg, logger) -> None:
     if not cfg.isTrain:
         what = ("port: evaluates in float32, as the JAX package's eval "
                 "does")
-    elif dtype == cfg.compute_dtype:
-        what = f"port: computes in {dtype} (--compute_dtype {dtype})"
     else:
-        what = (f"port: computes in {dtype}: --compute_dtype "
-                f"{cfg.compute_dtype} is not ported for {cfg.model} yet "
-                f"(ROADMAP Queue A item 4)")
+        what = f"port: computes in {dtype} (--compute_dtype {dtype})"
     logger.info(f"{what}; XLA-only --compile_cache "
                 f"{cfg.compile_cache or 'off'} ignored")
 
@@ -169,9 +164,9 @@ def build_engine(cfg, logger=None, device=None):
 
 def set_input(cfg, batch: Dict, device) -> Dict[str, torch.Tensor]:
     """Direction swap (models/Pix2Pix.py:453-458) + host NHWC numpy -> NCHW
-    tensors on the device in the run's compute dtype (device.compute_dtype:
-    ``--compute_dtype`` for pix2pix, float32 for the others, as
-    gcc_tpu/cli/train.py:92-110 casts); path lists are dropped.
+    tensors on the device in the run's compute dtype (``--compute_dtype``,
+    as gcc_tpu/cli/train.py:92-110 casts; SAGAN's numpy z too); path lists
+    are dropped.
 
     Packed datasets deliver uint8 (data/packed.py): those keys go over raw
     (4x fewer host->device bytes) and normalize on the device. Device-cached

@@ -1,4 +1,5 @@
-// Flash self-attention for SAGAN on Hopper (sm_90a), fp32, one head.
+// Flash self-attention for SAGAN on Hopper (sm_90a), one head, with fp32 or
+// bf16 q, k, v and dO.
 //
 //   O = softmax(q k^T) v  with UNSCALED logits (no 1/sqrt(d), SAGAN.py:97-103)
 //   lse_i = log sum_j exp(q_i . k_j)
@@ -9,9 +10,37 @@
 // makes no transposed copies.
 //
 // Replaces the three Pallas kernels of gcc_tpu/ops/pallas/attention.py:
-//   gcc_attn_fwd  <- _attn_fwd_kernel       (:44,  pallas_call :197)
-//   gcc_attn_bwd  <- _attn_bwd_dq_kernel    (:81,  pallas_call :277)
-//                  + _attn_bwd_dkv_kernel   (:110, pallas_call :295)
+//   gcc_attn_fwd[_bf16]  <- _attn_fwd_kernel       (:44,  pallas_call :197)
+//   gcc_attn_bwd[_bf16]  <- _attn_bwd_dq_kernel    (:81,  pallas_call :277)
+//                         + _attn_bwd_dkv_kernel   (:110, pallas_call :295)
+//
+// bf16 (the *_bf16 entry points; the TPU kernels with bf16 q, k, v and dO,
+// the JAX package's default --compute_dtype): every kernel below is
+// templated on the storage type T of q, k, v, dO, O, dq, dk and dv. A bf16
+// element is widened to fp32 as its tile is loaded, and everything after
+// that is the fp32 kernel's arithmetic (attention.py:54-56, :89-94,
+// :119-124 upcast the same way); O, dq, dk and dv round to bf16 once, on
+// their store (:70, :103, :134-135). lse, delta and the dq partials stay
+// fp32. cp.async copies bytes and cannot widen, so the bf16 tile loader is
+// synchronous: each thread reads 4 bf16 (8 bytes) through the read-only
+// path, widens them in registers and stores a float4 to shared memory (one
+// bf16 at a time where N % 4 != 0). It keeps the tile layout, and so every
+// product and shared-memory size of the fp32 kernels; the loads of tile
+// j + 1 are still issued before tile j computes, but stall their own warp,
+// which the other resident block hides in part. A staged bf16 copy widened
+// from shared memory would keep cp.async's overlap at the cost of more
+// shared memory per stage, which the backward's two blocks an SM cannot
+// spare at every width. The products stay split-TF32 on the same fragments;
+// a bf16 value is exact in tf32, so its lo part is 0 and the mma with it
+// adds nothing: the bf16 instantiations skip them (mma_x), one mma a
+// product for S^T = k^T q and dP^T = v^T dO (both operands bf16), two for
+// P V^T, dV, dK and dQ (one bf16 operand), 8 where fp32 takes 15 per
+// (query, key, channel) of the backward, the same bits. The bf16 backward
+// sums in one way of its own: S^T and dP^T per 8 channels, dK and dV per
+// query tile, go into zeroed partials added in fp32 (kq_product,
+// pt_accumulate), where the fp32 kernel keeps the tensor cores' running
+// sums, whose truncations lean one way.
+//
 // Backward (FlashAttention-style): p_ij = exp(q_i . k_j - lse_i),
 // delta_i = dO_i . O_i (a torch reduction in the wrapper, as the JAX package
 // computes it outside its kernel), ds_ij = p_ij (dO_i . v_j - delta_i),
@@ -62,7 +91,7 @@
 //    resident q tile and two k/v stages fit two blocks an SM (fwd_smem, dq
 //    up to 72 at dv > 32: the main path's dq 8 / dv 64 and dq 2 / dv 16,
 //    and SAGAN D's attn2 at dq 64 / dv 512), the block keeps its q; wider
-//    (dq 320 of chip_smoke.py's wide_q) it runs attn_fwd_kernel<8, true>,
+//    (dq 320 of chip_smoke.py's wide_q) it runs attn_fwd_kernel<T, 8, true>,
 //    which streams q and k through shared memory in 64-channel chunks for
 //    each key tile (88 KB whatever dq is). The TPU's 128-lane padding of
 //    dq/dv, its -1e30 sentinel feature column (attention.py:155-176) and
@@ -70,11 +99,12 @@
 //    they are plain (B, N).
 //  * O is stored from the accumulators: each store of a warp writes four
 //    channels x 8 consecutive queries, whole 32-byte sectors.
-//  * Registers (nvcc -Xptxas -v, sm_90a, CUDA 12.8): two blocks of 256
-//    threads allow 128; <VT 8> (dv 64) uses them and spills 44 B of stores,
-//    <4>, <2> and <1> use 123, 109 and 111 without spilling; the wide
-//    <8, true> spills 436 B. Dynamic shared memory (fwd_smem): 45,568 B at
-//    dq 8 / dv 64, 11,392 B at dq 2 / dv 16, 88,064 B wide.
+//  * Registers of the fp32 instantiations (nvcc -Xptxas -v, sm_90a, CUDA
+//    12.8): two blocks of 256 threads allow 128; <VT 8> (dv 64) uses them
+//    and spills 44 B of stores, <4>, <2> and <1> use 123, 109 and 111
+//    without spilling; the wide <8, true> spills 436 B. Dynamic shared
+//    memory (fwd_smem): 45,568 B at dq 8 / dv 64, 11,392 B at dq 2 /
+//    dv 16, 88,064 B wide.
 //
 // Backward, one pass. Per pair it needs S = q.k, p = exp(S - lse), dP =
 // dO.v, ds, and three products into dq, dk, dv: 2(3 dq + 2 dv) flops, one
@@ -127,10 +157,11 @@
 //    it needs them (56 KB whatever the widths; 64-channel dK and dV chunks,
 //    one stage, no prefetch). No width is refused: dq and dv are ints, and
 //    the grid's y axis takes up to 65 535 chunks of 64 channels.
-//  * Registers and shared memory (nvcc -Xptxas -v, sm_90a, CUDA 12.8): the
-//    instantiations use the 128 registers that two blocks of 256 threads
-//    allow. <1, 8> (the teacher's dq 8 / dv 64) spills 32 B of stores to a
-//    24-byte stack frame, <1, 2> (the student's dq 2 / dv 16) 60 B to 48,
+//  * Registers and shared memory of the fp32 instantiations (nvcc -Xptxas
+//    -v, sm_90a, CUDA 12.8): they use the 128 registers that two blocks of
+//    256 threads allow. <1, 8> (the teacher's dq 8 / dv 64) spills 32 B
+//    of stores to a 24-byte stack frame, <1, 2> (the student's dq 2 /
+//    dv 16) 60 B to 48,
 //    <8, 8> 200 B to 144, the wide kernel 568 B to 272; the others do not
 //    spill. Dynamic shared memory (bwd_smem): 81,664 B at dq 8 / dv 64 and
 //    40,192 B at dq 2 / dv 16, two stages each; 55,808 B wide. The dq
@@ -139,15 +170,43 @@
 // Every entry point returns cudaGetLastError() as an int; the Python wrapper
 // raises when it is not 0. Nothing here allocates or synchronises.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tf32_mma.cuh"
 
 namespace {
 
 using namespace tf32x3;
+using bf16 = __nv_bfloat16;
+
+// bf16 instantiations accumulate dK and dV through per-tile partials
+// (pt_accumulate) and S^T and dP^T through per-8-channel ones
+// (kq_product), and skip the split-TF32 products of a zero lo part (mma_x)
+template <typename T>
+constexpr bool kBf16 = std::is_same<T, bf16>::value;
+
+// d += a b in split-TF32 (mma3) where an operand whose values came from
+// bf16 (XA for a, XB for b) is exact in tf32: its lo part is 0, and the
+// products with it, which add 0 to d, are skipped. mma_x<false, false> is
+// mma3.
+template <bool XA, bool XB>
+__device__ __forceinline__ void mma_x(float (&d)[4], const FragA& a,
+                                      const FragB& b) {
+  if constexpr (!XA) mma_tf32(d, a.lo, b.hi);
+  if constexpr (!XB) mma_tf32(d, a.hi, b.lo);
+  mma_tf32(d, a.hi, b.hi);
+}
+
+// Stores of O, dq, dk and dv: fp32 as is, bf16 rounded to nearest even.
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 constexpr int kThreads = 256;     // 8 warps, every kernel but the reduction
 constexpr int BT = 64;            // keys (forward) or queries (backward) of a
@@ -171,6 +230,36 @@ __device__ __forceinline__ void cp_tile(float* dst, const float* src, int D,
       const int c = e / TW, t = e % TW, n = n0 + t;
       cp_async(dst + c * LD + t, src + (size_t)c * N + (n < N ? n : 0),
                n < N ? 4 : 0, false);
+    }
+  }
+}
+
+// The same tile from bf16, widened to fp32: synchronous loads (8 bytes when
+// vec: N % 4 == 0 and 8-byte aligned bases, else 2), float stores. A bf16's
+// bits are the high half of its fp32 value's.
+template <int TW = BT, int LD = LDT>
+__device__ __forceinline__ void cp_tile(float* dst, const bf16* src, int D,
+                                        int N, int n0, bool vec) {
+  if (vec) {
+#pragma unroll 4
+    for (int e = threadIdx.x; e < D * (TW / 4); e += kThreads) {
+      const int c = e / (TW / 4), t = 4 * (e % (TW / 4)), n = n0 + t;
+      float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (n < N) {
+        const uint2 r =
+            __ldg(reinterpret_cast<const uint2*>(src + (size_t)c * N + n));
+        f = make_float4(__uint_as_float(r.x << 16),
+                        __uint_as_float(r.x & 0xffff0000u),
+                        __uint_as_float(r.y << 16),
+                        __uint_as_float(r.y & 0xffff0000u));
+      }
+      *reinterpret_cast<float4*>(dst + c * LD + t) = f;
+    }
+  } else {
+    for (int e = threadIdx.x; e < D * TW; e += kThreads) {
+      const int c = e / TW, t = e % TW, n = n0 + t;
+      dst[c * LD + t] =
+          n < N ? __bfloat162float(src[(size_t)c * N + n]) : 0.f;
     }
   }
 }
@@ -232,10 +321,10 @@ constexpr int DC = 64;  // channels of a streamed chunk on the wide paths
 // for the first, m[1], l[1] and O[nt][2..3] for the second.
 // WIDE: the q tile is not resident; each key tile's S streams q and k in
 // DC-channel chunks through Qs and Kc, and the two stages hold v alone.
-template <int VT, bool WIDE>
+template <typename T, int VT, bool WIDE>
 __global__ void __launch_bounds__(kThreads, 2) attn_fwd_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, T* __restrict__ o,
     float* __restrict__ lse, int N, int dq, int dv, int vec) {
   constexpr int CW = 8 * VT;  // channels of a chunk
   extern __shared__ __align__(16) float sm[];
@@ -249,9 +338,9 @@ __global__ void __launch_bounds__(kThreads, 2) attn_fwd_kernel(
   const int cw = min(CW, dv - c0);  // channels of the chunk that exist
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2,
             t = lane & 3, qw = 16 * warp;
-  const float* qb = q + (size_t)b * dq * N;
-  const float* kb = k + (size_t)b * dq * N;
-  const float* vb = v + ((size_t)b * dv + c0) * N;
+  const T* qb = q + (size_t)b * dq * N;
+  const T* kb = k + (size_t)b * dq * N;
+  const T* vb = v + ((size_t)b * dv + c0) * N;
 
   for (int s = 0; s < 2; ++s) zero_rows(st0 + s * stage + kd * LDT, cw, CW);
   if (!WIDE) cp_tile<BQ, BQ>(Qs, qb, dq, N, r0, vec);
@@ -333,7 +422,7 @@ __global__ void __launch_bounds__(kThreads, 2) attn_fwd_kernel(
     // The tensor cores' accumulation truncates: summed straight into O,
     // each mma would cost up to an ulp of |O|, all one way; the partial's
     // truncations are relative to one tile's sum.
-    float T[VT][4] = {};
+    float Tp[VT][4] = {};
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
       const FragA a = frag_a(S[kk][0], S[kk][2], S[kk][1], S[kk][3]);
@@ -341,15 +430,15 @@ __global__ void __launch_bounds__(kThreads, 2) attn_fwd_kernel(
       for (int nt = 0; nt < VT; ++nt) {
         if (8 * nt >= cw) break;
         const float2 x = ld2(Vs + (8 * nt + g) * LDT + 8 * kk + 2 * t);
-        mma3(T[nt], a, frag_b(x.x, x.y));
+        mma_x<false, kBf16<T>>(Tp[nt], a, frag_b(x.x, x.y));
       }
     }
 #pragma unroll
     for (int nt = 0; nt < VT; ++nt) {
-      O[nt][0] = fmaf(O[nt][0], a0, T[nt][0]);
-      O[nt][1] = fmaf(O[nt][1], a0, T[nt][1]);
-      O[nt][2] = fmaf(O[nt][2], a1, T[nt][2]);
-      O[nt][3] = fmaf(O[nt][3], a1, T[nt][3]);
+      O[nt][0] = fmaf(O[nt][0], a0, Tp[nt][0]);
+      O[nt][1] = fmaf(O[nt][1], a0, Tp[nt][1]);
+      O[nt][2] = fmaf(O[nt][2], a1, Tp[nt][2]);
+      O[nt][3] = fmaf(O[nt][3], a1, Tp[nt][3]);
     }
     __syncthreads();  // readers of stage s are done
   }
@@ -357,14 +446,14 @@ __global__ void __launch_bounds__(kThreads, 2) attn_fwd_kernel(
   // rows qw + g (r < 2) and qw + g + 8, channels 8 nt + 2t + (r & 1)
   const int n_lo = r0 + qw + g, n_hi = n_lo + 8;
   const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
-  float* ob = o + ((size_t)b * dv + c0) * N;
+  T* ob = o + ((size_t)b * dv + c0) * N;
 #pragma unroll
   for (int nt = 0; nt < VT; ++nt)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int c = 8 * nt + 2 * t + (r & 1), n = r < 2 ? n_lo : n_hi;
       if (c < cw && n < N)
-        ob[(size_t)c * N + n] = O[nt][r] * (r < 2 ? inv0 : inv1);
+        put(ob + (size_t)c * N + n, O[nt][r] * (r < 2 ? inv0 : inv1));
     }
   if (blockIdx.y == 0 && t == 0) {
     if (n_lo < N) lse[(size_t)b * N + n_lo] = m[0] + logf(l[0]);
@@ -372,25 +461,32 @@ __global__ void __launch_bounds__(kThreads, 2) attn_fwd_kernel(
   }
 }
 
-// Shared memory of attn_fwd_kernel<VT, wide>, in bytes.
+// Shared memory of attn_fwd_kernel<T, VT, wide>, in bytes.
 size_t fwd_smem(int dq, int vt, bool wide) {
   const size_t q = wide ? (size_t)DC * (BQ + LDT) : (size_t)dq * BQ;
   return 4 * (q + 2 * (size_t)((wide ? 0 : dq) + 8 * vt) * LDT);
 }
 
-template <int VT, bool WIDE>
-int fwd(const float* q, const float* k, const float* v, float* o, float* lse,
-        int B, int N, int dq, int dv, cudaStream_t st) {
+// vec: whole 4-element groups along N from aligned bases (16 bytes of fp32,
+// 8 of bf16)
+template <typename T>
+int vec_ok(int N, uintptr_t bases) {
+  return N % 4 == 0 && bases % (4 * sizeof(T)) == 0;
+}
+
+template <typename T, int VT, bool WIDE>
+int fwd(const T* q, const T* k, const T* v, T* o, float* lse, int B, int N,
+        int dq, int dv, cudaStream_t st) {
   const size_t smem = fwd_smem(dq, VT, WIDE);
   const cudaError_t attr = cudaFuncSetAttribute(
-      attn_fwd_kernel<VT, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      attn_fwd_kernel<T, VT, WIDE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  const uintptr_t bases = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
-  const int vec = N % 4 == 0 && bases % 16 == 0;
+  const int vec =
+      vec_ok<T>(N, (uintptr_t)q | (uintptr_t)k | (uintptr_t)v);
   const dim3 grid((N + BQ - 1) / BQ, (dv + 8 * VT - 1) / (8 * VT), B);
-  attn_fwd_kernel<VT, WIDE><<<grid, kThreads, smem, st>>>(q, k, v, o, lse, N,
-                                                          dq, dv, vec);
+  attn_fwd_kernel<T, VT, WIDE><<<grid, kThreads, smem, st>>>(
+      q, k, v, o, lse, N, dq, dv, vec);
   return (int)cudaGetLastError();
 }
 
@@ -404,16 +500,34 @@ constexpr int kDqGroups = 16;  // most key-tile groups of the dq partials
 // A[nt] += X^T Y over rows [0, n) (n a multiple of 8) of two [n][LDT]
 // tiles: X's columns kw.. (keys) are the product's 16 rows, Y's columns
 // qh + 8 nt.. (queries) its columns. S^T from k and q, dP^T from v and dO.
-__device__ __forceinline__ void kq_product(float (&A)[4][4], const float* X,
+// X: both tiles hold bf16 values (one mma a product, mma_x), and each 8
+// channels' mma goes into a zeroed partial added to A in fp32. The tensor
+// cores truncate as they accumulate; summed straight into A over dv's 64
+// channels, dP^T's truncations moved the bf16 dq at q, k scale 2 (where
+// ds = p (dP - delta) cancels) farther from the float64 answer than the
+// plain version (3.24 % of its elements rounded apart against 3.06 %), and
+// with the partials it is nearer (2.46 % against 2.63 %, chip_smoke.py
+// phase 18). fp32 keeps its running sum, and its bits.
+template <bool X>
+__device__ __forceinline__ void kq_product(float (&A)[4][4], const float* X_,
                                            const float* Y, int n, int kw,
                                            int qh, int g, int t) {
   for (int c0 = 0; c0 < n; c0 += 8) {
-    const float* kr = X + (c0 + t) * LDT + kw + g;
+    const float* kr = X_ + (c0 + t) * LDT + kw + g;
     const FragA a = frag_a(kr[0], kr[8], kr[4 * LDT], kr[4 * LDT + 8]);
     const float* qr = Y + (c0 + t) * LDT + qh + g;
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-      mma3(A[nt], a, frag_b(qr[8 * nt], qr[4 * LDT + 8 * nt]));
+    for (int nt = 0; nt < 4; ++nt) {
+      const FragB b = frag_b(qr[8 * nt], qr[4 * LDT + 8 * nt]);
+      if constexpr (X) {
+        float p[4] = {};
+        mma_x<X, X>(p, a, b);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) A[nt][r] += p[r];
+      } else {
+        mma_x<X, X>(A[nt], a, b);
+      }
+    }
   }
 }
 
@@ -437,7 +551,8 @@ __device__ __forceinline__ void softmax_p(float (&P)[4][4], const float* Ls,
 // tile over the query tile: A is P^T or dS^T in its accumulator fragments,
 // taken as the A operand with the k index (queries) permuted so that k
 // column t is query 2t and t + 4 is 2t + 1. dV from dO, dK from q.
-template <int T>
+// X: R holds bf16 values (two mma a product, mma_x).
+template <bool X, int T>
 __device__ __forceinline__ void pt_product(float (&D)[T][4],
                                            const float (&A)[4][4],
                                            const float* R, int n, int qh,
@@ -449,8 +564,32 @@ __device__ __forceinline__ void pt_product(float (&D)[T][4],
     for (int nt = 0; nt < T; ++nt) {
       if (8 * nt >= n) break;
       const float2 x = ld2(R + (8 * nt + g) * LDT + qh + 8 * kk + 2 * t);
-      mma3(D[nt], a, frag_b(x.x, x.y));
+      mma_x<false, X>(D[nt], a, frag_b(x.x, x.y));
     }
+  }
+}
+
+// D[nt] += A R^T as pt_product; for bf16 (BF16) through a zeroed
+// partial of the one query tile, added to D in fp32, as the forward adds
+// each key tile's P V^T to O. The tensor cores truncate as they
+// accumulate: over the 256 query tiles of N = 16384, a running sum's
+// truncations lean one way, enough to put long_n's bf16 dk and dv past
+// flash_attention.BF16_SHARE of the plain version's (chip_smoke.py phase
+// 18 holds them under it). fp32 keeps its running sum, and its bits.
+template <bool BF16, int C>
+__device__ __forceinline__ void pt_accumulate(float (&D)[C][4],
+                                              const float (&A)[4][4],
+                                              const float* R, int n, int qh,
+                                              int g, int t) {
+  if constexpr (BF16) {
+    float P[C][4] = {};
+    pt_product<true, C>(P, A, R, n, qh, g, t);
+#pragma unroll
+    for (int nt = 0; nt < C; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) D[nt][r] += P[nt][r];
+  } else {
+    pt_product<false, C>(D, A, R, n, qh, g, t);
   }
 }
 
@@ -480,7 +619,7 @@ __device__ __forceinline__ void ds_store(float (&G)[4][4],
 // is channel c0, over the block's keys (k permuted as in pt_product: k
 // column t is key 2t, t + 4 is 2t + 1). Written into the group's partial
 // on the group's first key tile, added to it on the others.
-template <int QT>
+template <bool X, int QT>
 __device__ __forceinline__ void dq_chunk(const float* Ss, const float* Kr,
                                          int c0, int dqp, int dq, float* part,
                                          int n0, int N, bool first, int warp,
@@ -496,7 +635,7 @@ __device__ __forceinline__ void dq_chunk(const float* Ss, const float* Kr,
     for (int nt = 0; nt < QT; ++nt) {
       if (c0 + 8 * nt >= dqp) break;
       const float2 x = ld2(Kr + (8 * nt + g) * LDT + 8 * kk + 2 * t);
-      mma3(acc[nt], a, frag_b(x.x, x.y));
+      mma_x<false, X>(acc[nt], a, frag_b(x.x, x.y));
     }
   }
 #pragma unroll
@@ -516,10 +655,10 @@ __device__ __forceinline__ void dq_chunk(const float* Ss, const float* Kr,
 // warp w + 4's go through shared memory at sm (free when this is called)
 // and are added to warp w's, in that order, which write keys kw + g and
 // kw + g + 8 of dK channels ck0.. and dV channels cv0...
-template <int QT, int VT>
+template <typename T, int QT, int VT>
 __device__ __forceinline__ void write_dkdv(
-    float (&dK)[QT][4], float (&dV)[VT][4], float* sm, float* dk_out,
-    float* dv_out, int key0, int ck0, int cv0, int dq, int dv, int N,
+    float (&dK)[QT][4], float (&dV)[VT][4], float* sm, T* dk_out,
+    T* dv_out, int key0, int ck0, int cv0, int dq, int dv, int N,
     bool with_ds, bool with_dv) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   float* red = sm + (warp & 3) * (QT + VT) * 4 * 32 + lane;
@@ -546,12 +685,12 @@ __device__ __forceinline__ void write_dkdv(
 #pragma unroll
     for (int nt = 0; nt < QT; ++nt) {
       const int c = ck0 + 8 * nt + 2 * t + (r & 1);
-      if (with_ds && c < dq) dk_out[(size_t)c * N + key] = dK[nt][r];
+      if (with_ds && c < dq) put(dk_out + (size_t)c * N + key, dK[nt][r]);
     }
 #pragma unroll
     for (int nt = 0; nt < VT; ++nt) {
       const int c = cv0 + 8 * nt + 2 * t + (r & 1);
-      if (with_dv && c < dv) dv_out[(size_t)c * N + key] = dV[nt][r];
+      if (with_dv && c < dv) put(dv_out + (size_t)c * N + key, dV[nt][r]);
     }
   }
 }
@@ -568,12 +707,12 @@ __device__ __forceinline__ void write_dkdv(
 // are the A operands of the dV and dK products. Chunk y accumulates dK
 // channels [8 QT y, 8 QT (y + 1)) and dV channels [8 VT y, 8 VT (y + 1));
 // only blocks with a dK chunk compute dP and dS, and only y = 0 writes dQ.
-template <int QT, int VT>
+template <typename T, int QT, int VT>
 __global__ void __launch_bounds__(kThreads, 2) attn_bwd_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ dO,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dO,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dk_out, float* __restrict__ dv_out,
+    T* __restrict__ dk_out, T* __restrict__ dv_out,
     float* __restrict__ dq_part, int N, int dq, int dv, int per, int vec) {
   extern __shared__ __align__(16) float sm[];
   const int dqp = (dq + 7) & ~7, dvp = (dv + 7) & ~7;  // zero rows to 8
@@ -638,24 +777,28 @@ __global__ void __launch_bounds__(kThreads, 2) attn_bwd_kernel(
 
       // P^T (16 keys x 32 queries a warp): fragment nt holds queries qh + 8 nt..
       float P[4][4] = {};
-      kq_product(P, Ks, Qs, dqp, kw, qh, g, t);
+      kq_product<kBf16<T>>(P, Ks, Qs, dqp, kw, qh, g,
+                           t);
       softmax_p(P, Ls, n0, N, qh, t, key_lo, key_hi);
-      if (with_dv) pt_product<VT>(dV, P, Os + cv0 * LDT, dvp - cv0, qh, g, t);
+      if (with_dv)
+        pt_accumulate<kBf16<T>>(dV, P, Os + cv0 * LDT, dvp - cv0, qh, g,
+                                   t);
       if (with_ds) {
         float G[4][4] = {};  // dP^T, then dS^T
-        kq_product(G, Vs, Os, dvp, kw, qh, g, t);
+        kq_product<kBf16<T>>(G, Vs, Os, dvp, kw, qh, g, t);
         ds_store(G, P, Ds, Ss, kw, qh, g, t);
-        pt_product<QT>(dK, G, Qs + ck0 * LDT, dqp - ck0, qh, g, t);
+        pt_accumulate<kBf16<T>>(dK, G, Qs + ck0 * LDT, dqp - ck0, qh, g,
+                                   t);
         __syncthreads();  // dS of all eight warps is in Ss
         if (y == 0 && warp < 4)
           for (int cq0 = 0; cq0 < dqp; cq0 += 8 * QT)
-            dq_chunk<QT>(Ss, Ks + cq0 * LDT, cq0, dqp, dq, part, n0, N,
-                         jt == j_first, warp, g, t);
+            dq_chunk<kBf16<T>, QT>(Ss, Ks + cq0 * LDT, cq0, dqp, dq, part,
+                                   n0, N, jt == j_first, warp, g, t);
       }
       __syncthreads();  // readers of stage s and of Ss are done
     }
-    write_dkdv<QT, VT>(dK, dV, sm, dk_out + oq, dv_out + ov, j0 + kw + g,
-                       ck0, cv0, dq, dv, N, with_ds, with_dv);
+    write_dkdv<T, QT, VT>(dK, dV, sm, dk_out + oq, dv_out + ov, j0 + kw + g,
+                          ck0, cv0, dq, dv, N, with_ds, with_dv);
     __syncthreads();  // the next key tile's loads overwrite sm
   }
 }
@@ -665,11 +808,12 @@ __global__ void __launch_bounds__(kThreads, 2) attn_bwd_kernel(
 // chunk, chunks of v and dO (for dP), the q rows of its dK chunk and, for
 // y = 0, chunks of k (for dQ) through two [DC][LDT] buffers; one stage, no
 // prefetch. dK and dV chunks are DC channels (QT = VT = 8).
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 2) attn_bwd_wide_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ dO,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dO,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dk_out, float* __restrict__ dv_out,
+    T* __restrict__ dk_out, T* __restrict__ dv_out,
     float* __restrict__ dq_part, int N, int dq, int dv, int per, int vec) {
   constexpr int QT = DC / 8, VT = DC / 8;
   extern __shared__ __align__(16) float sm[];
@@ -690,7 +834,7 @@ __global__ void __launch_bounds__(kThreads, 2) attn_bwd_wide_kernel(
 
   // rows [c0, c0 + DC) of a (D, N) tensor's tile at n0, rows past D zero up
   // to the multiple of 8
-  auto load = [&](float* dst, const float* src, int D, int c0, int n0) {
+  auto load = [&](float* dst, const T* src, int D, int c0, int n0) {
     const int r = min(DC, D - c0), rp = min(DC, ((D + 7) & ~7) - c0);
     cp_tile(dst, src + (size_t)c0 * N, r, N, n0, vec);
     zero_rows(dst, r, rp);
@@ -720,14 +864,15 @@ __global__ void __launch_bounds__(kThreads, 2) attn_bwd_wide_kernel(
         load(Xs, k + oq, dq, c0, j0);
         load(Ys, q + oq, dq, c0, n0);
         land();
-        kq_product(P, Xs, Ys, min(DC, dqp - c0), kw, qh, g, t);
+        kq_product<kBf16<T>>(P, Xs, Ys, min(DC, dqp - c0), kw, qh, g,
+                             t);
       }
       softmax_p(P, Ls, n0, N, qh, t, key_lo, key_hi);
       if (with_dv) {
         __syncthreads();
         load(Ys, dO + ov, dv, cv0, n0);
         land();
-        pt_product<VT>(dV, P, Ys, dvp - cv0, qh, g, t);
+        pt_accumulate<kBf16<T>>(dV, P, Ys, dvp - cv0, qh, g, t);
       }
       if (with_ds) {
         float G[4][4] = {};
@@ -736,36 +881,38 @@ __global__ void __launch_bounds__(kThreads, 2) attn_bwd_wide_kernel(
           load(Xs, v + ov, dv, c0, j0);
           load(Ys, dO + ov, dv, c0, n0);
           land();
-          kq_product(G, Xs, Ys, min(DC, dvp - c0), kw, qh, g, t);
+          kq_product<kBf16<T>>(G, Xs, Ys, min(DC, dvp - c0), kw, qh, g,
+                               t);
         }
         ds_store(G, P, Ds, Ss, kw, qh, g, t);
         __syncthreads();
         load(Ys, q + oq, dq, ck0, n0);
         land();  // dS of all eight warps is in Ss too
-        pt_product<QT>(dK, G, Ys, dqp - ck0, qh, g, t);
+        pt_accumulate<kBf16<T>>(dK, G, Ys, dqp - ck0, qh, g, t);
         if (y == 0) {
           for (int cq0 = 0; cq0 < dq; cq0 += DC) {
             __syncthreads();
             load(Xs, k + oq, dq, cq0, j0);
             land();
             if (warp < 4)
-              dq_chunk<QT>(Ss, Xs, cq0, dqp, dq, part, n0, N, jt == j_first,
-                           warp, g, t);
+              dq_chunk<kBf16<T>, QT>(Ss, Xs, cq0, dqp, dq, part, n0, N,
+                                     jt == j_first, warp, g, t);
           }
         }
       }
     }
     __syncthreads();  // readers of the buffers are done: sm is reused
-    write_dkdv<QT, VT>(dK, dV, sm, dk_out + oq, dv_out + ov, j0 + kw + g,
-                       ck0, cv0, dq, dv, N, with_ds, with_dv);
+    write_dkdv<T, QT, VT>(dK, dV, sm, dk_out + oq, dv_out + ov, j0 + kw + g,
+                          ck0, cv0, dq, dv, N, with_ds, with_dv);
     __syncthreads();  // before the next key tile's loads
   }
 }
 
 // dq[b, c, n] = sum_x dq_part[b, x, c, n] over the groups x in order: no
-// float atomics.
+// float atomics; rounded once to T.
+template <typename T>
 __global__ void __launch_bounds__(256) attn_dq_reduce_kernel(
-    const float* __restrict__ dq_part, float* __restrict__ dq_out, int ng,
+    const float* __restrict__ dq_part, T* __restrict__ dq_out, int ng,
     int dqn, int total) {
   const int e = blockIdx.x * 256 + threadIdx.x;
   if (e >= total) return;
@@ -773,7 +920,7 @@ __global__ void __launch_bounds__(256) attn_dq_reduce_kernel(
   const float* p = dq_part + (size_t)b * ng * dqn + (e - b * dqn);
   float s = 0.f;
   for (int j = 0; j < ng; ++j) s += p[(size_t)j * dqn];
-  dq_out[e] = s;
+  put(dq_out + e, s);
 }
 
 // The key-tile groups of the dq partials for N keys: per =
@@ -792,18 +939,16 @@ size_t bwd_smem(int dq, int dv) {
 }
 constexpr size_t kWideBwdSmem = 4 * ((2 * DC + BT) * LDT + 2 * BT);
 
-template <typename Kernel>
-int bwd_launch(Kernel kernel, size_t smem, int ny, const float* q,
-               const float* k, const float* v, const float* dO,
-               const float* lse, const float* delta, float* dq_out,
-               float* dk_out, float* dv_out, float* dq_part, int B, int N,
+template <typename T, typename Kernel>
+int bwd_launch(Kernel kernel, size_t smem, int ny, const T* q, const T* k,
+               const T* v, const T* dO, const float* lse, const float* delta,
+               T* dq_out, T* dk_out, T* dv_out, float* dq_part, int B, int N,
                int dq, int dv, cudaStream_t st) {
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  const uintptr_t bases = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
-                          (uintptr_t)dO;
-  const int vec = N % 4 == 0 && bases % 16 == 0;
+  const int vec = vec_ok<T>(N, (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                                   (uintptr_t)dO);
   int per;
   const int ng = dq_groups(N, &per);
   kernel<<<dim3(ng, ny, B), kThreads, smem, st>>>(
@@ -811,29 +956,64 @@ int bwd_launch(Kernel kernel, size_t smem, int ny, const float* q,
   const int e = (int)cudaGetLastError();
   if (e) return e;
   const int total = B * dq * N;
-  attn_dq_reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(
+  attn_dq_reduce_kernel<T><<<(total + 255) / 256, 256, 0, st>>>(
       dq_part, dq_out, ng, dq * N, total);
   return (int)cudaGetLastError();
 }
 
-template <int QT, int VT>
-int bwd(const float* q, const float* k, const float* v, const float* dO,
-        const float* lse, const float* delta, float* dq_out, float* dk_out,
-        float* dv_out, float* dq_part, int B, int N, int dq, int dv,
-        cudaStream_t st) {
+template <typename T, int QT, int VT>
+int bwd(const T* q, const T* k, const T* v, const T* dO, const float* lse,
+        const float* delta, T* dq_out, T* dk_out, T* dv_out, float* dq_part,
+        int B, int N, int dq, int dv, cudaStream_t st) {
   const int nyk = (dq + 8 * QT - 1) / (8 * QT), nyv = (dv + 8 * VT - 1) / (8 * VT);
-  return bwd_launch(attn_bwd_kernel<QT, VT>, bwd_smem(dq, dv),
+  return bwd_launch(attn_bwd_kernel<T, QT, VT>, bwd_smem(dq, dv),
                     nyk > nyv ? nyk : nyv, q, k, v, dO, lse, delta, dq_out,
                     dk_out, dv_out, dq_part, B, N, dq, dv, st);
 }
 
-int bwd_wide(const float* q, const float* k, const float* v, const float* dO,
-             const float* lse, const float* delta, float* dq_out,
-             float* dk_out, float* dv_out, float* dq_part, int B, int N,
-             int dq, int dv, cudaStream_t st) {
+template <typename T>
+int bwd_wide(const T* q, const T* k, const T* v, const T* dO,
+             const float* lse, const float* delta, T* dq_out, T* dk_out,
+             T* dv_out, float* dq_part, int B, int N, int dq, int dv,
+             cudaStream_t st) {
   const int ny = ((dq > dv ? dq : dv) + DC - 1) / DC;
-  return bwd_launch(attn_bwd_wide_kernel, kWideBwdSmem, ny, q, k, v, dO, lse,
-                    delta, dq_out, dk_out, dv_out, dq_part, B, N, dq, dv, st);
+  return bwd_launch(attn_bwd_wide_kernel<T>, kWideBwdSmem, ny, q, k, v, dO,
+                    lse, delta, dq_out, dk_out, dv_out, dq_part, B, N, dq, dv,
+                    st);
+}
+
+// The forward's route by shape: the wide kernel where the resident one
+// does not fit two blocks an SM, else the resident one for dv's chunk.
+template <typename T>
+int attn_fwd(const T* q, const T* k, const T* v, T* o, float* lse, int B,
+             int N, int dq, int dv, cudaStream_t st) {
+  const int vt = dv <= 8 ? 1 : (dv <= 16 ? 2 : (dv <= 32 ? 4 : 8));
+  if (fwd_smem(dq, vt, false) > kMaxSmem / 2)
+    return fwd<T, 8, true>(q, k, v, o, lse, B, N, dq, dv, st);
+  if (vt == 1) return fwd<T, 1, false>(q, k, v, o, lse, B, N, dq, dv, st);
+  if (vt == 2) return fwd<T, 2, false>(q, k, v, o, lse, B, N, dq, dv, st);
+  if (vt == 4) return fwd<T, 4, false>(q, k, v, o, lse, B, N, dq, dv, st);
+  return fwd<T, 8, false>(q, k, v, o, lse, B, N, dq, dv, st);
+}
+
+// The backward's route by shape, as the forward's.
+template <typename T>
+int attn_bwd(const T* q, const T* k, const T* v, const T* dO,
+             const float* lse, const float* delta, T* dq_out, T* dk_out,
+             T* dv_out, float* dq_part, int B, int N, int dq, int dv,
+             cudaStream_t st) {
+  auto run = [&](auto f) {
+    return f(q, k, v, dO, lse, delta, dq_out, dk_out, dv_out, dq_part, B, N,
+             dq, dv, st);
+  };
+  if (bwd_smem(dq, dv) > kMaxSmem / 2) return run(bwd_wide<T>);
+  const int qt = dq <= 8 ? 1 : (dq <= 32 ? 4 : 8);
+  if (dv <= 16) {
+    if (qt == 1) return run(bwd<T, 1, 2>);
+    return qt == 4 ? run(bwd<T, 4, 2>) : run(bwd<T, 8, 2>);
+  }
+  if (qt == 1) return run(bwd<T, 1, 8>);
+  return qt == 4 ? run(bwd<T, 4, 8>) : run(bwd<T, 8, 8>);
 }
 
 }  // namespace
@@ -843,14 +1023,17 @@ extern "C" {
 // Forward. q, k (B,dq,N), v (B,dv,N). Writes o (B,dv,N) and lse (B,N).
 int gcc_attn_fwd(const float* q, const float* k, const float* v, float* o,
                  float* lse, int B, int N, int dq, int dv, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int vt = dv <= 8 ? 1 : (dv <= 16 ? 2 : (dv <= 32 ? 4 : 8));
-  if (fwd_smem(dq, vt, false) > kMaxSmem / 2)
-    return fwd<8, true>(q, k, v, o, lse, B, N, dq, dv, st);
-  if (vt == 1) return fwd<1, false>(q, k, v, o, lse, B, N, dq, dv, st);
-  if (vt == 2) return fwd<2, false>(q, k, v, o, lse, B, N, dq, dv, st);
-  if (vt == 4) return fwd<4, false>(q, k, v, o, lse, B, N, dq, dv, st);
-  return fwd<8, false>(q, k, v, o, lse, B, N, dq, dv, st);
+  return attn_fwd(q, k, v, o, lse, B, N, dq, dv,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// The forward on bf16 q, k, v; o bf16, lse fp32.
+int gcc_attn_fwd_bf16(const void* q, const void* k, const void* v, void* o,
+                      float* lse, int B, int N, int dq, int dv,
+                      void* stream) {
+  return attn_fwd(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, B,
+                  N, dq, dv, static_cast<cudaStream_t>(stream));
 }
 
 // Key-tile groups of gcc_attn_bwd's dq partials for N keys (at most 16).
@@ -864,19 +1047,22 @@ int gcc_attn_bwd(const float* q, const float* k, const float* v,
                  const float* dO, const float* lse, const float* delta,
                  float* dq_out, float* dk_out, float* dv_out, float* dq_part,
                  int B, int N, int dq, int dv, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto run = [&](auto f) {
-    return f(q, k, v, dO, lse, delta, dq_out, dk_out, dv_out, dq_part, B, N,
-             dq, dv, st);
-  };
-  if (bwd_smem(dq, dv) > kMaxSmem / 2) return run(bwd_wide);
-  const int qt = dq <= 8 ? 1 : (dq <= 32 ? 4 : 8);
-  if (dv <= 16) {
-    if (qt == 1) return run(bwd<1, 2>);
-    return qt == 4 ? run(bwd<4, 2>) : run(bwd<8, 2>);
-  }
-  if (qt == 1) return run(bwd<1, 8>);
-  return qt == 4 ? run(bwd<4, 8>) : run(bwd<8, 8>);
+  return attn_bwd(q, k, v, dO, lse, delta, dq_out, dk_out, dv_out, dq_part,
+                  B, N, dq, dv, static_cast<cudaStream_t>(stream));
+}
+
+// The backward on bf16 q, k, v and dO: lse, delta and the dq_part scratch
+// fp32 (its size as gcc_attn_bwd's), dq_out, dk_out and dv_out bf16.
+int gcc_attn_bwd_bf16(const void* q, const void* k, const void* v,
+                      const void* dO, const float* lse, const float* delta,
+                      void* dq_out, void* dk_out, void* dv_out,
+                      float* dq_part, int B, int N, int dq, int dv,
+                      void* stream) {
+  return attn_bwd(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<const bf16*>(dO),
+                  lse, delta, static_cast<bf16*>(dq_out),
+                  static_cast<bf16*>(dk_out), static_cast<bf16*>(dv_out),
+                  dq_part, B, N, dq, dv, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

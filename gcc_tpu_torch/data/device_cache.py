@@ -171,7 +171,10 @@ class DeviceCacheLoader(Loader):
 
     def materialize(self, args: tuple) -> Dict[str, torch.Tensor]:
         """The engine batch for one parameter batch: NCHW images in
-        [-1, 1] of the loader's dtype on the device (z as drawn)."""
+        [-1, 1] of the loader's dtype on the device. SAGAN's z stays float32
+        as drawn, whatever the loader's dtype, as the JAX package's cache
+        hands it over (gcc_tpu/data/device_cache.py:209-216): a bf16 run
+        from the cache computes its generators in fp32 (ROADMAP Queue C)."""
         return {k: v if k == "z" else normalize_tensor(v, "m11", self.dtype)
                 for k, v in self.crops(args).items()}
 

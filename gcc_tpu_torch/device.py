@@ -43,20 +43,12 @@ def configure_precision(device: torch.device) -> None:
             False
 
 
-# The families whose bf16 path is ported; the others compute in float32
-# whatever --compute_dtype says until theirs is (ROADMAP Queue A item 4).
-BF16_FAMILIES = ("pix2pix",)
-
-
 def compute_dtype(cfg) -> torch.dtype:
     """The dtype a run's batches are cast to, and so the dtype its engine
     computes in (the dtype follows the data, as in the JAX package):
-    ``--compute_dtype`` for a family in BF16_FAMILIES, float32 for the
-    rest."""
-    if cfg.compute_dtype == "bfloat16" and any(
-            f in cfg.model for f in BF16_FAMILIES):
-        return torch.bfloat16
-    return torch.float32
+    ``--compute_dtype``, for every family."""
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
+        else torch.float32
 
 
 @contextlib.contextmanager

@@ -204,6 +204,13 @@ class DupAdam:
     def _pick(self, xs, want: bool) -> list:
         return [x for x, d in zip(xs, self.dup) if d == want]
 
+    @property
+    def mu(self) -> list:
+        """The first moments in parameter order, as Adam.mu (the two
+        groups merged back by ``dup``)."""
+        single, double = iter(self.single.mu), iter(self.double.mu)
+        return [next(double) if d else next(single) for d in self.dup]
+
     def step(self, params: Sequence[torch.Tensor],
              grads: Sequence[torch.Tensor], lr) -> None:
         self.single.step(self._pick(params, False), self._pick(grads, False),

@@ -35,7 +35,7 @@ import torch
 import torch.nn as nn
 
 from gcc_tpu_torch.config import Config
-from gcc_tpu_torch.device import resolve_device
+from gcc_tpu_torch.device import configure_precision, resolve_device
 from gcc_tpu_torch.engines.common import (
     Adam, CombinedStepMixin, GANState, add_sign_sparsity, arch_params,
     cyclegan_heavy_sparsity, d_pair, discrepancy, distill_losses, ema_update,
@@ -69,6 +69,7 @@ class CycleGANEngine(CombinedStepMixin):
                  device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        configure_precision(self.device)  # the family's bf16 path
         self.cfg_AtoB, self.cfg_BtoA = cfg_AtoB, cfg_BtoA
         self.distill = cfg.online_distillation or cfg.normal_distillation
         self.online = cfg.online_distillation

@@ -35,7 +35,7 @@ import torch
 import torch.nn as nn
 
 from gcc_tpu_torch.config import Config
-from gcc_tpu_torch.device import resolve_device
+from gcc_tpu_torch.device import configure_precision, resolve_device
 from gcc_tpu_torch.engines.common import (
     Adam, CheckpointMixin, CombinedStepMixin, DupAdam, GANState,
     add_sign_sparsity, arch_params, d_pair, discrepancy, distill_losses,
@@ -75,6 +75,7 @@ class SAGANEngine(CheckpointMixin, CombinedStepMixin):
     def __init__(self, cfg: Config, filter_cfgs=None, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        configure_precision(self.device)  # the family's bf16 path
         self.filter_cfgs = filter_cfgs
         self.distill = cfg.online_distillation or cfg.normal_distillation
         self.online = cfg.online_distillation

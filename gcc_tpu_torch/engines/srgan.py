@@ -38,7 +38,7 @@ import torch
 import torch.nn as nn
 
 from gcc_tpu_torch.config import Config
-from gcc_tpu_torch.device import resolve_device
+from gcc_tpu_torch.device import configure_precision, resolve_device
 from gcc_tpu_torch.engines.common import (
     Adam, CheckpointMixin, CombinedStepMixin, GANState, add_sign_sparsity,
     arch_params, d_pair, discrepancy, distill_losses, ema_update, eval_mode,
@@ -70,6 +70,7 @@ class SRGANEngine(CheckpointMixin, CombinedStepMixin):
                  vgg_params: Optional[dict] = None, channel_cfgs=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        configure_precision(self.device)  # the family's bf16 path
         self.filter_cfgs, self.channel_cfgs = filter_cfgs, channel_cfgs
         self.distill = cfg.online_distillation or cfg.normal_distillation
         self.online = cfg.online_distillation

@@ -8,6 +8,14 @@ its CUDA kernels, on the CPU its plain pieces (so the CPU tests cover its
 custom backward). Below it, the einsum/softmax path of the JAX package
 (attention.py:45-50). The JAX package takes its Pallas path on TPU only;
 the port's Function carries that choice itself.
+
+The dtype follows x. In bf16 the einsum route rounds where the JAX one does
+(attention.py:45-52): fp32 energies from the bf16 q and k, the softmax in
+fp32 rounded to bf16, its product with v summed in fp32 and rounded to bf16,
+then gamma rounded to bf16 and multiplied and added in bf16. The flash route
+keeps p in fp32, as the TPU kernel does, and rounds O once, so in bf16 the
+two routes differ by the rounding of p (in fp32 they agree).
+tests/test_torch_bf16_sagan.py states the measured difference.
 """
 
 from __future__ import annotations
@@ -15,8 +23,20 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from gcc_tpu_torch.ops.flash_attention import attention_reference, flash_attention
+from gcc_tpu_torch.ops.flash_attention import flash_attention
 from gcc_tpu_torch.ops.layers import Conv
+
+
+def einsum_attention(q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
+    """The route below the threshold, the JAX package's einsum path
+    (attention.py:45-51): fp32 energies (bf16 products are exact in fp32),
+    softmax in fp32 rounded to q's dtype, the product with v summed in fp32
+    and rounded; in fp32 every cast is a no-op and this is
+    ``attention_reference``."""
+    energy = torch.einsum("bci,bcj->bij", q.float(), k.float())
+    attn = torch.softmax(energy, -1).to(q.dtype)
+    return torch.einsum("bij,bcj->bci", attn.float(), v.float()).to(q.dtype)
 
 
 class SelfAttention(nn.Module):
@@ -42,5 +62,5 @@ class SelfAttention(nn.Module):
         k = self.key_conv(x).reshape(b, -1, h * w)
         v = self.value_conv(x).reshape(b, c, h * w)
         attend = flash_attention if h * w >= self.flash_threshold \
-            else attention_reference
-        return self.gamma * attend(q, k, v).reshape(b, c, h, w) + x
+            else einsum_attention
+        return self.gamma.to(x.dtype) * attend(q, k, v).reshape(b, c, h, w) + x

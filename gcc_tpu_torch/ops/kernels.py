@@ -11,12 +11,13 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -45,6 +46,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "gcc_attn_fwd": [_P] * 5 + [_I] * 4 + [_P],
         "gcc_attn_bwd_groups": [_I],
         "gcc_attn_bwd": [_P] * 10 + [_I] * 4 + [_P],
+        "gcc_attn_fwd_bf16": [_P] * 5 + [_I] * 4 + [_P],
+        "gcc_attn_bwd_bf16": [_P] * 10 + [_I] * 4 + [_P],
     },
 }
 
@@ -137,6 +140,17 @@ def check(device: torch.device, name: str, t: torch.Tensor, shape,
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
+
+
+def bf16_err(got: torch.Tensor, ref: torch.Tensor) -> Tuple[float, float,
+                                                             float]:
+    """(max |got - ref| in bf16 ulps of max |ref|, max |got - ref|, the
+    share of elements that differ at all): how a bf16 kernel's output is
+    held to its plain version's."""
+    top = float(ref.float().abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 7)
+    d = (got.float() - ref.float()).abs()
+    return float(d.max()) / ulp, float(d.max()), float((d > 0).float().mean())
 
 
 def ptr(t) -> int:

@@ -192,7 +192,9 @@ class PReLU(nn.Module):
             self.weight.fill_(0.25)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.where(x >= 0, x, self.weight * x)
+        # the slope in x's dtype, as the JAX PReLU's a.astype(x.dtype) * x
+        # (gcc_tpu/ops/layers.py:240)
+        return torch.where(x >= 0, x, self.weight.to(x.dtype) * x)
 
 
 def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -218,7 +220,10 @@ class SubPixelConv(nn.Module):
 
 class Dense(nn.Module):
     """Linear layer; the weight is torch's (out, in), the JAX kernel's
-    (in, out) transposed."""
+    (in, out) transposed. Below fp32, as the JAX Dense (gcc_tpu/ops/
+    layers.py:249-257): the product of x and the weight rounded to x's dtype,
+    summed in fp32 and rounded to x's dtype; then the fp32 bias is added, so
+    the result is fp32."""
 
     def __init__(self, in_features: int, features: int,
                  use_bias: bool = True):
@@ -229,7 +234,12 @@ class Dense(nn.Module):
     reset_parameters = Conv.reset_parameters
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        if x.dtype == self.weight.dtype:
+            return F.linear(x, self.weight, self.bias)
+        # bf16 x bf16 products are exact in fp32: an fp32 product of the
+        # rounded operands is the bf16 product with fp32 sums
+        y = F.linear(x.float(), self.weight.to(x.dtype).float()).to(x.dtype)
+        return y if self.bias is None else y + self.bias
 
 
 class _Tanh(torch.autograd.Function):

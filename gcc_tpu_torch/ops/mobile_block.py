@@ -35,7 +35,6 @@ them, as the TPU path does.
 from __future__ import annotations
 
 import functools
-import math
 from typing import Optional, Tuple
 
 import torch
@@ -180,18 +179,9 @@ def sep_stage_reference(x, dwk, pwk, residual=None, relu=False):
 # within BF16_ULPS bf16 ulps of its largest value and at most BF16_SHARE of
 # its elements apart at all (the kernels round where the plain versions
 # round; only fp32 sums in another order move a value to its other bf16
-# neighbour), an fp32 weight gradient within BF16_DW of its largest value.
+# neighbour), an fp32 weight gradient within BF16_DW of its largest value
+# (the first two measured by kernels.bf16_err).
 BF16_ULPS, BF16_SHARE, BF16_DW = 2.0, 0.01, 1e-3
-
-
-def bf16_err(got: torch.Tensor, ref: torch.Tensor) -> Tuple[float, float,
-                                                             float]:
-    """(max |got - ref| in bf16 ulps of max |ref|, max |got - ref|, the
-    share of elements that differ at all)."""
-    top = float(ref.float().abs().max())
-    ulp = 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 7)
-    d = (got.float() - ref.float()).abs()
-    return float(d.max()) / ulp, float(d.max()), float((d > 0).float().mean())
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,9 @@ class ReplayPool(nn.Module):
     returns the image. The draws come from the caller's ``torch.Generator``
     (on the host, so a query never waits for the device). Size 0 passes the
     images through unchanged. The count travels with ``state_dict`` as the
-    module's extra state.
+    module's extra state. The buffer stays fp32 whatever the images' dtype:
+    images are cast to it as they are stored, and ``query`` returns the
+    images' dtype (gcc_tpu/engines/common.py:345-374).
     """
 
     def __init__(self, pool_size: int, image_shape: Sequence[int]):
@@ -42,7 +44,7 @@ class ReplayPool(nn.Module):
         if size == 0:
             return images
         out = []
-        for img in images:
+        for img in images.to(self.buffer.dtype):
             if self.count < size:
                 self.buffer[self.count].copy_(img)
                 self.count += 1
@@ -55,4 +57,4 @@ class ReplayPool(nn.Module):
                 self.buffer[idx].copy_(img)
             else:
                 out.append(img)
-        return torch.stack(out)
+        return torch.stack(out).to(images.dtype)

@@ -12,6 +12,11 @@ vectors still give sigma but are dropped.
 The matricization is the JAX package's: height O for the conv and I for the
 transposed conv (spectral.py:97-117), width flattened in (kh, kw, other
 channel) order, so ``v`` has the JAX layout and carries across as it is.
+
+The dtype follows x. The power iteration and sigma stay fp32; below fp32 the
+normalised weight w / sigma is rounded to x's dtype, and the bias is rounded
+to it and added in it (spectral.py:67, :86-93, :117-125): not ``Conv``'s fp32
+add rounded once (layers.add_bias).
 """
 
 from __future__ import annotations
@@ -54,6 +59,12 @@ class SpectralNormed:
                 self.v.copy_(v)
         return w / (u @ (wm @ v))
 
+    def _low_precision(self, y: torch.Tensor) -> torch.Tensor:
+        """A conv output below fp32 plus the bias rounded to its dtype."""
+        if self.bias is None:
+            return y
+        return y + self.bias.to(y.dtype)[None, :, None, None]
+
 
 class SpectralConv(SpectralNormed, Conv):
     """Conv2d wrapped in spectral norm (SAGAN D stages)."""
@@ -70,8 +81,11 @@ class SpectralConv(SpectralNormed, Conv):
 
     def forward(self, x: torch.Tensor, update_stats: bool = True
                 ) -> torch.Tensor:
-        return F.conv2d(x, self.normalized_weight(update_stats), self.bias,
-                        self.stride, self.padding)
+        w = self.normalized_weight(update_stats)
+        if x.dtype == w.dtype:
+            return F.conv2d(x, w, self.bias, self.stride, self.padding)
+        return self._low_precision(F.conv2d(x, w.to(x.dtype), None,
+                                            self.stride, self.padding))
 
 
 class SpectralConvTranspose(SpectralNormed, ConvTranspose):
@@ -89,5 +103,9 @@ class SpectralConvTranspose(SpectralNormed, ConvTranspose):
 
     def forward(self, x: torch.Tensor, update_stats: bool = True
                 ) -> torch.Tensor:
-        return F.conv_transpose2d(x, self.normalized_weight(update_stats),
-                                  self.bias, self.stride, self.padding)
+        w = self.normalized_weight(update_stats)
+        if x.dtype == w.dtype:
+            return F.conv_transpose2d(x, w, self.bias, self.stride,
+                                      self.padding)
+        return self._low_precision(F.conv_transpose2d(
+            x, w.to(x.dtype), None, self.stride, self.padding))

@@ -766,7 +766,8 @@ def test_cli_computes_in_the_flag_dtype(tmp_path):
     """python -m gcc_tpu_torch.cli.train on pix2pix: with default flags it
     logs bf16 and every engine step gets bf16 batches; --compute_dtype
     float32 logs float32 and gives float32 batches (the fp32 path, held to
-    gcc_tpu by the fp32 parity files). SAGAN logs that it stays fp32."""
+    gcc_tpu by the fp32 parity files). SAGAN logs bf16 too, as every family
+    computes in bf16 by default."""
     import logging
     from gcc_tpu_torch import config as tconfig
     from gcc_tpu_torch.cli import train as ttrain
@@ -804,5 +805,4 @@ def test_cli_computes_in_the_flag_dtype(tmp_path):
     logger.setLevel(logging.INFO)
     logger.addHandler(handler)
     ttrain.check_knobs(tconfig.parse(["--model", "sagan"]), logger)
-    assert "computes in float32: --compute_dtype bfloat16 is not ported for " \
-        "sagan yet (ROADMAP Queue A item 4)" in lines[0]
+    assert "port: computes in bfloat16 (--compute_dtype bfloat16)" in lines[0]

@@ -27,8 +27,14 @@ entry points against the bf16 plain versions: bf16 outputs within 2 bf16
 ulps of their largest value with at most 1 % of elements apart (the
 kernels round where the plain versions round; fp32 sums in another order
 move a few values to their other bf16 neighbour), fp32 weight gradients
-within 1e-3 of their largest value (``mobile_block.bf16_err`` and its
-bounds, which chip_smoke.py applies too).
+within 1e-3 of their largest value (``kernels.bf16_err`` and
+``mobile_block``'s bounds, which chip_smoke.py applies too). B1's bf16 entry points against
+the bf16 plain versions: O, dq, dk and dv within one bf16 ulp of their
+largest value with at most 1 % of elements apart, or, for an output
+farther than that from its plain version, no farther from the float64
+answer than the plain version (``flash_attention.BF16_ULPS``,
+``bf16_share_ok``, which chip_smoke.py applies too); lse within the fp32
+bound.
 """
 
 import pytest
@@ -148,7 +154,7 @@ def _close_bf16(name, a, b):
     """A bf16 kernel output against its plain version, within
     mobile_block's BF16_ULPS and BF16_SHARE."""
     assert a.dtype == b.dtype == torch.bfloat16, name
-    ulps, _, share = mb.bf16_err(a, b)
+    ulps, _, share = kernels.bf16_err(a, b)
     assert ulps <= mb.BF16_ULPS and share <= mb.BF16_SHARE, (name, ulps, share)
 
 
@@ -262,7 +268,7 @@ def test_attention_kernels_match_plain(cuda, case):
     for a, b in zip(fa.attn_bwd(q, k, v, do, lse, (do * o).sum(1)), plain):
         _close(a, b, scale=True)
     assert {k_: fa.LAUNCHES[k_] - before[k_] for k_ in before} == \
-        {"attn_fwd": 1, "attn_bwd": 2}
+        {"attn_fwd": 1, "attn_bwd": 2, "attn_fwd_bf16": 0, "attn_bwd_bf16": 0}
     # no float atomics: a second call gives the same bits
     assert all(torch.equal(a, b) for a, b in zip((o, lse), fa.attn_fwd(q, k, v)))
     assert all(torch.equal(a, b) for a, b in zip(grads, fa.attn_bwd(*args)))
@@ -314,6 +320,84 @@ def test_attention_wrapper_rejects_bad_input(cuda):
                     lse, delta)
     with pytest.raises(ValueError):
         fa.attn_bwd(q, q, v, v, torch.zeros(1, 9, device=cuda), delta)
+
+
+# bf16 (B, N, dq, dv, scale of q and k): chip_smoke.py phase 18's shapes
+# (the main path's teacher and student, ragged, many-tile, wide-logit, D's
+# attn2 at threshold 16, wide q, long N) and ragged ones off the 4-element
+# vector loads (N % 4 != 0: 2-byte loads)
+ATTN_BF16_CASES = [(64, 1024, 8, 64, 0.5), (64, 1024, 2, 16, 0.5),
+                   (2, 1000, 25, 200, 0.5), (2, 4096, 8, 64, 0.5),
+                   (16, 1024, 8, 64, 2.0), (64, 16, 64, 512, 0.5),
+                   (4, 1024, 320, 320, 0.5), (1, 16384, 8, 64, 0.5),
+                   (3, 301, 5, 33, 0.5), (2, 65, 3, 5, 0.5)]
+
+
+def _close_attn_bf16(got, plain, exact=None):
+    ulps, _, _ = kernels.bf16_err(got, plain)
+    ok, share, plain_off, got_off = fa.bf16_share_ok(got, plain, exact)
+    assert got.dtype == torch.bfloat16
+    assert ulps <= fa.BF16_ULPS and ok, (ulps, share, plain_off, got_off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ATTN_BF16_CASES)
+def test_attention_bf16_kernels_match_plain(cuda, case):
+    """gcc_attn_fwd_bf16 and gcc_attn_bwd_bf16 against the bf16 plain
+    versions, the backward also on the kernel forward's own O and lse
+    (against the plain backward on the same O and lse); only the bf16
+    launch counters move; two calls give the same bits."""
+    B, N, dq, dv, scale = case
+    gen = torch.Generator().manual_seed(3)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(
+            cuda, torch.bfloat16)
+
+    q, k = rnd(B, dq, N, scale=scale), rnd(B, dq, N, scale=scale)
+    v, do = rnd(B, dv, N), rnd(B, dv, N)
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.attn_fwd(q, k, v)
+    o_p, lse_p = fa.attn_fwd_plain(q, k, v)
+    _close_attn_bf16(o, o_p)
+    assert lse.dtype == torch.float32
+    assert float((lse - lse_p).abs().max()) <= 1e-5 * max(
+        float(lse_p.abs().max()), 1.0)
+    for oo, ll in ((o_p, lse_p), (o, lse)):
+        args = (q, k, v, do, ll.contiguous(), (do.float() * oo.float()).sum(1))
+        grads, plain = fa.attn_bwd(*args), fa.attn_bwd_plain(*args)
+        exact = None
+        if any(not fa.bf16_share_ok(a, b)[0] for a, b in zip(grads, plain)):
+            exact = fa.attn_bwd_plain(*(t.double() for t in args))
+        for i, (a, b) in enumerate(zip(grads, plain)):
+            _close_attn_bf16(a, b, None if exact is None else exact[i])
+    assert {k_: fa.LAUNCHES[k_] - before[k_] for k_ in before} == \
+        {"attn_fwd": 0, "attn_bwd": 0, "attn_fwd_bf16": 1, "attn_bwd_bf16": 2}
+    assert all(torch.equal(a, b) for a, b in zip((o, lse), fa.attn_fwd(q, k, v)))
+    assert all(torch.equal(a, b) for a, b in zip(grads, fa.attn_bwd(*args)))
+
+
+@pytest.mark.cuda
+def test_attention_bf16_function(cuda):
+    """flash_attention on bf16 CUDA tensors: bf16 output and gradients
+    through the bf16 kernels; an fp16 q, k, v raises."""
+    gen = torch.Generator().manual_seed(4)
+    q, k = (torch.randn(2, 2, 1024, generator=gen) * 0.5 for _ in range(2))
+    v, co = (torch.randn(2, 16, 1024, generator=gen) for _ in range(2))
+    leaves = [t.to(cuda, torch.bfloat16).requires_grad_(True)
+              for t in (q, k, v)]
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_attention(*leaves)
+    grads = torch.autograd.grad((out.float() * co.to(cuda)).sum(), leaves)
+    assert out.dtype == torch.bfloat16
+    assert all(g.dtype == torch.bfloat16 for g in grads)
+    assert {k_: fa.LAUNCHES[k_] - before[k_] for k_ in before} == \
+        {"attn_fwd": 0, "attn_bwd": 0, "attn_fwd_bf16": 1, "attn_bwd_bf16": 1}
+    half = [t.detach().half() for t in leaves]
+    with pytest.raises(ValueError):
+        fa.attn_fwd(*half)
+    with pytest.raises(ValueError):
+        fa.attn_fwd(half[0], half[1].bfloat16(), half[2].bfloat16())
 
 
 def test_library_name_follows_headers(monkeypatch, tmp_path):

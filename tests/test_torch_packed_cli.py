@@ -38,7 +38,8 @@ SAGAN = ("--model sagan --dataset_mode sa --ngf 4 --ndf 4 --z_dim 16 "
          "--batch_size 4 --num_threads 1 --n_epochs 1 --print_freq 4 "
          "--save_epoch_freq 1 --teacher_ngf 8 --teacher_ndf 8 "
          "--online_distillation --darts_discriminator --lambda_content 1 "
-         "--lambda_gram 1")
+         # fp32, as UNET above: SAGAN computes in bf16 by default
+         "--lambda_gram 1 --compute_dtype float32")
 CPU = " --gpu_ids -1"
 
 
