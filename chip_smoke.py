@@ -39,12 +39,19 @@ Phases, each of which exits non-zero on failure:
               (B 4, N 1024, dq 320, dv 320) and a long N (B 1, N 16384,
               dq 8, dv 64); the backward also on the kernel forward's own
               lse and O; that two forward and two backward calls give the
-              same bits; the backward's dq scratch in bytes; CUDA-event
-              times of the kernel and the plain version (and, at the main
-              path's shapes, F.scaled_dot_product_attention(scale=1)),
-              forward and backward; then N 65536 (B 1, dq 8, dv 64) on the
-              kernels alone: finite outputs, and the peak device memory
-              above the inputs and outputs;
+              same bits; where chip_ab/b1_parent/ holds an earlier
+              commit's flash_attention.cu (and tf32_mma.cuh), put there by
+              hand for a before/after check, outputs bit for bit those of
+              its library, built by nvcc in the same run; the backward's
+              dq scratch in bytes; CUDA-event times of the kernel and the
+              plain version (and, at the main path's shapes,
+              F.scaled_dot_product_attention(scale=1) pinned to each
+              backend that takes dq != dv, timed in turns with the
+              kernels, its backward alone on one kept forward: the fastest
+              backend is the library time), forward and backward; then N
+              65536 (B 1, dq 8, dv 64) on the kernels alone: finite
+              outputs, and the peak device memory above the inputs and
+              outputs;
   7. sagan    the SAGAN GCC cooperative iteration (train_step + arch_step) at
               full width (scripts/sagan/train.sh): 64 px, batch 64, z_dim
               128, teacher ngf/ndf 64, the pruned student [69, 34, 17, 16]
@@ -195,8 +202,12 @@ Phases, each of which exits non-zero on failure:
               first moments) and the running statistics at most 1/4; (e)
               one cli.train epoch of the U-Net with default flags, which
               logs that it computes in bfloat16.
- 18. bf16 families SAGAN, CycleGAN and SRGAN in bf16: (a) B1's bf16 entry
-              points against their bf16 plain versions at phase 6's
+ 18. bf16 families SAGAN, CycleGAN and SRGAN in bf16: (a) nvcc -Xptxas -v
+              of flash_attention_bf16.cu (registers, spills), then B1's
+              bf16 entry points (flash_attention_bf16.cu's kernels, or
+              flash_attention.cu's streaming ones for wide shapes: the
+              route and the tiles' shared memory printed for each shape)
+              against their bf16 plain versions at phase 6's
               shapes: O, dq, dk and dv within flash_attention.BF16_ULPS of
               their largest plain value and at most BF16_SHARE of
               elements apart (an output farther than that from its plain
@@ -205,9 +216,11 @@ Phases, each of which exits non-zero on failure:
               within 1e-5, the
               backward also on the kernel forward's own O and lse, two calls
               the same bits; CUDA-event times of the kernel and the plain
-              version, F.scaled_dot_product_attention(scale=1) on bf16
-              tensors at the main path's shapes, bounds with 2-byte
-              operands and the TF32 mma the bf16 kernels issue
+              version, SDPA on bf16 tensors at the main path's shapes as
+              in phase 6, bounds with 2-byte operands, the function's
+              flops at 989 TFLOP/s and its exps at 16 a clock an SM at
+              the card's maximum SM clock, whatever kernel runs, and,
+              for information, the bound of the mma the kernel issues
               (attn_bounds); (b) phase 7's SAGAN iteration on bf16 batches, 6/2
               bf16 B1 launches an iteration and no fp32 one, generate in
               fp32; (c) phase 12's CycleGAN iteration on bf16 batches,
@@ -231,6 +244,8 @@ phase 18 (c)'s for B2 in bf16.
 
 import ast
 import concurrent.futures
+import ctypes
+import functools
 import json
 import math
 import multiprocessing
@@ -250,6 +265,15 @@ TF32_FLOPS = 495e12  # TF32 tensor cores, dense
 # split-TF32: three TF32 tensor-core products per product
 TF32X3_FLOPS = TF32_FLOPS / 3
 BF16_FLOPS = 989e12  # bf16 tensor cores, dense, fp32 accumulation
+# the special-function units' exps (ex2) a clock on each SM of a Hopper card
+EXP_PER_CLK_SM = 16
+# the SDPA backends, pinned one at a time (one that refuses q and k of
+# another width than v is skipped)
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH")
+# where a before/after check puts the fp32 B1 source of an earlier commit
+B1_PARENT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "chip_ab", "b1_parent")
 PER_ITER = {"stage_fwd": 108, "stage_bwd_pw": 36, "stage_bwd_dw": 36}
 TPU_KERNEL = {"stage_fwd": "gcc_tpu/ops/pallas/mobile_block.py:155",
               "stage_bwd_pw": "gcc_tpu/ops/pallas/mobile_block.py:187",
@@ -706,7 +730,9 @@ def phase_main(torch, np, record=None):
 STAGE_KERNELS = ("dw_in_fwd_kernel", "pw_gemm_kernel", "in_fwd_kernel",
                  "in_bwd_kernel", "dw_bwd_plane_kernel", "sum_partials_kernel",
                  "pw_gemm_bf16_kernel", "to_bf16_kernel")
-ATTN_KERNELS = ("attn_fwd_kernel", "attn_bwd_kernel", "attn_dq_reduce_kernel")
+ATTN_KERNELS = ("attn_fwd_kernel", "attn_bwd_kernel", "attn_dq_reduce_kernel",
+                "attn_fwd_bf16_kernel", "attn_bwd_bf16_kernel",
+                "attn_dq_reduce_bf16_kernel")
 CONV_MARKS = ("conv", "cudnn", "xmma", "cutlass", "implicit", "wgrad", "dgrad")
 
 
@@ -798,39 +824,184 @@ def phase_agree(torch, np):
         fail(f"generate differs by {err}")
 
 
-def attn_bounds(B, N, dq, dv, act=4):
+def pad8(d):
+    return (d + 7) // 8 * 8
+
+
+@functools.lru_cache(maxsize=None)
+def sm_clock_hz():
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]
+    return float(out) * 1e6
+
+
+def attn_bounds(B, N, dq, dv, act=4, sms=132, sm_hz=None):
     """Least time for each B1 wrapper's work: its inputs read once and
     outputs written once (q, k, v, dO, O and the gradients of act bytes: 4
-    in fp32, 2 in bf16; lse and delta fp32); its multiply-adds (2 flops
-    each) at the peak of the units the kernel runs them on. The forward's
-    S = q^T k is on the fp32 CUDA cores in both dtypes. The tensor-core
-    products are split-TF32, three TF32 mma a product in fp32; in bf16
-    (act 2) an operand read as bf16 has a zero lo part whose mma the kernels
-    skip: two TF32 mma for a product with one fp32 operand (P V^T, dQ = ds
-    k, dK = ds^T q, dV = p^T dO), one for the backward's S and dP (both
-    operands bf16). "attn_fwd_fp32" and "attn_bwd_fp32" are the bounds with
-    every flop on the fp32 CUDA cores, printed beside them."""
+    in fp32, 2 in bf16; lse and delta fp32) at 3.35 TB/s, and its
+    operations.
+
+    fp32 (act 4), the rate of the units the fp32 kernels run them on: the
+    forward's S = q^T k on the fp32 CUDA cores, every other product in
+    split-TF32 (three TF32 mma a product); "attn_fwd_fp32" and
+    "attn_bwd_fp32" put every flop on the fp32 CUDA cores.
+
+    bf16 (act 2), whatever kernel implements them, the largest of: the
+    bytes; the function's multiply-adds (2 B N^2 (dq + dv) flops forward,
+    2 B N^2 (3 dq + 2 dv) backward) at the bf16 tensor cores' 989 TFLOP/s;
+    and its B N^2 exps at EXP_PER_CLK_SM a clock on each of the sms SMs at
+    sm_hz (the card's maximum SM clock). "attn_fwd_issued" and
+    "attn_bwd_issued", for information, price what the kernel of the
+    shape's route issues: the tiles of flash_attention_bf16.cu dq and dv
+    padded to 8, S and dP one bf16 mma a product, P V^T, dV, dK and dQ two
+    (P and dS split hi/lo); the wide route S on the fp32 CUDA cores
+    (forward), split-TF32 with bf16's zero lo parts skipped elsewhere."""
     pairs, bn = B * N * N, B * N
     fwd_bytes = bn * (act * (2 * dq + 2 * dv) + 4)  # q, k, v in; O, lse out
     # q, k, v, dO, lse, delta in; dq, dk, dv out
     bwd_bytes = bn * (act * (4 * dq + 3 * dv) + 8)
     bwd_flops = 2 * pairs * (3 * dq + 2 * dv)
-    if act == 2:
-        # the tensor cores' time in TF32 mma units: S, dP one mma a
-        # product; P V^T, dQ, dK, dV two
-        pv = (2 * pairs * dv, TF32_FLOPS / 2)
-        bwd = (2 * pairs * (5 * dq + 3 * dv), TF32_FLOPS)
+    if act == 4:
+        return {"attn_fwd": bound_ms(fwd_bytes, (2 * pairs * dq, FP32_FLOPS),
+                                     (2 * pairs * dv, TF32X3_FLOPS)),
+                "attn_fwd_fp32": bound_ms(
+                    fwd_bytes, (2 * pairs * (dq + dv), FP32_FLOPS)),
+                "attn_bwd": bound_ms(bwd_bytes, (bwd_flops, TF32X3_FLOPS)),
+                "attn_bwd_fp32": bound_ms(bwd_bytes,
+                                          (bwd_flops, FP32_FLOPS))}
+    from gcc_tpu_torch.ops import flash_attention as fa
+
+    exps = (pairs, EXP_PER_CLK_SM * sms * (sm_hz or sm_clock_hz()))
+    if fa.bf16_route(dq, dv, False) == "tiles":
+        fwd_issued = ((2 * pairs * (pad8(dq) + 2 * dv), BF16_FLOPS), exps)
     else:
-        pv = (2 * pairs * dv, TF32X3_FLOPS)
-        bwd = (bwd_flops, TF32X3_FLOPS)
-    return {"attn_fwd": bound_ms(fwd_bytes, (2 * pairs * dq, FP32_FLOPS), pv),
-            "attn_fwd_fp32": bound_ms(fwd_bytes,
-                                      (2 * pairs * (dq + dv), FP32_FLOPS)),
-            "attn_bwd": bound_ms(bwd_bytes, bwd),
-            "attn_bwd_fp32": bound_ms(bwd_bytes, (bwd_flops, FP32_FLOPS))}
+        fwd_issued = ((2 * pairs * dq, FP32_FLOPS),
+                      (2 * pairs * dv, TF32_FLOPS / 2), exps)
+    if fa.bf16_route(dq, dv, True) == "tiles":
+        qp, vp = pad8(dq), pad8(dv)
+        bwd_issued = ((2 * pairs * (5 * qp + 3 * vp), BF16_FLOPS), exps)
+    else:
+        bwd_issued = ((2 * pairs * (5 * dq + 3 * dv), TF32_FLOPS), exps)
+    return {"attn_fwd": bound_ms(fwd_bytes,
+                                 (2 * pairs * (dq + dv), BF16_FLOPS), exps),
+            "attn_bwd": bound_ms(bwd_bytes, (bwd_flops, BF16_FLOPS), exps),
+            "attn_fwd_issued": bound_ms(fwd_bytes, *fwd_issued),
+            "attn_bwd_issued": bound_ms(bwd_bytes, *bwd_issued)}
 
 
-def phase_attention(torch, F):
+def library_attention(torch, F, q, k, v, do, kern_fwd, kern_bwd, rounds=3):
+    """The B1 kernels and F.scaled_dot_product_attention(scale=1) on the
+    same channel-major q, k, v and dO, timed in turns (each of rounds
+    rounds times every function, cuda_ms of 20 calls); SDPA pinned to each
+    backend (torch.nn.attention.sdpa_kernel: flash, efficient, cuDNN, math;
+    one that refuses dq != dv or the dtype is skipped), its backward
+    alone: one forward kept, then torch.autograd.grad(out, tok, do_tok,
+    retain_graph=True). Returns ({"fwd": ms, "bwd": ms} of the kernels,
+    {"fwd": (ms, backend), "bwd": (ms, backend)} of the fastest backend),
+    each the median of its rounds."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    tok = [t.transpose(1, 2).unsqueeze(1).contiguous().requires_grad_(True)
+           for t in (q, k, v)]
+    do_tok = do.transpose(1, 2).unsqueeze(1).contiguous()
+    timed = {("kernel", "fwd"): (None, kern_fwd),
+             ("kernel", "bwd"): (None, kern_bwd)}
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name)
+        try:
+            with sdpa_kernel(backend):
+                out = F.scaled_dot_product_attention(*tok, scale=1.0)
+                torch.autograd.grad(out, tok, do_tok, retain_graph=True)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            print(f"    SDPA {name.lower()} refuses these inputs: "
+                  f"{str(e).splitlines()[0][:90]}")
+            continue
+        timed[(name, "fwd")] = (backend, lambda: F.scaled_dot_product_attention(
+            *tok, scale=1.0))
+        timed[(name, "bwd")] = (backend, lambda out=out: torch.autograd.grad(
+            out, tok, do_tok, retain_graph=True))
+    runs = {key: [] for key in timed}
+    for _ in range(rounds):
+        for key, (backend, fn) in timed.items():
+            if backend is None:
+                runs[key].append(cuda_ms(torch, fn))
+                continue
+            with sdpa_kernel(backend):
+                runs[key].append(cuda_ms(torch, fn))
+    ms = {key: sorted(r)[len(r) // 2] for key, r in runs.items()}
+    for (name, what), t in ms.items():
+        print(f"    {what} {name.lower():<20} {t:.4f} ms (median of "
+              + ", ".join(f"{x:.4f}" for x in runs[(name, what)]) + ")")
+    lib = {}
+    for what in ("fwd", "bwd"):
+        libs = [(t, name.lower()) for (name, w), t in ms.items()
+                if w == what and name != "kernel"]
+        lib[what] = min(libs) if libs else (None, None)
+    return {w: ms[("kernel", w)] for w in ("fwd", "bwd")}, lib
+
+
+def start_parent_build():
+    """nvcc of the fp32 B1 source of an earlier commit, placed by hand in
+    B1_PARENT (flash_attention.cu and tf32_mma.cuh, for a before/after bit
+    check; a checkout does not hold it), into a library there: (Popen,
+    library path), or None where there is no such source."""
+    from gcc_tpu_torch.ops import kernels
+
+    src = os.path.join(B1_PARENT, "flash_attention.cu")
+    if not os.path.exists(src):
+        return None
+    out = os.path.join(B1_PARENT, "libflash_attention_parent.so")
+    return subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", out,
+                             src], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT), out
+
+
+def parent_library(build):
+    """The library that start_parent_build started, its fp32 entry points
+    bound (kernels.SIGNATURES), or None."""
+    from gcc_tpu_torch.ops import kernels
+
+    if build is None:
+        print(f"  no earlier B1 source in {B1_PARENT}: phase 6's fp32 bit "
+              f"check against it is not run")
+        return None
+    proc, out = build
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"nvcc of {B1_PARENT}/flash_attention.cu:\n{log.decode()}")
+    lib = ctypes.CDLL(out)
+    for fn in ("gcc_attn_fwd", "gcc_attn_bwd_groups", "gcc_attn_bwd"):
+        getattr(lib, fn).argtypes = kernels.SIGNATURES["flash_attention"][fn]
+        getattr(lib, fn).restype = ctypes.c_int
+    print(f"  phase 6 holds B1's fp32 outputs bit for bit to "
+          f"{B1_PARENT}/flash_attention.cu")
+    return lib
+
+
+def same_as_parent(torch, lib, case, fwd, bwd, q, k, v, do, lse, delta):
+    """B1's fp32 forward and backward outputs against the earlier source's
+    library on the same inputs: the same bits, or fail."""
+    (B, dq, N), dv = q.shape, v.shape[1]
+    p, st = (lambda t: t.data_ptr()), torch.cuda.current_stream().cuda_stream
+    o, ls = torch.empty_like(v), torch.empty(B, N, device=q.device)
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    part = torch.empty(B, lib.gcc_attn_bwd_groups(N), dq, N, device=q.device)
+    if (lib.gcc_attn_fwd(p(q), p(k), p(v), p(o), p(ls), B, N, dq, dv, st)
+            or lib.gcc_attn_bwd(p(q), p(k), p(v), p(do), p(lse), p(delta),
+                                *map(p, grads), p(part), B, N, dq, dv, st)):
+        fail(f"{case}: the earlier B1 library's launch failed")
+    same = [torch.equal(a, b) for a, b in zip((*fwd, *bwd), (o, ls, *grads))]
+    print(f"    bit for bit with the earlier source (O, lse, dq, dk, dv): "
+          f"{same}")
+    if not all(same):
+        fail(f"{case}: fp32 B1 differs from the earlier source: {same}")
+
+
+def phase_attention(torch, F, parent=None):
     from gcc_tpu_torch.ops import flash_attention as fa
 
     print("== phase 6: flash-attention kernels against their plain versions "
@@ -889,36 +1060,30 @@ def phase_attention(torch, F):
                 print(f"    {key:<13} kernel {cuda_ms(torch, kern, n=5):.4f} ms"
                       f"  plain {cuda_ms(torch, plain, n=5):.4f} ms  bound "
                       f"{b_ms:.4f} ms ({b_by})")
+        if parent is not None:
+            same_as_parent(torch, parent, case, (o, lse), got, q, k, v, do,
+                           lse_p, delta)
         if case not in ("teacher", "student"):
             continue
-        # times at the main path's shapes; the teacher's go to the record
+        # times at the main path's shapes, the kernels and SDPA in turns;
+        # the teacher's go to the record
         bounds = attn_bounds(B, N, dq, dv)
-        tok = [t.transpose(1, 2).unsqueeze(1).contiguous().requires_grad_(True)
-               for t in (q, k, v)]
-        do_tok = do.transpose(1, 2).unsqueeze(1).contiguous()
-
-        def sdpa():
-            return F.scaled_dot_product_attention(*tok, scale=1.0)
-
-        def sdpa_fwd_bwd():
-            torch.autograd.grad(sdpa(), tok, do_tok)
-
-        lib_fwd = cuda_ms(torch, sdpa)
-        # SDPA's backward computes dq, dk and dv together
-        lib_bwd = cuda_ms(torch, sdpa_fwd_bwd) - lib_fwd
-        timings = {
-            "attn_fwd": (lambda: fa.attn_fwd(q, k, v),
-                         lambda: fa.attn_fwd_plain(q, k, v), lib_fwd),
-            "attn_bwd": (lambda: fa.attn_bwd(*args),
-                         lambda: fa.attn_bwd_plain(*args), lib_bwd),
-        }
-        for key, (kern, plain, lib) in timings.items():
-            rec = {"ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain),
-                   "library_ms": lib}
+        kern, lib = library_attention(
+            torch, F, q, k, v, do, lambda: fa.attn_fwd(q, k, v),
+            lambda: fa.attn_bwd(*args))
+        timings = {"attn_fwd": lambda: fa.attn_fwd_plain(q, k, v),
+                   "attn_bwd": lambda: fa.attn_bwd_plain(*args)}
+        for key, plain in timings.items():
+            what = key[5:]
+            rec = {"ms": kern[what], "plain_ms": cuda_ms(torch, plain),
+                   "library_ms": lib[what][0],
+                   "library": f"F.scaled_dot_product_attention "
+                              f"({lib[what][1]})"}
             rec["bound_ms"], rec["bound_by"] = bounds[key]
             print(f"    {key:<13} kernel {rec['ms']:.4f} ms  plain "
-                  f"{rec['plain_ms']:.4f} ms  library {rec['library_ms']:.4f} "
-                  f"ms  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+                  f"{rec['plain_ms']:.4f} ms  library {rec['library_ms']} "
+                  f"ms ({lib[what][1]})  bound {rec['bound_ms']:.4f} ms "
+                  f"({rec['bound_by']})")
             if case == "teacher":
                 record[key].update(rec)
         for key in ("attn_fwd", "attn_bwd"):
@@ -3123,7 +3288,58 @@ def check_attn_bf16(torch, fa, name, got, plain, rec, exact=None):
     return share
 
 
-def attention_bf16(torch, F):
+def start_ptxas():
+    """nvcc -Xptxas -v of flash_attention_bf16.cu into a scratch cubin,
+    started now and read by ptxas_log: (Popen, scratch directory)."""
+    import tempfile
+    from gcc_tpu_torch.ops import kernels
+
+    tmp = tempfile.mkdtemp()
+    flags = [f for f in kernels.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    return subprocess.Popen(
+        [kernels._nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o",
+         os.path.join(tmp, "b1.cubin"),
+         str(kernels.CSRC / "flash_attention_bf16.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp
+
+
+def ptxas_log(started):
+    """The output of the nvcc that start_ptxas started (names demangled by
+    cu++filt where the toolkit has it)."""
+    import shutil
+    from gcc_tpu_torch.ops import kernels
+
+    proc, tmp = started
+    log = proc.communicate()[0].decode(errors="replace")
+    shutil.rmtree(tmp, ignore_errors=True)
+    if proc.returncode != 0:
+        fail(f"nvcc -Xptxas -v of flash_attention_bf16.cu:\n{log}")
+    filt = os.path.join(os.path.dirname(kernels._nvcc()), "cu++filt")
+    if os.path.exists(filt):
+        log = subprocess.run([filt], input=log, capture_output=True,
+                             text=True).stdout
+    return log
+
+
+def print_ptxas(log):
+    """Registers, stack and spills of each kernel of flash_attention_bf16.cu
+    from ptxas_log's output."""
+    print("  (a) flash_attention_bf16.cu, nvcc -Xptxas -v (sm_90a):")
+    name = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            # attn_fwd_bf16_kernel<8, 1, 1>: template arguments kept
+            name = line.split("'")[1].replace("void ", "").replace(
+                "<unnamed>::", "").replace("(anonymous namespace)::", "")
+            name = (name.split(">(")[0] + ">" if ">(" in name
+                    else name.split("(")[0])
+            name = name.replace("(int)", "").replace("(bool)", "")
+        elif name and ("spill" in line or "Used" in line):
+            print(f"    {name}: {line.split(':', 1)[-1].strip()}")
+
+
+def attention_bf16(torch, F, ptxas):
     """(a) B1's bf16 entry points against their bf16 plain versions at
     phase 6's shapes."""
     from gcc_tpu_torch.ops import flash_attention as fa
@@ -3131,10 +3347,20 @@ def attention_bf16(torch, F):
     bf = torch.bfloat16
     record = {k: {"max_abs_err": 0.0, "max_ulps": 0.0, "max_share": 0.0}
               for k in ATTN_PER_ITER_BF16}
+    print_ptxas(ptxas)
+    print(f"  (a) bounds: bytes at {HBM_BYTES_PER_S / 1e12} TB/s, the "
+          f"function's flops at {BF16_FLOPS / 1e12:.0f} TFLOP/s, B N^2 exps "
+          f"at {EXP_PER_CLK_SM} a clock on "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs "
+          f"at {sm_clock_hz() / 1e6:.0f} MHz (nvidia-smi clocks.max.sm)")
     gen = torch.Generator().manual_seed(0)
     for case, B, N, dq, dv, qk_scale in ATTN_CASES:
         print(f"  (a) {case}: B={B} N={N} dq={dq} dv={dv} q, k scale "
-              f"{qk_scale}, bf16")
+              f"{qk_scale}, bf16; routes: forward "
+              f"{fa.bf16_route(dq, dv, False)}, backward "
+              f"{fa.bf16_route(dq, dv, True)}; dynamic shared memory of the "
+              f"tiles' kernels {fa.bf16_smem(dq, dv, False)} B forward, "
+              f"{fa.bf16_smem(dq, dv, True)} B backward")
 
         def rnd(*shape, scale=1.0):
             return (torch.randn(*shape, generator=gen) * scale).to(
@@ -3176,27 +3402,26 @@ def attention_bf16(torch, F):
                                    lambda: fa.attn_bwd_plain(*args))}
         main = case in ("teacher", "student")
         if main:
-            tok = [t.transpose(1, 2).unsqueeze(1).contiguous()
-                   .requires_grad_(True) for t in (q, k, v)]
-            do_tok = do.transpose(1, 2).unsqueeze(1).contiguous()
-
-            def sdpa():
-                return F.scaled_dot_product_attention(*tok, scale=1.0)
-
-            lib_fwd = cuda_ms(torch, sdpa)
-            lib = {"attn_fwd_bf16": lib_fwd, "attn_bwd_bf16": cuda_ms(
-                torch, lambda: torch.autograd.grad(sdpa(), tok, do_tok))
-                - lib_fwd}
-        for key, (kern, plain) in timed.items():
+            kern, lib = library_attention(
+                torch, F, q, k, v, do, timed["attn_fwd_bf16"][0],
+                timed["attn_bwd_bf16"][0])
+        for key, (fn, plain) in timed.items():
             n = 20 if main else 3
-            t = {"ms": cuda_ms(torch, kern, n=n),
+            what = key[5:8]
+            t = {"ms": kern[what] if main else cuda_ms(torch, fn, n=n),
                  "plain_ms": cuda_ms(torch, plain, n=n),
-                 "library_ms": lib[key] if main else None}
+                 "library_ms": lib[what][0] if main else None,
+                 "library": (f"F.scaled_dot_product_attention "
+                             f"({lib[what][1]})" if main else None),
+                 "bf16_route": fa.bf16_route(dq, dv, what == "bwd")}
             t["bound_ms"], t["bound_by"] = bounds[key]
-            print(f"    {key:<14} kernel {t['ms']:.4f} ms  plain "
-                  f"{t['plain_ms']:.4f} ms  library {t['library_ms']} ms  "
-                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
-                  f"{t['bound_ms'] / t['ms']:.3f} of it")
+            issued, issued_by = bounds[f"{key[:8]}_issued_bf16"]
+            print(f"    {key:<14} ({t['bf16_route']}) kernel {t['ms']:.4f} ms  "
+                  f"plain {t['plain_ms']:.4f} ms  library "
+                  f"{t['library_ms']} ms ({t['library']})  bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}), "
+                  f"{t['bound_ms'] / t['ms']:.3f} of it; the issued mma's "
+                  f"bound {issued:.4f} ms ({issued_by})")
             if case == "teacher":
                 record[key].update(t)
         del q, k, v, do, o, lse, o_p, lse_p, got, plain
@@ -3358,7 +3583,7 @@ def family_first_difference(torch, np, family, device="cuda"):
     return None, 0.0, _ratio([c_out], [r_out], [f_out])
 
 
-def phase_bf16_families(torch, np, F):
+def phase_bf16_families(torch, np, F, ptxas):
     from gcc_tpu_torch.compress import cyclegan_reference_cfgs
     from gcc_tpu_torch.config import Config
     from gcc_tpu_torch.engines.cyclegan import CycleGANEngine
@@ -3370,7 +3595,7 @@ def phase_bf16_families(torch, np, F):
     print("== phase 18: bf16 families: SAGAN (kernel B1 in bf16), CycleGAN "
           "and SRGAN in --compute_dtype bfloat16")
     rec = {}
-    record = attention_bf16(torch, F)
+    record = attention_bf16(torch, F, ptxas)
 
     # (b) SAGAN at phase 7's full width on bf16 batches
     batch, n_timed = 64, 3
@@ -3491,8 +3716,13 @@ def main():
           f"torch {torch.__version__} CUDA {torch.version.cuda}")
     print(smi)
 
+    # two more nvcc beside the build's: an earlier B1 source for phase 6's
+    # bit check, where one was put in place, and flash_attention_bf16.cu's
+    # registers and spills for phase 18 (a)
+    parent, ptxas = start_parent_build(), start_ptxas()
     print(f"== phase 2: build {kernels.build():.2f} s (nvcc, from "
           f"{kernels.CSRC})")
+    parent, ptxas = parent_library(parent), ptxas_log(ptxas)
 
     record = phase_kernels(torch, F)
     # launches: the main path's (pix2pix resnet for B2, SAGAN for B1);
@@ -3502,7 +3732,7 @@ def main():
     launches = phase_main(torch, np, fp32["resnet"])
     by_path = {k: {"pix2pix resnet": v} for k, v in launches.items()}
     phase_agree(torch, np)
-    record.update(phase_attention(torch, F))
+    record.update(phase_attention(torch, F, parent))
     sagan = phase_sagan(torch, np)
     launches.update(sagan)
     by_path.update({k: {"sagan": v} for k, v in sagan.items()})
@@ -3524,7 +3754,7 @@ def main():
         launches[k] = bf16_launches[k]
         by_path[k] = {"pix2pix resnet bf16": bf16_launches[k]}
     attn_record, sagan_bf16, cg_bf16, families = phase_bf16_families(
-        torch, np, F)
+        torch, np, F, ptxas)
     record.update(attn_record)
     for k in ATTN_PER_ITER_BF16:
         launches[k] = sagan_bf16[k]
@@ -3536,6 +3766,8 @@ def main():
     for k, rec in record.items():
         family, csrc = (("B1", "flash_attention") if k.startswith("attn")
                         else ("B2", "mobile_block"))
+        if k.startswith("attn") and k.endswith("_bf16"):
+            csrc = "flash_attention_bf16"
         short = k.replace("stage_", "").replace("attn_", "").replace("_", "-")
         entries.append({
             "name": f"{family}-{short}", "route": "cuda",
@@ -3546,7 +3778,8 @@ def main():
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             **{m: rec[m] for m in ("max_ulps", "max_share", "max_rel_dw",
-                                   "float64_share", "plain_float64_share")
+                                   "float64_share", "plain_float64_share",
+                                   "library", "bf16_route")
                if m in rec}})
     print(json.dumps({"cli": cli}))
     print(json.dumps({"evaluators": evaluators}))

@@ -1,5 +1,6 @@
-// Flash self-attention for SAGAN on Hopper (sm_90a), one head, with fp32 or
-// bf16 q, k, v and dO.
+// Flash self-attention for SAGAN on Hopper (sm_90a), one head, with fp32
+// q, k, v and dO; and, for bf16 inputs, the streaming kernels of the wide
+// shapes that flash_attention_bf16.cu's kernels do not hold.
 //
 //   O = softmax(q k^T) v  with UNSCALED logits (no 1/sqrt(d), SAGAN.py:97-103)
 //   lse_i = log sum_j exp(q_i . k_j)
@@ -10,36 +11,34 @@
 // makes no transposed copies.
 //
 // Replaces the three Pallas kernels of gcc_tpu/ops/pallas/attention.py:
-//   gcc_attn_fwd[_bf16]  <- _attn_fwd_kernel       (:44,  pallas_call :197)
-//   gcc_attn_bwd[_bf16]  <- _attn_bwd_dq_kernel    (:81,  pallas_call :277)
-//                         + _attn_bwd_dkv_kernel   (:110, pallas_call :295)
+//   gcc_attn_fwd[_bf16_wide]  <- _attn_fwd_kernel     (:44,  pallas_call :197)
+//   gcc_attn_bwd[_bf16_wide]  <- _attn_bwd_dq_kernel  (:81,  pallas_call :277)
+//                              + _attn_bwd_dkv_kernel (:110, pallas_call :295)
 //
-// bf16 (the *_bf16 entry points; the TPU kernels with bf16 q, k, v and dO,
-// the JAX package's default --compute_dtype): every kernel below is
-// templated on the storage type T of q, k, v, dO, O, dq, dk and dv. A bf16
-// element is widened to fp32 as its tile is loaded, and everything after
-// that is the fp32 kernel's arithmetic (attention.py:54-56, :89-94,
-// :119-124 upcast the same way); O, dq, dk and dv round to bf16 once, on
-// their store (:70, :103, :134-135). lse, delta and the dq partials stay
-// fp32. cp.async copies bytes and cannot widen, so the bf16 tile loader is
-// synchronous: each thread reads 4 bf16 (8 bytes) through the read-only
-// path, widens them in registers and stores a float4 to shared memory (one
-// bf16 at a time where N % 4 != 0). It keeps the tile layout, and so every
-// product and shared-memory size of the fp32 kernels; the loads of tile
-// j + 1 are still issued before tile j computes, but stall their own warp,
-// which the other resident block hides in part. A staged bf16 copy widened
-// from shared memory would keep cp.async's overlap at the cost of more
-// shared memory per stage, which the backward's two blocks an SM cannot
-// spare at every width. The products stay split-TF32 on the same fragments;
-// a bf16 value is exact in tf32, so its lo part is 0 and the mma with it
-// adds nothing: the bf16 instantiations skip them (mma_x), one mma a
-// product for S^T = k^T q and dP^T = v^T dO (both operands bf16), two for
-// P V^T, dV, dK and dQ (one bf16 operand), 8 where fp32 takes 15 per
-// (query, key, channel) of the backward, the same bits. The bf16 backward
-// sums in one way of its own: S^T and dP^T per 8 channels, dK and dV per
-// query tile, go into zeroed partials added in fp32 (kq_product,
+// bf16 here: only the wide route, gcc_attn_fwd_bf16_wide
+// (attn_fwd_kernel<bf16, 8, true>) and gcc_attn_bwd_bf16_wide
+// (attn_bwd_wide_kernel<bf16>), for the shapes whose bf16 tiles do not fit
+// one block of flash_attention_bf16.cu (gcc_attn_bf16_serves there: the
+// forward at dq > 290, the backward at dq + dv > 336 after padding, e.g.
+// chip_smoke.py's wide_q and SAGAN D's attn2 backward at dq 64 / dv 512).
+// Those kernels are templated on the storage type T of q, k, v, dO, O, dq,
+// dk and dv. A bf16 element is widened to fp32 as its tile is loaded, and
+// everything after that is the fp32 kernel's arithmetic (attention.py:54-56,
+// :89-94, :119-124 upcast the same way); O, dq, dk and dv round to bf16
+// once, on their store (:70, :103, :134-135). lse, delta and the dq
+// partials stay fp32. cp.async copies bytes and cannot widen, so the bf16
+// tile loader is synchronous: each thread reads 4 bf16 (8 bytes) through
+// the read-only path, widens them in registers and stores a float4 to
+// shared memory (one bf16 at a time where N % 4 != 0). The products stay
+// split-TF32 on the same fragments; a bf16 value is exact in tf32, so its
+// lo part is 0 and the mma with it adds nothing: the bf16 instantiations
+// skip them (mma_x), one mma a product for S^T = k^T q and dP^T = v^T dO
+// (both operands bf16), two for dV, dK and dQ (one bf16 operand). The bf16
+// backward sums in one way of its own: S^T and dP^T per 8 channels, dK and
+// dV per query tile, go into zeroed partials added in fp32 (kq_product,
 // pt_accumulate), where the fp32 kernel keeps the tensor cores' running
-// sums, whose truncations lean one way.
+// sums, whose truncations lean one way. The resident kernels
+// (attn_fwd_kernel<T, VT, false>, attn_bwd_kernel) run fp32 only.
 //
 // Backward (FlashAttention-style): p_ij = exp(q_i . k_j - lse_i),
 // delta_i = dO_i . O_i (a torch reduction in the wrapper, as the JAX package
@@ -1027,13 +1026,16 @@ int gcc_attn_fwd(const float* q, const float* k, const float* v, float* o,
                   static_cast<cudaStream_t>(stream));
 }
 
-// The forward on bf16 q, k, v; o bf16, lse fp32.
-int gcc_attn_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                      float* lse, int B, int N, int dq, int dv,
-                      void* stream) {
-  return attn_fwd(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, B,
-                  N, dq, dv, static_cast<cudaStream_t>(stream));
+// The forward on bf16 q, k, v (o bf16, lse fp32) by the streaming kernel,
+// attn_fwd_kernel<bf16, 8, true>: the shapes whose tiles
+// flash_attention_bf16.cu's kernel cannot hold (gcc_attn_bf16_serves).
+int gcc_attn_fwd_bf16_wide(const void* q, const void* k, const void* v,
+                           void* o, float* lse, int B, int N, int dq, int dv,
+                           void* stream) {
+  return fwd<bf16, 8, true>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, B, N, dq, dv,
+      static_cast<cudaStream_t>(stream));
 }
 
 // Key-tile groups of gcc_attn_bwd's dq partials for N keys (at most 16).
@@ -1051,14 +1053,16 @@ int gcc_attn_bwd(const float* q, const float* k, const float* v,
                   B, N, dq, dv, static_cast<cudaStream_t>(stream));
 }
 
-// The backward on bf16 q, k, v and dO: lse, delta and the dq_part scratch
-// fp32 (its size as gcc_attn_bwd's), dq_out, dk_out and dv_out bf16.
-int gcc_attn_bwd_bf16(const void* q, const void* k, const void* v,
-                      const void* dO, const float* lse, const float* delta,
-                      void* dq_out, void* dk_out, void* dv_out,
-                      float* dq_part, int B, int N, int dq, int dv,
-                      void* stream) {
-  return attn_bwd(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+// The backward on bf16 q, k, v and dO by the streaming kernel,
+// attn_bwd_wide_kernel<bf16>, for the shapes flash_attention_bf16.cu's
+// kernel cannot hold: lse, delta and the dq_part scratch fp32 (its size as
+// gcc_attn_bwd's), dq_out, dk_out and dv_out bf16.
+int gcc_attn_bwd_bf16_wide(const void* q, const void* k, const void* v,
+                           const void* dO, const float* lse,
+                           const float* delta, void* dq_out, void* dk_out,
+                           void* dv_out, float* dq_part, int B, int N, int dq,
+                           int dv, void* stream) {
+  return bwd_wide(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                   static_cast<const bf16*>(v), static_cast<const bf16*>(dO),
                   lse, delta, static_cast<bf16*>(dq_out),
                   static_cast<bf16*>(dk_out), static_cast<bf16*>(dv_out),

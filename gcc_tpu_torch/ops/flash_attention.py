@@ -17,16 +17,20 @@ Two wrappers stand for the three TPU kernels:
     attn_bwd  <- _attn_bwd_dq_kernel   (:81) and _attn_bwd_dkv_kernel (:110),
                  one pass that computes dq, dk and dv together
 
-On a CUDA tensor each launches its kernel (csrc/flash_attention.cu; the
-``*_bf16`` entry point for bf16 tensors) or raises, also for a dtype without
-a kernel; on a CPU tensor it runs its plain version, ``*_plain`` below,
+On a CUDA tensor each launches its kernel or raises, also for a dtype
+without a kernel: fp32 in csrc/flash_attention.cu; bf16 in
+csrc/flash_attention_bf16.cu (bf16 tensor-core products), or, for the wide
+shapes whose tiles it cannot hold, flash_attention.cu's streaming kernels
+on bf16 (``bf16_route``). On a CPU tensor it runs its plain version,
+``*_plain`` below,
 which materialises the N x N matrix and repeats the kernel's formulas: in
 bf16 on the fp32 values of its inputs, its outputs rounded once, as the TPU
 kernels upcast and round (ops/pallas/attention.py:54-56, :70).
 ``attn_bwd_dq_plain`` and ``attn_bwd_dkv_plain`` are the plain versions of
 the two TPU backward kernels' functions. ``LAUNCHES`` counts the CUDA calls
 of each wrapper by dtype (``attn_fwd`` fp32, ``attn_fwd_bf16`` bf16, and so
-on). ``flash_attention`` is the differentiable function: its forward saves
+on; a bf16 call counts under ``*_bf16`` whichever kernel takes it).
+``flash_attention`` is the differentiable function: its forward saves
 (q, k, v, O, lse), its backward computes delta = sum_c dO * O in fp32 (from
 bf16 dO and O too, attention.py:259) and calls ``attn_bwd`` once.
 """
@@ -163,6 +167,34 @@ def _check_qkv(q, k, v):
     return B, N, dq, dv
 
 
+@functools.lru_cache(maxsize=None)
+def bf16_route(dq: int, dv: int, backward: bool) -> str:
+    """Which kernel takes bf16 q, k, v of widths (dq, dv): "tiles"
+    (flash_attention_bf16.cu, where its tiles fit one block's shared
+    memory) or "wide" (flash_attention.cu's streaming kernels)."""
+    lib = kernels.library("flash_attention_bf16")
+    return "tiles" if lib.gcc_attn_bf16_serves(dq, dv, int(backward)) \
+        else "wide"
+
+
+def bf16_smem(dq: int, dv: int, backward: bool) -> int:
+    """Bytes of dynamic shared memory flash_attention_bf16.cu's forward (or
+    backward) kernel takes at widths (dq, dv); past a block's 232,448 the
+    shape goes to the "wide" route."""
+    return kernels.library("flash_attention_bf16").gcc_attn_bf16_smem(
+        dq, dv, int(backward))
+
+
+def _entry(kind: str, q: torch.Tensor, dq: int, dv: int) -> Tuple[str, str]:
+    """(library, entry point) of ``kind`` ("fwd" or "bwd") for q's dtype
+    and the widths."""
+    if _suffix(q) == "":
+        return "flash_attention", f"gcc_attn_{kind}"
+    if bf16_route(dq, dv, kind == "bwd") == "tiles":
+        return "flash_attention_bf16", f"gcc_attn_{kind}_bf16"
+    return "flash_attention", f"gcc_attn_{kind}_bf16_wide"
+
+
 def attn_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward: (O (B, dv, N) in q's dtype, lse (B, N) fp32), any N, dq and
     dv."""
@@ -174,17 +206,26 @@ def attn_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
         o = torch.empty(B, dv, N, device=q.device, dtype=q.dtype)
         lse = torch.empty(B, N, device=q.device)
         p = kernels.ptr
-        kernels.launch("flash_attention", f"gcc_attn_fwd{sfx}", p(q), p(k),
-                       p(v), p(o), p(lse), B, N, dq, dv)
+        kernels.launch(*_entry("fwd", q, dq, dv), p(q), p(k), p(v), p(o),
+                       p(lse), B, N, dq, dv)
     LAUNCHES[f"attn_fwd{sfx}"] += 1
     return o, lse
 
 
 @functools.lru_cache(maxsize=None)
 def dq_groups(N: int) -> int:
-    """Key-tile groups of the backward's dq partials for N keys, as the
-    kernel library sizes them (at most 16, whatever N is)."""
+    """Key-tile groups of the fp32 (and wide bf16) backward's dq partials
+    for N keys, as the kernel library sizes them (at most 16, whatever N
+    is)."""
     return kernels.library("flash_attention").gcc_attn_bwd_groups(N)
+
+
+@functools.lru_cache(maxsize=None)
+def dq_groups_bf16(B: int, N: int, dq: int, dv: int) -> int:
+    """Key-tile groups of flash_attention_bf16.cu's backward: about two
+    blocks an SM over its grid, at most 64."""
+    return kernels.library("flash_attention_bf16").gcc_attn_bwd_bf16_groups(
+        B, N, dq, dv)
 
 
 def _check_bwd(q, k, v, do, lse, delta):
@@ -200,20 +241,23 @@ def attn_bwd(q, k, v, do, lse, delta
     """(d loss / d q, d loss / d k (B, dq, N), d loss / d v (B, dv, N)) from
     dO = d loss / d O, the saved lse and delta = sum_c dO * O; any N, dq and
     dv; the gradients in q's dtype, lse and delta fp32. Scratch: dq partials
-    of at most 16 key-tile groups, B * 16 * dq * N floats at most."""
+    of key-tile groups, B * 16 * dq * N floats at most in fp32 (and bf16's
+    wide shapes), at most (2 SMs + B) * dq * N in bf16."""
     if not q.is_cuda:
         return attn_bwd_plain(q, k, v, do, lse, delta)
     sfx = _suffix(q)
     B, N, dq, dv = _check_bwd(q, k, v, do, lse, delta)
+    lib, fn = _entry("bwd", q, dq, dv)
+    groups = (dq_groups_bf16(B, N, dq, dv) if lib == "flash_attention_bf16"
+              else dq_groups(N))
     with torch.cuda.device(q.device):
         dq_out, dk, dv_out = (torch.empty_like(q), torch.empty_like(k),
                               torch.empty_like(v))
         # the key-tile groups' dq partials, summed in order by the second pass
-        part = torch.empty(B, dq_groups(N), dq, N, device=q.device)
+        part = torch.empty(B, groups, dq, N, device=q.device)
         p = kernels.ptr
-        kernels.launch("flash_attention", f"gcc_attn_bwd{sfx}", p(q), p(k),
-                       p(v), p(do), p(lse), p(delta), p(dq_out), p(dk),
-                       p(dv_out), p(part), B, N, dq, dv)
+        kernels.launch(lib, fn, p(q), p(k), p(v), p(do), p(lse), p(delta),
+                       p(dq_out), p(dk), p(dv_out), p(part), B, N, dq, dv)
     LAUNCHES[f"attn_bwd{sfx}"] += 1
     return dq_out, dk, dv_out
 

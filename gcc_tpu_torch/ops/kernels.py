@@ -29,8 +29,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes of every C entry point, by source name (pointers and the stream
 # as c_void_p, ints as c_int); every entry point returns cudaError_t as int,
-# but the *_partials entry points and gcc_attn_bwd_groups, which return a
-# count and take no stream
+# but the *_partials entry points, gcc_attn_bwd_groups,
+# gcc_attn_bwd_bf16_groups, gcc_attn_bf16_serves and gcc_attn_bf16_smem,
+# which return a count (or 1/0, or bytes) and take no stream
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "mobile_block": {
         "gcc_stage_fwd": [_P] * 9 + [_I] * 6 + [_P],
@@ -46,7 +47,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "gcc_attn_fwd": [_P] * 5 + [_I] * 4 + [_P],
         "gcc_attn_bwd_groups": [_I],
         "gcc_attn_bwd": [_P] * 10 + [_I] * 4 + [_P],
+        "gcc_attn_fwd_bf16_wide": [_P] * 5 + [_I] * 4 + [_P],
+        "gcc_attn_bwd_bf16_wide": [_P] * 10 + [_I] * 4 + [_P],
+    },
+    "flash_attention_bf16": {
+        "gcc_attn_bf16_serves": [_I] * 3,
+        "gcc_attn_bf16_smem": [_I] * 3,
         "gcc_attn_fwd_bf16": [_P] * 5 + [_I] * 4 + [_P],
+        "gcc_attn_bwd_bf16_groups": [_I] * 4,
         "gcc_attn_bwd_bf16": [_P] * 10 + [_I] * 4 + [_P],
     },
 }

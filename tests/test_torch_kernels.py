@@ -28,7 +28,10 @@ ulps of their largest value with at most 1 % of elements apart (the
 kernels round where the plain versions round; fp32 sums in another order
 move a few values to their other bf16 neighbour), fp32 weight gradients
 within 1e-3 of their largest value (``kernels.bf16_err`` and
-``mobile_block``'s bounds, which chip_smoke.py applies too). B1's bf16 entry points against
+``mobile_block``'s bounds, which chip_smoke.py applies too). B1's bf16 entry points
+(csrc/flash_attention_bf16.cu, or flash_attention.cu's streaming kernels
+for the shapes whose tiles do not fit a block: ``bf16_route``), at every
+shape of the fp32 cases too, against
 the bf16 plain versions: O, dq, dk and dv within one bf16 ulp of their
 largest value with at most 1 % of elements apart, or, for an output
 farther than that from its plain version, no farther from the float64
@@ -324,13 +327,27 @@ def test_attention_wrapper_rejects_bad_input(cuda):
 
 # bf16 (B, N, dq, dv, scale of q and k): chip_smoke.py phase 18's shapes
 # (the main path's teacher and student, ragged, many-tile, wide-logit, D's
-# attn2 at threshold 16, wide q, long N) and ragged ones off the 4-element
-# vector loads (N % 4 != 0: 2-byte loads)
+# attn2 at threshold 16, wide q, long N), ragged ones off the 8-element
+# vector loads (N % 8 != 0: 2-byte loads), then every fp32 ATTN_CASES shape
+# not among them
 ATTN_BF16_CASES = [(64, 1024, 8, 64, 0.5), (64, 1024, 2, 16, 0.5),
                    (2, 1000, 25, 200, 0.5), (2, 4096, 8, 64, 0.5),
                    (16, 1024, 8, 64, 2.0), (64, 16, 64, 512, 0.5),
                    (4, 1024, 320, 320, 0.5), (1, 16384, 8, 64, 0.5),
                    (3, 301, 5, 33, 0.5), (2, 65, 3, 5, 0.5)]
+ATTN_BF16_CASES += [c for c in ATTN_CASES if c not in ATTN_BF16_CASES]
+# (dq, dv) -> the kernels that take bf16 (forward, backward): the tiles of
+# flash_attention_bf16.cu up to its shared memory, flash_attention.cu's
+# streaming kernels past it
+ATTN_BF16_ROUTES = {(8, 64): ("tiles", "tiles"), (2, 16): ("tiles", "tiles"),
+                    (25, 200): ("tiles", "tiles"),
+                    (40, 280): ("tiles", "tiles"),
+                    (100, 150): ("tiles", "tiles"),
+                    (64, 512): ("tiles", "wide"),
+                    (272, 64): ("tiles", "tiles"),
+                    (273, 64): ("tiles", "wide"),
+                    (289, 64): ("wide", "wide"),
+                    (320, 320): ("wide", "wide")}
 
 
 def _close_attn_bf16(got, plain, exact=None):
@@ -375,6 +392,23 @@ def test_attention_bf16_kernels_match_plain(cuda, case):
         {"attn_fwd": 0, "attn_bwd": 0, "attn_fwd_bf16": 1, "attn_bwd_bf16": 2}
     assert all(torch.equal(a, b) for a, b in zip((o, lse), fa.attn_fwd(q, k, v)))
     assert all(torch.equal(a, b) for a, b in zip(grads, fa.attn_bwd(*args)))
+
+
+@pytest.mark.cuda
+def test_attention_bf16_routes(cuda):
+    """Which kernel takes bf16 inputs of each width: the bf16 tiles wherever
+    they fit one block's shared memory, flash_attention.cu's streaming
+    kernels past it; the bf16 backward's dq groups give about two blocks an
+    SM (4 at the main path's B 64, N 1024 on an H100's 132 SMs), at most
+    64."""
+    got = {w: (fa.bf16_route(*w, False), fa.bf16_route(*w, True))
+           for w in ATTN_BF16_ROUTES}
+    assert got == ATTN_BF16_ROUTES
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    want = min(16, -(-2 * sms // 64))
+    per = -(-16 // want)
+    assert fa.dq_groups_bf16(64, 1024, 8, 64) == -(-16 // per)
+    assert fa.dq_groups_bf16(1, 16384, 8, 64) == 64
 
 
 @pytest.mark.cuda
