@@ -14,12 +14,17 @@ Phases, each of which exits non-zero on failure:
               through sep_stage_reference (relu's mask from the kernel's
               b-hat, the pixels where it differs from the plain forward's
               counted and held to |b-hat| < 1e-4); that two calls of each
-              give the same bits; CUDA-event times of the kernel, the plain
+              give the same bits; where chip_ab/b2_parent/ holds an earlier
+              commit's mobile_block.cu (with tf32_mma.cuh and bf16_mma.cuh),
+              put there by hand for a before/after check, the fp32 outputs
+              bit for bit those of its library, built by nvcc in the same
+              run; CUDA-event times of the kernel, the plain
               version and the cuDNN route of the stage at teacher_relu,
               student_relu, cg_teacher_relu and cg_student_relu, cuDNN's convolution backward of the two
               backward kernels' convolution parts (a partial yardstick),
               and the device time of each launch of one call of each
-              (torch.profiler);
+              (torch.profiler; a split that misses a launch is profiled
+              again);
   4. main     the pix2pix GCC cooperative iteration (train_step + arch_step)
               at full width: resnet backbone with fused blocks, 256 px,
               teacher ngf 64 / ndf 128, the pruned student
@@ -191,7 +196,12 @@ Phases, each of which exits non-zero on failure:
               fp32 weight gradients within 1e-3 of their largest value,
               two calls the same bits; CUDA-event times of the kernel, the
               plain version and cuDNN's bf16 route, bounds at 3.35 TB/s and
-              989 TFLOP/s, the device time by launch; (b) phase 9's U-Net
+              989 TFLOP/s, the device time by launch; nvcc -Xptxas -v of
+              mobile_block_bf16.cu; with chip_ab/b2_parent/'s library, its
+              bf16 forward and pointwise backward timed in turns with the
+              new ones (medians of three rounds of 20): event ms, device ms
+              (its launches summed), the host's us a call over 200 enqueued
+              calls, the bound with and without the saved tensors; (b) phase 9's U-Net
               iteration on bf16 batches (no B1 or B2 launch); (c) phase 4's
               pix2pix resnet fused iteration on bf16 batches, B2 108/36/36
               bf16 launches an iteration, generate in fp32 (18 fp32 stage
@@ -271,9 +281,19 @@ EXP_PER_CLK_SM = 16
 # another width than v is skipped)
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
                  "MATH")
-# where a before/after check puts the fp32 B1 source of an earlier commit
+# where a before/after check puts an earlier commit's source by hand: B1's
+# flash_attention.cu and tf32_mma.cuh; B2's mobile_block.cu, tf32_mma.cuh and
+# bf16_mma.cuh
 B1_PARENT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "chip_ab", "b1_parent")
+B2_PARENT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "chip_ab", "b2_parent")
+# the argtypes of that B2 library's bf16 entry points, which took the
+# rounded pointwise weight's scratch after the 1/std vectors
+_VP, _VI = ctypes.c_void_p, ctypes.c_int
+B2_PARENT_BF16 = {"gcc_stage_fwd_bf16": [_VP] * 10 + [_VI] * 6 + [_VP],
+                  "gcc_stage_bwd_pw_bf16_partials": [_VI] * 6,
+                  "gcc_stage_bwd_pw_bf16": [_VP] * 10 + [_VI] * 7 + [_VP]}
 PER_ITER = {"stage_fwd": 108, "stage_bwd_pw": 36, "stage_bwd_dw": 36}
 TPU_KERNEL = {"stage_fwd": "gcc_tpu/ops/pallas/mobile_block.py:155",
               "stage_bwd_pw": "gcc_tpu/ops/pallas/mobile_block.py:187",
@@ -414,21 +434,45 @@ def short_name(kernel):
         "void ", "").split("(")[0]
 
 
-def launch_split(torch, fn, n=20):
+def launch_split(torch, fn, n=20, launches=1, tries=3):
     """Device time per call (ms) of each kernel that fn launches, by kernel
-    name, from torch.profiler over n calls after one warm-up call."""
+    name, from torch.profiler over n calls after one warm-up call. Now and
+    then the profiler records no kernel for a call, or drops one of its
+    launches; a split with fewer than ``launches`` kernels, or with a kernel
+    seen a number of times that is not a multiple of n, is reported and
+    profiled again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+    for _ in range(tries):
+        fn()
         torch.cuda.synchronize()
-    return {short_name(e.key): e.self_device_time_total / n / 1e3
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        split = {short_name(e.key): e.self_device_time_total / n / 1e3
+                 for e in events}
+        counts = {short_name(e.key): e.count for e in events}
+        if len(split) >= launches and all(c % n == 0
+                                          for c in counts.values()):
+            return split
+        print(f"    the profiler recorded {len(split)} of {launches} "
+              f"kernels over {n} calls ({counts}); profiling again")
+    return split
+
+
+def device_ms(split):
+    """A call's device time: its launches' times summed."""
+    return sum(split.values())
+
+
+def print_split(what, split):
+    print(f"    one {what} by launch (profiler): device {device_ms(split):.4f}"
+          f" ms, " + ", ".join(f"{name} {ms:.4f} ms" for name, ms in
+                               sorted(split.items(), key=lambda kv: -kv[1])))
 
 
 def max_err(a, b):
@@ -443,7 +487,53 @@ def check_close(name, got, ref, atol):
     return err
 
 
-def phase_kernels(torch, F):
+# kernels a call of each B2 entry point launches: fp32, and bf16 with the
+# pointwise backward's ordered dW sum (one fewer where dW takes one run)
+B2_LAUNCHES = {"stage_fwd": 3, "stage_bwd_pw": 4, "stage_bwd_dw": 2,
+               "stage_fwd_bf16": 3, "stage_bwd_pw_bf16": 3,
+               "stage_bwd_dw_bf16": 2}
+
+
+def b2_same_as_parent(torch, lib, case, fwd_in, fwd, pw_in, pw, dw_in, dw):
+    """fp32 B2's outputs against the earlier library's on the same inputs:
+    the forward's (y, a-hat, b-hat, both 1/std) on (x, dwk, pwk, residual,
+    relu), the pointwise backward's (d a-hat, dW_pw) on (g, a-hat, b-hat,
+    1/std of b), the depthwise backward's (dx, dW_dw) on (d a-hat, a-hat,
+    1/std of a): the same bits, or fail."""
+    x, dwk, pwk, res, relu = fwd_in
+    g, ahat, bhat, rstd_b = pw_in
+    gah, _, rstd_a = dw_in
+    (B, C, H, W), M, dev = x.shape, pwk.shape[0], x.device
+    p = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    st = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    outs = [torch.empty_like(fwd[0]), torch.empty_like(x),
+            torch.empty_like(fwd[0]), torch.empty(B, C, device=dev),
+            torch.empty(B, M, device=dev), torch.empty_like(x),
+            torch.empty_like(pwk), torch.empty_like(x),
+            torch.empty_like(dwk)]
+    gb = torch.empty_like(g)
+    part = torch.empty(lib.gcc_stage_bwd_pw_partials(B, C, M, H, W, sms), M,
+                       C, device=dev)
+    gdw_part = torch.empty(B, C, 9, device=dev)
+    errs = (lib.gcc_stage_fwd(p(x), p(dwk), p(pwk), p(res), *map(p, outs[:5]),
+                              B, C, M, H, W, int(relu), st),
+            lib.gcc_stage_bwd_pw(p(g), p(ahat), p(bhat), p(rstd_b), p(pwk),
+                                 p(gb), p(outs[5]), p(part), p(outs[6]), B,
+                                 C, M, H, W, int(relu), sms, st),
+            lib.gcc_stage_bwd_dw(p(gah), p(ahat), p(rstd_a), p(x), p(dwk),
+                                 p(outs[7]), p(gdw_part), p(outs[8]), B, C,
+                                 H, W, st))
+    if any(errs):
+        fail(f"{case}: the earlier B2 library's launch failed: {errs}")
+    same = [torch.equal(a, b) for a, b in zip((*fwd, *pw, *dw), outs)]
+    print(f"    bit for bit with the earlier source (y, a-hat, b-hat, 1/std "
+          f"a, 1/std b, d a-hat, dW_pw, dx, dW_dw): {same}")
+    if not all(same):
+        fail(f"{case}: fp32 B2 differs from the earlier source: {same}")
+
+
+def phase_kernels(torch, F, parent=None):
     from gcc_tpu_torch.ops import mobile_block as mb
 
     print("== phase 3: kernels against their plain versions (fp32, TF32 off)")
@@ -488,6 +578,10 @@ def phase_kernels(torch, F):
                 for n, a, b in zip(("dx", "dW_dw"), dw_k, dw_p)]
         record["stage_bwd_dw"]["max_abs_err"] = max(
             record["stage_bwd_dw"]["max_abs_err"], *errs)
+        if parent is not None:
+            b2_same_as_parent(torch, parent, case, (x, dwk, pwk, res, relu),
+                              out_k, (g, ahat, bhat, rstd_b), pw_k,
+                              (gah, ahat, rstd_a), dw_k)
         # no float atomics: a second call of each backward gives the same bits
         for name, first, again in (
                 ("stage_bwd_pw", pw_k,
@@ -581,10 +675,11 @@ def phase_kernels(torch, F):
               f"{fp32_ms:.4f} ms ({fp32_by}); the stage_bwd_pw line puts its "
               f"two products on the tensor cores in split-TF32")
         for k in ("stage_fwd", "stage_bwd_pw", "stage_bwd_dw"):
-            split = launch_split(torch, timings[k][0])
-            print(f"    one {k} by launch (profiler): " + ", ".join(
-                f"{name} {ms:.4f} ms" for name, ms in
-                sorted(split.items(), key=lambda kv: -kv[1])))
+            split = launch_split(torch, timings[k][0],
+                                 launches=B2_LAUNCHES[k])
+            print_split(k, split)
+            if case == "teacher_relu":
+                record[k]["device_ms"] = device_ms(split)
 
         # cuDNN on the convolution part of each backward kernel alone, from
         # the gradient at the conv's output (IN's backward left out): a
@@ -729,7 +824,9 @@ def phase_main(torch, np, record=None):
 
 STAGE_KERNELS = ("dw_in_fwd_kernel", "pw_gemm_kernel", "in_fwd_kernel",
                  "in_bwd_kernel", "dw_bwd_plane_kernel", "sum_partials_kernel",
-                 "pw_gemm_bf16_kernel", "to_bf16_kernel")
+                 "dw_in_fwd_bf16_kernel", "pw_fwd_bf16_kernel",
+                 "pw_bwd_bf16_kernel", "in_fwd_bf16_kernel",
+                 "in_bwd_bf16_kernel")
 ATTN_KERNELS = ("attn_fwd_kernel", "attn_bwd_kernel", "attn_dq_reduce_kernel",
                 "attn_fwd_bf16_kernel", "attn_bwd_bf16_kernel",
                 "attn_dq_reduce_bf16_kernel")
@@ -944,41 +1041,38 @@ def library_attention(torch, F, q, k, v, do, kern_fwd, kern_bwd, rounds=3):
     return {w: ms[("kernel", w)] for w in ("fwd", "bwd")}, lib
 
 
-def start_parent_build():
-    """nvcc of the fp32 B1 source of an earlier commit, placed by hand in
-    B1_PARENT (flash_attention.cu and tf32_mma.cuh, for a before/after bit
-    check; a checkout does not hold it), into a library there: (Popen,
-    library path), or None where there is no such source."""
+def start_parent_build(folder, name):
+    """nvcc of an earlier commit's csrc/<name>.cu, placed by hand in folder
+    with the headers it includes (for a before/after check; a checkout does
+    not hold it), into a library there: (Popen, library path), or None
+    where there is no such source."""
     from gcc_tpu_torch.ops import kernels
 
-    src = os.path.join(B1_PARENT, "flash_attention.cu")
+    src = os.path.join(folder, f"{name}.cu")
     if not os.path.exists(src):
         return None
-    out = os.path.join(B1_PARENT, "libflash_attention_parent.so")
+    out = os.path.join(folder, f"lib{name}_parent.so")
     return subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", out,
                              src], stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT), out
 
 
-def parent_library(build):
-    """The library that start_parent_build started, its fp32 entry points
-    bound (kernels.SIGNATURES), or None."""
-    from gcc_tpu_torch.ops import kernels
-
+def parent_library(build, folder, name, signatures, what):
+    """The library that start_parent_build started, the entry points in
+    signatures ({name: argtypes}) bound, or None (saying that ``what`` is not
+    run) where no source was placed."""
     if build is None:
-        print(f"  no earlier B1 source in {B1_PARENT}: phase 6's fp32 bit "
-              f"check against it is not run")
+        print(f"  no earlier {name}.cu in {folder}: {what} is not run")
         return None
     proc, out = build
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        fail(f"nvcc of {B1_PARENT}/flash_attention.cu:\n{log.decode()}")
+        fail(f"nvcc of {folder}/{name}.cu:\n{log.decode()}")
     lib = ctypes.CDLL(out)
-    for fn in ("gcc_attn_fwd", "gcc_attn_bwd_groups", "gcc_attn_bwd"):
-        getattr(lib, fn).argtypes = kernels.SIGNATURES["flash_attention"][fn]
+    for fn, argtypes in signatures.items():
+        getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
-    print(f"  phase 6 holds B1's fp32 outputs bit for bit to "
-          f"{B1_PARENT}/flash_attention.cu")
+    print(f"  {what}: against {folder}/{name}.cu")
     return lib
 
 
@@ -2893,13 +2987,97 @@ def check_dw(torch, name, got, ref, rec):
     rec["max_abs_err"] = max(rec["max_abs_err"], max_err(got, ref))
 
 
-def bf16_kernels(torch, F):
+def host_us(torch, fn, n=200):
+    """The host's us a call of fn: perf_counter over n enqueued calls,
+    before the synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def in_turns(torch, fns, rounds=3, n=20, clock=cuda_ms):
+    """Median time a call of each of fns ({name: fn}) over rounds of n
+    calls by clock (CUDA-event ms, or host_us), timed in turns (the order
+    reversed every other round)."""
+    times = {k: [] for k in fns}
+    for r in range(rounds):
+        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            times[k].append(clock(torch, fns[k], n))
+    return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+
+
+def parent_bf16_calls(torch, lib, x, dwk, pwk, res, relu, g, ahat, bhat,
+                      rstd_b):
+    """The earlier B2 library's bf16 forward and pointwise backward as its
+    wrapper called them: the same checks, the outputs, the scratch and the
+    rounded weight's scratch allocated each call, the SM count read each
+    backward call. Returns (forward, backward), each a function of no
+    argument."""
+    from gcc_tpu_torch.ops import kernels
+
+    (B, C, H, W), M, dev, dt = x.shape, pwk.shape[0], x.device, x.dtype
+    p = kernels.ptr
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_part = lib.gcc_stage_bwd_pw_bf16_partials(B, C, M, H, W, sms)
+
+    def fwd():
+        kernels.check(dev, "x", x, (B, C, H, W), dt)
+        kernels.check(dev, "dwk", dwk, (C, 1, 3, 3))
+        kernels.check(dev, "pwk", pwk, (M, C, 1, 1))
+        if res is not None:
+            kernels.check(dev, "residual", res, (B, M, H, W), dt)
+        with torch.cuda.device(dev):
+            y = torch.empty(B, M, H, W, device=dev, dtype=dt)
+            outs = (y, torch.empty_like(x), torch.empty_like(y),
+                    torch.empty(B, C, device=dev),
+                    torch.empty(B, M, device=dev),
+                    torch.empty(M, C, dtype=dt, device=dev))
+            err = lib.gcc_stage_fwd_bf16(
+                p(x), p(dwk), p(pwk), p(res), *map(p, outs), B, C, M, H, W,
+                int(relu), torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"the earlier gcc_stage_fwd_bf16 failed with {err}")
+        return outs[:5]
+
+    def bwd():
+        kernels.check(dev, "g", g, (B, M, H, W), dt)
+        kernels.check(dev, "ahat", ahat, (B, C, H, W), dt)
+        kernels.check(dev, "bhat", bhat, (B, M, H, W), dt)
+        kernels.check(dev, "rstd_b", rstd_b, (B, M))
+        kernels.check(dev, "pwk", pwk, (M, C, 1, 1))
+        sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        with torch.cuda.device(dev):
+            outs = (torch.empty_like(g), torch.empty_like(ahat),
+                    torch.empty(n_part, M, C, device=dev),
+                    torch.empty_like(pwk),
+                    torch.empty(M, C, dtype=dt, device=dev))
+            err = lib.gcc_stage_bwd_pw_bf16(
+                p(g), p(ahat), p(bhat), p(rstd_b), p(pwk), *map(p, outs), B,
+                C, M, H, W, int(relu), sm,
+                torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"the earlier gcc_stage_bwd_pw_bf16 failed with {err}")
+        return outs[1], outs[3]
+
+    return fwd, bwd
+
+
+def bf16_kernels(torch, F, parent=None, ptxas=None):
     """(a) The three bf16 entry points against their bf16 plain versions,
     each on the plain version's inputs; two calls repeat the bits; times
     of the kernel, the plain version and cuDNN's bf16 route, bounds at
-    3.35 TB/s and 989 TFLOP/s (bf16) / 67 (fp32 CUDA cores)."""
+    3.35 TB/s and 989 TFLOP/s (bf16) / 67 (fp32 CUDA cores), device time by
+    launch; where the earlier B2 library was built, its bf16 forward and
+    pointwise backward timed in turns with the new ones: event ms, device
+    ms, the host's us a call."""
     from gcc_tpu_torch.ops import mobile_block as mb
 
+    if ptxas is not None:
+        print_ptxas(ptxas, "(a) mobile_block_bf16.cu")
     bf = torch.bfloat16
     record = {k: {"max_abs_err": 0.0, "max_ulps": 0.0, "max_share": 0.0,
                   "max_rel_dw": 0.0} for k in PER_ITER_BF16}
@@ -2980,11 +3158,42 @@ def bf16_kernels(torch, F):
                   f"{t['bound_ms'] / t['ms']:.3f} of it")
             if case == "teacher_relu":
                 record[k].update(t)
+        splits = {}
         for k in timings:
-            split = launch_split(torch, timings[k][0])
-            print(f"    one {k} by launch (profiler): " + ", ".join(
-                f"{name} {ms:.4f} ms" for name, ms in
-                sorted(split.items(), key=lambda kv: -kv[1])))
+            launches = B2_LAUNCHES[k]
+            if k == "stage_bwd_pw_bf16" and not mb._pw_grad_partials(
+                    B, C, M, S, S, mb._sms(x.device.index), "_bf16"):
+                launches -= 1  # dW in one run: no ordered sum
+            splits[k] = launch_split(torch, timings[k][0], launches=launches)
+            print_split(k, splits[k])
+            if case == "teacher_relu":
+                record[k]["device_ms"] = device_ms(splits[k])
+        if parent is None:
+            continue
+        old = dict(zip(("stage_fwd_bf16", "stage_bwd_pw_bf16"),
+                       parent_bf16_calls(torch, parent, x, dwk, pwk, res,
+                                         relu, g, ahat, bhat, rstd_b)))
+        for k, fn in old.items():
+            base = k.replace("_bf16", "")
+            ev = in_turns(torch, {"new": timings[k][0], "earlier": fn})
+            host = in_turns(torch, {"new": timings[k][0], "earlier": fn},
+                            n=200, clock=host_us)
+            dev = {"new": device_ms(splits[k]), "earlier": device_ms(
+                launch_split(torch, fn, launches=B2_LAUNCHES[k] + 1))}
+            print(f"    {k} in turns with the earlier library (medians of 3 "
+                  f"rounds of 20): event ms {ev['new']:.4f} / earlier "
+                  f"{ev['earlier']:.4f}; device ms {dev['new']:.4f} / "
+                  f"{dev['earlier']:.4f}; host us a call (medians of 3 rounds of 200 "
+                  f"enqueued) "
+                  f"{host['new']:.1f} / {host['earlier']:.1f}; bound "
+                  f"{bounds[base][0]:.4f} ms, {bounds[base + '_saved'][0]:.4f}"
+                  f" with a-hat, b-hat and 1/std saved")
+            if case == "teacher_relu":
+                record[k].update({"turns_ms": ev["new"],
+                                  "earlier_ms": ev["earlier"],
+                                  "earlier_device_ms": dev["earlier"],
+                                  "host_us": host["new"],
+                                  "earlier_host_us": host["earlier"]})
     return record
 
 
@@ -3151,7 +3360,7 @@ def _bf16_agree(torch, np, name, device="cuda"):
             for k in runs["cpu"]}
 
 
-def phase_bf16(torch, np, F, fp32):
+def phase_bf16(torch, np, F, fp32, parent=None, ptxas=None):
     from gcc_tpu_torch.config import Config
     from gcc_tpu_torch.engines.pix2pix import Pix2PixEngine
     from gcc_tpu_torch.ops import flash_attention as fa
@@ -3162,7 +3371,7 @@ def phase_bf16(torch, np, F, fp32):
           "package's default)")
     # phases 9's and 4's fp32 iterations, beside (b)'s and (c)'s
     rec = {"fp32": fp32}
-    record = bf16_kernels(torch, F)
+    record = bf16_kernels(torch, F, parent, ptxas)
 
     # (b) the U-Net iteration in bf16 at phase 9's shapes
     batch, size, n_timed = UNET_BATCH, 256, 3
@@ -3288,19 +3497,18 @@ def check_attn_bf16(torch, fa, name, got, plain, rec, exact=None):
     return share
 
 
-def start_ptxas():
-    """nvcc -Xptxas -v of flash_attention_bf16.cu into a scratch cubin,
-    started now and read by ptxas_log: (Popen, scratch directory)."""
+def start_ptxas(name):
+    """nvcc -Xptxas -v of csrc/<name>.cu into a scratch cubin, started now
+    and read by ptxas_log: (name, Popen, scratch directory)."""
     import tempfile
     from gcc_tpu_torch.ops import kernels
 
     tmp = tempfile.mkdtemp()
     flags = [f for f in kernels.NVCC_FLAGS
              if f not in ("-shared", "-Xcompiler", "-fPIC")]
-    return subprocess.Popen(
+    return name, subprocess.Popen(
         [kernels._nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o",
-         os.path.join(tmp, "b1.cubin"),
-         str(kernels.CSRC / "flash_attention_bf16.cu")],
+         os.path.join(tmp, f"{name}.cubin"), str(kernels.CSRC / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp
 
 
@@ -3310,11 +3518,11 @@ def ptxas_log(started):
     import shutil
     from gcc_tpu_torch.ops import kernels
 
-    proc, tmp = started
+    name, proc, tmp = started
     log = proc.communicate()[0].decode(errors="replace")
     shutil.rmtree(tmp, ignore_errors=True)
     if proc.returncode != 0:
-        fail(f"nvcc -Xptxas -v of flash_attention_bf16.cu:\n{log}")
+        fail(f"nvcc -Xptxas -v of {name}.cu:\n{log}")
     filt = os.path.join(os.path.dirname(kernels._nvcc()), "cu++filt")
     if os.path.exists(filt):
         log = subprocess.run([filt], input=log, capture_output=True,
@@ -3322,10 +3530,10 @@ def ptxas_log(started):
     return log
 
 
-def print_ptxas(log):
-    """Registers, stack and spills of each kernel of flash_attention_bf16.cu
-    from ptxas_log's output."""
-    print("  (a) flash_attention_bf16.cu, nvcc -Xptxas -v (sm_90a):")
+def print_ptxas(log, what):
+    """Registers, stack and spills of each kernel of a source from
+    ptxas_log's output, under the heading ``what``."""
+    print(f"  {what}, nvcc -Xptxas -v (sm_90a):")
     name = None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -3347,7 +3555,7 @@ def attention_bf16(torch, F, ptxas):
     bf = torch.bfloat16
     record = {k: {"max_abs_err": 0.0, "max_ulps": 0.0, "max_share": 0.0}
               for k in ATTN_PER_ITER_BF16}
-    print_ptxas(ptxas)
+    print_ptxas(ptxas, "(a) flash_attention_bf16.cu")
     print(f"  (a) bounds: bytes at {HBM_BYTES_PER_S / 1e12} TB/s, the "
           f"function's flops at {BF16_FLOPS / 1e12:.0f} TFLOP/s, B N^2 exps "
           f"at {EXP_PER_CLK_SM} a clock on "
@@ -3716,15 +3924,33 @@ def main():
           f"torch {torch.__version__} CUDA {torch.version.cuda}")
     print(smi)
 
-    # two more nvcc beside the build's: an earlier B1 source for phase 6's
-    # bit check, where one was put in place, and flash_attention_bf16.cu's
-    # registers and spills for phase 18 (a)
-    parent, ptxas = start_parent_build(), start_ptxas()
+    # more nvcc beside the build's, all started together: earlier B1 and B2
+    # sources for phases 6's and 3's bit checks and phase 17 (a)'s timing in
+    # turns, where they were put in place, and the registers and spills of
+    # mobile_block_bf16.cu (phase 17 (a)) and flash_attention_bf16.cu (18 (a))
+    sigs = kernels.SIGNATURES
+    parents = {"b1": start_parent_build(B1_PARENT, "flash_attention"),
+               "b2": start_parent_build(B2_PARENT, "mobile_block")}
+    ptxas = {n: start_ptxas(n)
+             for n in ("mobile_block_bf16", "flash_attention_bf16")}
     print(f"== phase 2: build {kernels.build():.2f} s (nvcc, from "
           f"{kernels.CSRC})")
-    parent, ptxas = parent_library(parent), ptxas_log(ptxas)
+    parent = parent_library(
+        parents["b1"], B1_PARENT, "flash_attention",
+        {fn: sigs["flash_attention"][fn]
+         for fn in ("gcc_attn_fwd", "gcc_attn_bwd_groups", "gcc_attn_bwd")},
+        "phase 6's bit check of B1's fp32 outputs")
+    b2_parent = parent_library(
+        parents["b2"], B2_PARENT, "mobile_block",
+        {**{fn: sigs["mobile_block"][fn]
+            for fn in ("gcc_stage_fwd", "gcc_stage_bwd_pw_partials",
+                       "gcc_stage_bwd_pw", "gcc_stage_bwd_dw")},
+         **B2_PARENT_BF16},
+        "phase 3's bit check of B2's fp32 outputs and phase 17 (a)'s bf16 "
+        "timing in turns")
+    ptxas = {n: ptxas_log(v) for n, v in ptxas.items()}
 
-    record = phase_kernels(torch, F)
+    record = phase_kernels(torch, F, b2_parent)
     # launches: the main path's (pix2pix resnet for B2, SAGAN for B1);
     # by_path: each path's own count, each read from counters set to 0
     # just before the path
@@ -3748,13 +3974,14 @@ def main():
     pipeline, pipe_paths = phase_pipeline(torch, np, smi)
     for k, v in pipe_paths.items():
         by_path[k].update(v)
-    bf16_record, bf16_launches, bf16 = phase_bf16(torch, np, F, fp32)
+    bf16_record, bf16_launches, bf16 = phase_bf16(
+        torch, np, F, fp32, b2_parent, ptxas["mobile_block_bf16"])
     record.update(bf16_record)
     for k in PER_ITER_BF16:
         launches[k] = bf16_launches[k]
         by_path[k] = {"pix2pix resnet bf16": bf16_launches[k]}
     attn_record, sagan_bf16, cg_bf16, families = phase_bf16_families(
-        torch, np, F, ptxas)
+        torch, np, F, ptxas["flash_attention_bf16"])
     record.update(attn_record)
     for k in ATTN_PER_ITER_BF16:
         launches[k] = sagan_bf16[k]
@@ -3766,8 +3993,8 @@ def main():
     for k, rec in record.items():
         family, csrc = (("B1", "flash_attention") if k.startswith("attn")
                         else ("B2", "mobile_block"))
-        if k.startswith("attn") and k.endswith("_bf16"):
-            csrc = "flash_attention_bf16"
+        if k.endswith("_bf16") and k != "stage_bwd_dw_bf16":
+            csrc = f"{csrc}_bf16"
         short = k.replace("stage_", "").replace("attn_", "").replace("_", "-")
         entries.append({
             "name": f"{family}-{short}", "route": "cuda",
@@ -3779,7 +4006,10 @@ def main():
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             **{m: rec[m] for m in ("max_ulps", "max_share", "max_rel_dw",
                                    "float64_share", "plain_float64_share",
-                                   "library", "bf16_route")
+                                   "library", "bf16_route", "device_ms",
+                                   "turns_ms", "earlier_ms",
+                                   "earlier_device_ms", "host_us",
+                                   "earlier_host_us")
                if m in rec}})
     print(json.dumps({"cli": cli}))
     print(json.dumps({"evaluators": evaluators}))

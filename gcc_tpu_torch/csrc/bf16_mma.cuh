@@ -1,5 +1,6 @@
-// bf16 tensor-core products and bf16 storage helpers for Hopper (sm_90a),
-// used by the bf16 entry points of mobile_block.cu.
+// bf16 tensor-core products, ldmatrix fragments and bf16 storage helpers for
+// Hopper (sm_90a), used by mobile_block_bf16.cu, flash_attention_bf16.cu
+// and mobile_block.cu's bf16 depthwise backward.
 //
 // The TPU kernels' bf16 arithmetic: products of bf16 operands, exact in
 // fp32, summed in fp32 (the MXU's preferred_element_type=f32). On Hopper
@@ -29,15 +30,33 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// two bf16 as one mma operand register: lo in bits 0..15, hi in 16..31
-__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// two neighbouring bf16 (4-byte aligned) as one operand register
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// ldmatrix: lane l gives the address of row l % 8 of 8x8 matrix l / 8 (16
+// bytes a row). Plain: register i of lane 4 g + t holds row g, columns
+// 2t, 2t + 1 of matrix i; .trans: rows 2t, 2t + 1 of column g.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
 }
 
 // d += a b: one 16 x 8 x 16 product of bf16 operands, fp32 accumulators

@@ -136,7 +136,12 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 using bf16mma::cp_async16;
+using bf16mma::ldsm_x2;
+using bf16mma::ldsm_x2_t;
+using bf16mma::ldsm_x4;
+using bf16mma::ldsm_x4_t;
 using bf16mma::mma;  // m16n8k16
+using bf16mma::smem_addr;
 using tf32x3::cp_commit;
 using tf32x3::cp_wait;
 
@@ -152,35 +157,6 @@ constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
 constexpr float kLog2e = 1.4426950408889634f;
 
 __host__ __device__ constexpr int pad8(int d) { return (d + 7) & ~7; }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// ldmatrix: lane l gives the address of row l % 8 of 8x8 matrix l / 8 (16
-// bytes a row). Plain: register i of lane 4 g + t holds row g, columns
-// 2t, 2t + 1 of matrix i; .trans: rows 2t, 2t + 1 of column g.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
 
 // d += a b, one 16 x 8 x 8 product of bf16 operands: a0 (g, 2t..2t+1),
 // a1 (g + 8, 2t..2t+1), b (2t..2t+1, g)

@@ -38,10 +38,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "gcc_stage_bwd_pw_partials": [_I] * 6,
         "gcc_stage_bwd_pw": [_P] * 9 + [_I] * 7 + [_P],
         "gcc_stage_bwd_dw": [_P] * 8 + [_I] * 4 + [_P],
-        "gcc_stage_fwd_bf16": [_P] * 10 + [_I] * 6 + [_P],
-        "gcc_stage_bwd_pw_bf16_partials": [_I] * 6,
-        "gcc_stage_bwd_pw_bf16": [_P] * 10 + [_I] * 7 + [_P],
         "gcc_stage_bwd_dw_bf16": [_P] * 8 + [_I] * 4 + [_P],
+    },
+    "mobile_block_bf16": {
+        "gcc_stage_fwd_bf16": [_P] * 9 + [_I] * 7 + [_P],
+        "gcc_stage_bwd_pw_bf16_partials": [_I] * 6,
+        "gcc_stage_bwd_pw_bf16": [_P] * 9 + [_I] * 7 + [_P],
     },
     "flash_attention": {
         "gcc_attn_fwd": [_P] * 5 + [_I] * 4 + [_P],
@@ -60,6 +62,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -129,8 +132,12 @@ def library(name: str) -> ctypes.CDLL:
 def launch(name: str, fn: str, *args) -> None:
     """Call entry point ``fn`` of library ``name`` on the current stream of
     the current device; raise if it reports a CUDA error."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(library(name), fn)(*args, stream)
+    entry = _ENTRIES.get((name, fn))
+    if entry is None:
+        entry = _ENTRIES[(name, fn)] = getattr(library(name), fn)
+    # the current stream's handle, without building a torch.cuda.Stream
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+    err = entry(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn} failed with CUDA error {err}")
 

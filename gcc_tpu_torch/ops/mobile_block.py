@@ -19,8 +19,10 @@ Three wrappers stand for the three TPU kernels, with the same split of work:
     stage_bwd_pw  <- _stage_bwd_pw_kernel  (:187)  relu + IN2 + pointwise
     stage_bwd_dw  <- _stage_bwd_dw_kernel  (:220)  IN1 + depthwise + pad adjoint
 
-On a CUDA tensor each launches its kernel (csrc/mobile_block.cu) or raises,
-also for an activation dtype without a kernel; on a CPU tensor it runs its
+On a CUDA tensor each launches its kernel or raises, also for an activation
+dtype without a kernel: csrc/mobile_block.cu in fp32 and for the bf16
+depthwise backward, csrc/mobile_block_bf16.cu for the bf16 forward and
+pointwise backward. On a CPU tensor it runs its
 plain version, ``*_plain`` below, which repeats the kernel's arithmetic in
 PyTorch. ``LAUNCHES`` counts the CUDA calls of each wrapper by dtype
 (``stage_fwd`` fp32, ``stage_fwd_bf16`` bf16, and so on). The forward
@@ -34,6 +36,7 @@ them, as the TPU path does.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Optional, Tuple
 
@@ -46,6 +49,9 @@ EPS = 1e-5  # torch InstanceNorm2d default
 
 # the entry points' suffix by activation dtype
 _SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
+# the library of the forward's and the pointwise backward's entry points, by
+# suffix (the depthwise backward's is mobile_block in both dtypes)
+_LIBRARY = {"": "mobile_block", "_bf16": "mobile_block_bf16"}
 
 LAUNCHES = {f"{k}{sfx}": 0 for sfx in _SUFFIX.values()
             for k in ("stage_fwd", "stage_bwd_pw", "stage_bwd_dw")}
@@ -204,22 +210,29 @@ def _suffix(t: torch.Tensor) -> str:
     return _SUFFIX[t.dtype]
 
 
+def _on(dev: torch.device):
+    """A context in which dev is the current CUDA device: none to enter
+    where it is already (the common case, and a cost the host pays every
+    call)."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    """The SM count of CUDA device ``index``, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.lru_cache(maxsize=None)
 def _pw_grad_partials(B: int, C: int, M: int, H: int, W: int, sms: int,
                       sfx: str) -> int:
     """Partials of the pointwise weight gradient's ordered split-k sum, as
-    the kernel library sizes the split for the shape, the SM count and the
-    dtype's entry point."""
-    return getattr(kernels.library("mobile_block"),
+    the dtype's kernel library sizes the split for the shape and the SM
+    count."""
+    return getattr(kernels.library(_LIBRARY[sfx]),
                    f"gcc_stage_bwd_pw{sfx}_partials")(B, C, M, H, W, sms)
-
-
-def _pw_lp(pwk: torch.Tensor, sfx: str):
-    """The bf16 entry points' scratch for the rounded pointwise weight."""
-    if not sfx:
-        return ()
-    return (torch.empty(pwk.shape[:2], dtype=torch.bfloat16,
-                        device=pwk.device),)
 
 
 def stage_fwd(x, dwk, pwk, residual=None, relu=False):
@@ -233,17 +246,18 @@ def stage_fwd(x, dwk, pwk, residual=None, relu=False):
     kernels.check(dev, "pwk", pwk, (M, C, 1, 1))
     if residual is not None:
         kernels.check(dev, "residual", residual, (B, M, H, W), dt)
-    with torch.cuda.device(x.device):
-        y = torch.empty(B, M, H, W, device=x.device, dtype=dt)
+    with _on(dev):
+        y = torch.empty(B, M, H, W, device=dev, dtype=dt)
         ahat = torch.empty_like(x)
         bhat = torch.empty_like(y)
-        rstd_a = torch.empty(B, C, device=x.device)
-        rstd_b = torch.empty(B, M, device=x.device)
+        rstd_a = torch.empty(B, C, device=dev)
+        rstd_b = torch.empty(B, M, device=dev)
         p = kernels.ptr
-        kernels.launch("mobile_block", f"gcc_stage_fwd{sfx}", p(x), p(dwk),
+        # the bf16 entry point sizes its product's tiles by the SM count
+        sms = (_sms(dev.index),) if sfx else ()
+        kernels.launch(_LIBRARY[sfx], f"gcc_stage_fwd{sfx}", p(x), p(dwk),
                        p(pwk), p(residual), p(y), p(ahat), p(bhat),
-                       p(rstd_a), p(rstd_b), *map(p, _pw_lp(pwk, sfx)),
-                       B, C, M, H, W, int(relu))
+                       p(rstd_a), p(rstd_b), B, C, M, H, W, int(relu), *sms)
     LAUNCHES[f"stage_fwd{sfx}"] += 1
     return y, ahat, bhat, rstd_a, rstd_b
 
@@ -260,18 +274,20 @@ def stage_bwd_pw(g, ahat, bhat, rstd_b, pwk, relu):
     kernels.check(dev, "bhat", bhat, (B, M, H, W), dt)
     kernels.check(dev, "rstd_b", rstd_b, (B, M))
     kernels.check(dev, "pwk", pwk, (M, C, 1, 1))
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    with torch.cuda.device(g.device):
-        gb = torch.empty_like(g)
+    sms = _sms(dev.index)
+    with _on(dev):
         gah = torch.empty_like(ahat)
-        gpw_part = torch.empty(_pw_grad_partials(B, C, M, H, W, sms, sfx), M,
-                               C, device=g.device)
         gpw = torch.empty_like(pwk)
+        # scratch: gb (B, M, H, W) in g's dtype, then the dW partials
+        gb_bytes = -(-g.numel() * g.element_size() // 256) * 256
+        parts = _pw_grad_partials(B, C, M, H, W, sms, sfx)
+        scratch = torch.empty(gb_bytes + parts * M * C * 4, device=dev,
+                              dtype=torch.uint8)
+        gb = scratch.data_ptr()
         p = kernels.ptr
-        kernels.launch("mobile_block", f"gcc_stage_bwd_pw{sfx}", p(g),
-                       p(ahat), p(bhat), p(rstd_b), p(pwk), p(gb), p(gah),
-                       p(gpw_part), p(gpw), *map(p, _pw_lp(pwk, sfx)),
-                       B, C, M, H, W, int(relu), sms)
+        kernels.launch(_LIBRARY[sfx], f"gcc_stage_bwd_pw{sfx}", p(g),
+                       p(ahat), p(bhat), p(rstd_b), p(pwk), gb, p(gah),
+                       gb + gb_bytes, p(gpw), B, C, M, H, W, int(relu), sms)
     LAUNCHES[f"stage_bwd_pw{sfx}"] += 1
     return gah, gpw
 
@@ -288,9 +304,9 @@ def stage_bwd_dw(gah, ahat, rstd_a, x, dwk):
     kernels.check(dev, "rstd_a", rstd_a, (B, C))
     kernels.check(dev, "x", x, (B, C, H, W), dt)
     kernels.check(dev, "dwk", dwk, (C, 1, 3, 3))
-    with torch.cuda.device(x.device):
+    with _on(dev):
         gx = torch.empty_like(x)
-        gdw_part = torch.empty(B, C, 9, device=x.device)
+        gdw_part = torch.empty(B, C, 9, device=dev)
         gdw = torch.empty_like(dwk)
         p = kernels.ptr
         kernels.launch("mobile_block", f"gcc_stage_bwd_dw{sfx}", p(gah),

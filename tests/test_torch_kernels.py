@@ -142,7 +142,12 @@ def test_wrapper_rejects_bad_input(cuda):
 # with relu and with a residual; CycleGAN's batch-1 teacher stage, off the
 # bf16 path until CycleGAN computes in bf16 (ROADMAP Queue A item 4); odd
 # widths (C, M off a multiple of 16, and of 8, which takes the GEMM's
-# element-wise copies), a ragged plane
+# element-wise copies), a ragged plane; planes past the 64x64 whose pixels
+# the plane kernels hold in registers (80x80 with x staged in shared
+# memory, 128x128; 150x150 read from device memory at every tap), which take
+# their pixel-by-pixel route; small planes whose width is a multiple of 8
+# (8x8, the tiny CycleGAN's blocks; 16x24), which take the 16-byte route
+# with fewer vectors than threads
 BF16_CASES = [(4, 256, 256, 64, 64, True, False),
               (4, 256, 256, 64, 64, False, True),
               (4, 112, 72, 64, 64, True, False),
@@ -150,7 +155,12 @@ BF16_CASES = [(4, 256, 256, 64, 64, True, False),
               (1, 256, 256, 64, 64, True, False),
               (1, 256, 256, 64, 64, False, True),
               (2, 24, 40, 20, 20, True, True), (2, 5, 7, 8, 12, True, False),
-              (3, 130, 70, 9, 33, False, True)]
+              (3, 130, 70, 9, 33, False, True),
+              (2, 40, 48, 80, 80, True, True),
+              (1, 24, 136, 128, 128, False, True),
+              (1, 3, 5, 150, 150, True, False),
+              (2, 32, 32, 8, 8, True, False), (2, 12, 6, 8, 8, False, True),
+              (3, 40, 24, 16, 24, True, True)]
 
 
 def _close_bf16(name, a, b):
@@ -212,6 +222,35 @@ def test_bf16_kernels_match_plain(cuda, case):
         pw_k, mb.stage_bwd_pw(g, ahat, bhat, rstd_b, pwk, relu)))
     assert all(torch.equal(a, b) for a, b in zip(
         dw_k, mb.stage_bwd_dw(gah, ahat, rstd_a, x, dwk)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(4, 256, 256, 64, True), (1, 72, 112, 64,
+                                                             False)])
+def test_bf16_entry_points_repeat(cuda, case):
+    """gcc_stage_fwd_bf16 and gcc_stage_bwd_pw_bf16 give the same bits on
+    the same inputs when called twice with other calls between them (their
+    outputs and scratch then lie elsewhere): no float atomics, and the dW
+    partials' ordered sum does not depend on what memory held before."""
+    B, C, M, S, relu = case
+    gen = torch.Generator().manual_seed(5)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen) * scale).to(cuda, dtype)
+
+    x, dwk = rnd(B, C, S, S, dtype=bf), rnd(C, 1, 3, 3, scale=0.2)
+    pwk, g = rnd(M, C, 1, 1, scale=0.2), rnd(B, M, S, S, dtype=bf)
+    first = mb.stage_fwd(x, dwk, pwk, None, relu)
+    grads = mb.stage_bwd_pw(g, first[1], first[2], first[4], pwk, relu)
+    keep = [mb.stage_fwd(x[:1, :8].contiguous(), dwk[:8],
+                         pwk[:, :8].contiguous(), None, relu)
+            for _ in range(2)]  # other memory taken
+    again = mb.stage_fwd(x, dwk, pwk, None, relu)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert all(torch.equal(a, b) for a, b in zip(grads, mb.stage_bwd_pw(
+        g, again[1], again[2], again[4], pwk, relu)))
+    del keep
 
 
 @pytest.mark.cuda
