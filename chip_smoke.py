@@ -15,10 +15,11 @@ Phases, each of which exits non-zero on failure:
               b-hat, the pixels where it differs from the plain forward's
               counted and held to |b-hat| < 1e-4); that two calls of each
               give the same bits; where chip_ab/b2_parent/ holds an earlier
-              commit's mobile_block.cu (with tf32_mma.cuh and bf16_mma.cuh),
-              put there by hand for a before/after check, the fp32 outputs
-              bit for bit those of its library, built by nvcc in the same
-              run; CUDA-event times of the kernel, the plain
+              commit's mobile_block.cu and mobile_block_bf16.cu (with
+              tf32_mma.cuh, bf16_mma.cuh and stage_common.cuh), put there by
+              hand for a before/after check, the fp32 outputs bit for bit
+              those of its library, built by nvcc in the same run;
+              CUDA-event times of the kernel, the plain
               version and the cuDNN route of the stage at teacher_relu,
               student_relu, cg_teacher_relu and cg_student_relu, cuDNN's convolution backward of the two
               backward kernels' convolution parts (a partial yardstick),
@@ -196,10 +197,14 @@ Phases, each of which exits non-zero on failure:
               fp32 weight gradients within 1e-3 of their largest value,
               two calls the same bits; CUDA-event times of the kernel, the
               plain version and cuDNN's bf16 route, bounds at 3.35 TB/s and
-              989 TFLOP/s, the device time by launch; nvcc -Xptxas -v of
-              mobile_block_bf16.cu; with chip_ab/b2_parent/'s library, its
-              bf16 forward and pointwise backward timed in turns with the
-              new ones (medians of three rounds of 20): event ms, device ms
+              989 TFLOP/s, the device time by launch (the depthwise backward
+              one launch up to a batch of 8), cuDNN's bf16 depthwise
+              convolution backward as its partial yardstick; nvcc -Xptxas
+              -v of mobile_block_bf16.cu; with chip_ab/b2_parent/'s two
+              libraries, the depthwise backward's dx bit for bit theirs at
+              every shape (and dW_dw, the batch being at most 8), and
+              their three bf16 entry points timed in turns with the new
+              ones (medians of three rounds of 20): event ms, device ms
               (its launches summed), the host's us a call over 200 enqueued
               calls, the bound with and without the saved tensors; (b) phase 9's U-Net
               iteration on bf16 batches (no B1 or B2 launch); (c) phase 4's
@@ -282,18 +287,20 @@ EXP_PER_CLK_SM = 16
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
                  "MATH")
 # where a before/after check puts an earlier commit's source by hand: B1's
-# flash_attention.cu and tf32_mma.cuh; B2's mobile_block.cu, tf32_mma.cuh and
-# bf16_mma.cuh
+# flash_attention.cu and tf32_mma.cuh; B2's mobile_block.cu,
+# mobile_block_bf16.cu and the three headers
 B1_PARENT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "chip_ab", "b1_parent")
 B2_PARENT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "chip_ab", "b2_parent")
-# the argtypes of that B2 library's bf16 entry points, which took the
-# rounded pointwise weight's scratch after the 1/std vectors
+# the argtypes of the earlier B2 sources' bf16 entry points: the forward and
+# the pointwise backward in its mobile_block_bf16.cu, the depthwise backward
+# in its mobile_block.cu (with per-plane partials: B x C x 9 floats)
 _VP, _VI = ctypes.c_void_p, ctypes.c_int
-B2_PARENT_BF16 = {"gcc_stage_fwd_bf16": [_VP] * 10 + [_VI] * 6 + [_VP],
+B2_PARENT_BF16 = {"gcc_stage_fwd_bf16": [_VP] * 9 + [_VI] * 7 + [_VP],
                   "gcc_stage_bwd_pw_bf16_partials": [_VI] * 6,
-                  "gcc_stage_bwd_pw_bf16": [_VP] * 10 + [_VI] * 7 + [_VP]}
+                  "gcc_stage_bwd_pw_bf16": [_VP] * 9 + [_VI] * 7 + [_VP]}
+B2_PARENT_DW_BF16 = {"gcc_stage_bwd_dw_bf16": [_VP] * 8 + [_VI] * 4 + [_VP]}
 PER_ITER = {"stage_fwd": 108, "stage_bwd_pw": 36, "stage_bwd_dw": 36}
 TPU_KERNEL = {"stage_fwd": "gcc_tpu/ops/pallas/mobile_block.py:155",
               "stage_bwd_pw": "gcc_tpu/ops/pallas/mobile_block.py:187",
@@ -488,7 +495,8 @@ def check_close(name, got, ref, atol):
 
 
 # kernels a call of each B2 entry point launches: fp32, and bf16 with the
-# pointwise backward's ordered dW sum (one fewer where dW takes one run)
+# backwards' ordered weight-gradient sums (one fewer where the pointwise dW
+# takes one run, or where the depthwise dW is summed in a cluster: B <= 8)
 B2_LAUNCHES = {"stage_fwd": 3, "stage_bwd_pw": 4, "stage_bwd_dw": 2,
                "stage_fwd_bf16": 3, "stage_bwd_pw_bf16": 3,
                "stage_bwd_dw_bf16": 2}
@@ -826,7 +834,7 @@ STAGE_KERNELS = ("dw_in_fwd_kernel", "pw_gemm_kernel", "in_fwd_kernel",
                  "in_bwd_kernel", "dw_bwd_plane_kernel", "sum_partials_kernel",
                  "dw_in_fwd_bf16_kernel", "pw_fwd_bf16_kernel",
                  "pw_bwd_bf16_kernel", "in_fwd_bf16_kernel",
-                 "in_bwd_bf16_kernel")
+                 "in_bwd_bf16_kernel", "dw_bwd_bf16_kernel")
 ATTN_KERNELS = ("attn_fwd_kernel", "attn_bwd_kernel", "attn_dq_reduce_kernel",
                 "attn_fwd_bf16_kernel", "attn_bwd_bf16_kernel",
                 "attn_dq_reduce_bf16_kernel")
@@ -3010,19 +3018,24 @@ def in_turns(torch, fns, rounds=3, n=20, clock=cuda_ms):
     return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
 
 
-def parent_bf16_calls(torch, lib, x, dwk, pwk, res, relu, g, ahat, bhat,
-                      rstd_b):
-    """The earlier B2 library's bf16 forward and pointwise backward as its
-    wrapper called them: the same checks, the outputs, the scratch and the
-    rounded weight's scratch allocated each call, the SM count read each
-    backward call. Returns (forward, backward), each a function of no
-    argument."""
+def parent_bf16_calls(torch, libs, x, dwk, pwk, res, relu, g, ahat, bhat,
+                      rstd_a, rstd_b, gah):
+    """The earlier B2 sources' bf16 entry points as their wrapper called them
+    (the same checks; the outputs and scratch allocated each call, the
+    depthwise backward's per-plane partials too): libs = (mobile_block.cu's
+    library, mobile_block_bf16.cu's). Returns (forward, pointwise backward,
+    depthwise backward), each a function of no argument."""
     from gcc_tpu_torch.ops import kernels
+    from gcc_tpu_torch.ops import mobile_block as mb
 
+    fp32_lib, lib = libs
     (B, C, H, W), M, dev, dt = x.shape, pwk.shape[0], x.device, x.dtype
     p = kernels.ptr
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = mb._sms(dev.index)
     n_part = lib.gcc_stage_bwd_pw_bf16_partials(B, C, M, H, W, sms)
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
 
     def fwd():
         kernels.check(dev, "x", x, (B, C, H, W), dt)
@@ -3030,18 +3043,15 @@ def parent_bf16_calls(torch, lib, x, dwk, pwk, res, relu, g, ahat, bhat,
         kernels.check(dev, "pwk", pwk, (M, C, 1, 1))
         if res is not None:
             kernels.check(dev, "residual", res, (B, M, H, W), dt)
-        with torch.cuda.device(dev):
-            y = torch.empty(B, M, H, W, device=dev, dtype=dt)
-            outs = (y, torch.empty_like(x), torch.empty_like(y),
-                    torch.empty(B, C, device=dev),
-                    torch.empty(B, M, device=dev),
-                    torch.empty(M, C, dtype=dt, device=dev))
-            err = lib.gcc_stage_fwd_bf16(
-                p(x), p(dwk), p(pwk), p(res), *map(p, outs), B, C, M, H, W,
-                int(relu), torch.cuda.current_stream().cuda_stream)
+        y = torch.empty(B, M, H, W, device=dev, dtype=dt)
+        outs = (y, torch.empty_like(x), torch.empty_like(y),
+                torch.empty(B, C, device=dev), torch.empty(B, M, device=dev))
+        err = lib.gcc_stage_fwd_bf16(
+            p(x), p(dwk), p(pwk), p(res), *map(p, outs), B, C, M, H, W,
+            int(relu), sms, stream())
         if err:
             fail(f"the earlier gcc_stage_fwd_bf16 failed with {err}")
-        return outs[:5]
+        return outs
 
     def bwd():
         kernels.check(dev, "g", g, (B, M, H, W), dt)
@@ -3049,21 +3059,42 @@ def parent_bf16_calls(torch, lib, x, dwk, pwk, res, relu, g, ahat, bhat,
         kernels.check(dev, "bhat", bhat, (B, M, H, W), dt)
         kernels.check(dev, "rstd_b", rstd_b, (B, M))
         kernels.check(dev, "pwk", pwk, (M, C, 1, 1))
-        sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        with torch.cuda.device(dev):
-            outs = (torch.empty_like(g), torch.empty_like(ahat),
-                    torch.empty(n_part, M, C, device=dev),
-                    torch.empty_like(pwk),
-                    torch.empty(M, C, dtype=dt, device=dev))
-            err = lib.gcc_stage_bwd_pw_bf16(
-                p(g), p(ahat), p(bhat), p(rstd_b), p(pwk), *map(p, outs), B,
-                C, M, H, W, int(relu), sm,
-                torch.cuda.current_stream().cuda_stream)
+        gah_o, gpw = torch.empty_like(ahat), torch.empty_like(pwk)
+        # scratch: gb, then the dW partials, in one allocation
+        gb_bytes = -(-g.numel() * g.element_size() // 256) * 256
+        scratch = torch.empty(gb_bytes + n_part * M * C * 4, device=dev,
+                              dtype=torch.uint8)
+        err = lib.gcc_stage_bwd_pw_bf16(
+            p(g), p(ahat), p(bhat), p(rstd_b), p(pwk), scratch.data_ptr(),
+            p(gah_o), scratch.data_ptr() + gb_bytes, p(gpw), B, C, M, H, W,
+            int(relu), sms, stream())
         if err:
             fail(f"the earlier gcc_stage_bwd_pw_bf16 failed with {err}")
-        return outs[1], outs[3]
+        return gah_o, gpw
 
-    return fwd, bwd
+    def bwd_dw():
+        kernels.check(dev, "gah", gah, (B, C, H, W), dt)
+        kernels.check(dev, "ahat", ahat, (B, C, H, W), dt)
+        kernels.check(dev, "rstd_a", rstd_a, (B, C))
+        kernels.check(dev, "x", x, (B, C, H, W), dt)
+        kernels.check(dev, "dwk", dwk, (C, 1, 3, 3))
+        gx, gdw = torch.empty_like(x), torch.empty_like(dwk)
+        part = torch.empty(B, C, 9, device=dev)
+        err = fp32_lib.gcc_stage_bwd_dw_bf16(
+            p(gah), p(ahat), p(rstd_a), p(x), p(dwk), p(gx), p(part), p(gdw),
+            B, C, H, W, stream())
+        if err:
+            fail(f"the earlier gcc_stage_bwd_dw_bf16 failed with {err}")
+        return gx, gdw
+
+    return fwd, bwd, bwd_dw
+
+
+def bits(t):
+    """A tensor's bits, for bit-for-bit comparisons (-0 is not 0)."""
+    import torch
+
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
 def bf16_kernels(torch, F, parent=None, ptxas=None):
@@ -3071,9 +3102,11 @@ def bf16_kernels(torch, F, parent=None, ptxas=None):
     each on the plain version's inputs; two calls repeat the bits; times
     of the kernel, the plain version and cuDNN's bf16 route, bounds at
     3.35 TB/s and 989 TFLOP/s (bf16) / 67 (fp32 CUDA cores), device time by
-    launch; where the earlier B2 library was built, its bf16 forward and
-    pointwise backward timed in turns with the new ones: event ms, device
-    ms, the host's us a call."""
+    launch, cuDNN's bf16 depthwise convolution backward as the depthwise
+    backward's partial yardstick; where the earlier B2 sources were built
+    (parent: their two libraries), the depthwise backward's dx (and dW_dw)
+    bit for bit theirs, and their three bf16 entry points timed in turns
+    with the new ones: event ms, device ms, the host's us a call."""
     from gcc_tpu_torch.ops import mobile_block as mb
 
     if ptxas is not None:
@@ -3116,13 +3149,32 @@ def bf16_kernels(torch, F, parent=None, ptxas=None):
         rec = record["stage_bwd_dw_bf16"]
         check_bf16(torch, "bwd_dw dx", dw_k[0], dw_p[0], rec)
         check_dw(torch, "bwd_dw dW_dw", dw_k[1], dw_p[1], rec)
+        old = (None if parent is None else dict(zip(
+            ("stage_fwd_bf16", "stage_bwd_pw_bf16", "stage_bwd_dw_bf16"),
+            parent_bf16_calls(torch, parent, x, dwk, pwk, res, relu, g, ahat,
+                              bhat, rstd_a, rstd_b, gah))))
+        if old is not None:
+            # the depthwise backward's IN1 sums and dW_dw's keep the earlier
+            # kernel's strips and its order of the plane sums (B <= 8: the
+            # cluster's sample order is sum_partials'), the taps their
+            # roundings: the same bits
+            dw_o = old["stage_bwd_dw_bf16"]()
+            same = [torch.equal(bits(a), bits(b)) for a, b in zip(dw_k, dw_o)]
+            print(f"    bwd_dw bit for bit with the earlier source (dx, "
+                  f"dW_dw): {same}")
+            if not same[0]:
+                fail(f"{case}: bf16 dx differs from the earlier source")
+            if not (same[1] if B <= 8 else max_err(dw_k[1], dw_o[1]) <=
+                    mb.BF16_DW * float(dw_o[1].abs().max())):
+                fail(f"{case}: bf16 dW_dw differs from the earlier source")
         for name, first, again in (
                 ("stage_fwd", out_k, mb.stage_fwd(x, dwk, pwk, res, relu)),
                 ("stage_bwd_pw", pw_k,
                  mb.stage_bwd_pw(g, ahat, bhat, rstd_b, pwk, relu)),
                 ("stage_bwd_dw", dw_k,
                  mb.stage_bwd_dw(gah, ahat, rstd_a, x, dwk))):
-            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            if not all(torch.equal(bits(a), bits(b))
+                       for a, b in zip(first, again)):
                 fail(f"{case}: two bf16 {name} calls differ")
         if has_res:
             continue
@@ -3158,28 +3210,45 @@ def bf16_kernels(torch, F, parent=None, ptxas=None):
                   f"{t['bound_ms'] / t['ms']:.3f} of it")
             if case == "teacher_relu":
                 record[k].update(t)
-        splits = {}
+        splits, launches = {}, {}
         for k in timings:
-            launches = B2_LAUNCHES[k]
+            launches[k] = B2_LAUNCHES[k]
             if k == "stage_bwd_pw_bf16" and not mb._pw_grad_partials(
                     B, C, M, S, S, mb._sms(x.device.index), "_bf16"):
-                launches -= 1  # dW in one run: no ordered sum
-            splits[k] = launch_split(torch, timings[k][0], launches=launches)
+                launches[k] -= 1  # dW in one run: no ordered sum
+            if k == "stage_bwd_dw_bf16" and not mb._dw_grad_partials(
+                    B, "_bf16"):
+                launches[k] -= 1  # dW_dw summed in a cluster
+            splits[k] = launch_split(torch, timings[k][0],
+                                     launches=launches[k])
             print_split(k, splits[k])
             if case == "teacher_relu":
                 record[k]["device_ms"] = device_ms(splits[k])
-        if parent is None:
+                record[k]["launches_a_call"] = len(splits[k])
+        # cuDNN's bf16 depthwise convolution backward (d padded x and the
+        # weight's gradient, from ga: IN1's backward and the pad's adjoint
+        # left out), the depthwise backward's partial yardstick
+        ga = mb._inorm_bwd(gah, ahat, rstd_a).contiguous()
+        xpad = F.pad(x, (1, 1, 1, 1), mode="reflect")
+        cudnn_dw = cuda_ms(torch, lambda: torch.ops.aten.convolution_backward(
+            ga, xpad, dwk_b, None, [1, 1], [0, 0], [1, 1], False, [0, 0], C,
+            [True, True, False]))
+        print(f"    cuDNN bf16 depthwise convolution backward alone (partial "
+              f"yardstick of stage_bwd_dw_bf16): {cudnn_dw:.4f} ms")
+        if case == "teacher_relu":
+            record["stage_bwd_dw_bf16"]["cudnn_partial_ms"] = cudnn_dw
+        if old is None:
             continue
-        old = dict(zip(("stage_fwd_bf16", "stage_bwd_pw_bf16"),
-                       parent_bf16_calls(torch, parent, x, dwk, pwk, res,
-                                         relu, g, ahat, bhat, rstd_b)))
         for k, fn in old.items():
             base = k.replace("_bf16", "")
             ev = in_turns(torch, {"new": timings[k][0], "earlier": fn})
             host = in_turns(torch, {"new": timings[k][0], "earlier": fn},
                             n=200, clock=host_us)
+            # the earlier depthwise backward always summed dW_dw in a second
+            # launch
             dev = {"new": device_ms(splits[k]), "earlier": device_ms(
-                launch_split(torch, fn, launches=B2_LAUNCHES[k] + 1))}
+                launch_split(torch, fn, launches=B2_LAUNCHES[k]
+                             if k == "stage_bwd_dw_bf16" else launches[k]))}
             print(f"    {k} in turns with the earlier library (medians of 3 "
                   f"rounds of 20): event ms {ev['new']:.4f} / earlier "
                   f"{ev['earlier']:.4f}; device ms {dev['new']:.4f} / "
@@ -3191,6 +3260,7 @@ def bf16_kernels(torch, F, parent=None, ptxas=None):
             if case == "teacher_relu":
                 record[k].update({"turns_ms": ev["new"],
                                   "earlier_ms": ev["earlier"],
+                                  "turns_device_ms": dev["new"],
                                   "earlier_device_ms": dev["earlier"],
                                   "host_us": host["new"],
                                   "earlier_host_us": host["earlier"]})
@@ -3930,7 +4000,8 @@ def main():
     # mobile_block_bf16.cu (phase 17 (a)) and flash_attention_bf16.cu (18 (a))
     sigs = kernels.SIGNATURES
     parents = {"b1": start_parent_build(B1_PARENT, "flash_attention"),
-               "b2": start_parent_build(B2_PARENT, "mobile_block")}
+               "b2": start_parent_build(B2_PARENT, "mobile_block"),
+               "b2_bf16": start_parent_build(B2_PARENT, "mobile_block_bf16")}
     ptxas = {n: start_ptxas(n)
              for n in ("mobile_block_bf16", "flash_attention_bf16")}
     print(f"== phase 2: build {kernels.build():.2f} s (nvcc, from "
@@ -3945,9 +4016,13 @@ def main():
         {**{fn: sigs["mobile_block"][fn]
             for fn in ("gcc_stage_fwd", "gcc_stage_bwd_pw_partials",
                        "gcc_stage_bwd_pw", "gcc_stage_bwd_dw")},
-         **B2_PARENT_BF16},
-        "phase 3's bit check of B2's fp32 outputs and phase 17 (a)'s bf16 "
-        "timing in turns")
+         **B2_PARENT_DW_BF16},
+        "phase 3's bit check of B2's fp32 outputs")
+    b2_bf16_parent = parent_library(
+        parents["b2_bf16"], B2_PARENT, "mobile_block_bf16", B2_PARENT_BF16,
+        "phase 17 (a)'s bf16 bit check and timing in turns")
+    if b2_parent is None or b2_bf16_parent is None:
+        b2_bf16_parent = None
     ptxas = {n: ptxas_log(v) for n, v in ptxas.items()}
 
     record = phase_kernels(torch, F, b2_parent)
@@ -3975,7 +4050,9 @@ def main():
     for k, v in pipe_paths.items():
         by_path[k].update(v)
     bf16_record, bf16_launches, bf16 = phase_bf16(
-        torch, np, F, fp32, b2_parent, ptxas["mobile_block_bf16"])
+        torch, np, F, fp32,
+        None if b2_bf16_parent is None else (b2_parent, b2_bf16_parent),
+        ptxas["mobile_block_bf16"])
     record.update(bf16_record)
     for k in PER_ITER_BF16:
         launches[k] = bf16_launches[k]
@@ -3993,7 +4070,7 @@ def main():
     for k, rec in record.items():
         family, csrc = (("B1", "flash_attention") if k.startswith("attn")
                         else ("B2", "mobile_block"))
-        if k.endswith("_bf16") and k != "stage_bwd_dw_bf16":
+        if k.endswith("_bf16"):
             csrc = f"{csrc}_bf16"
         short = k.replace("stage_", "").replace("attn_", "").replace("_", "-")
         entries.append({
@@ -4007,9 +4084,10 @@ def main():
             **{m: rec[m] for m in ("max_ulps", "max_share", "max_rel_dw",
                                    "float64_share", "plain_float64_share",
                                    "library", "bf16_route", "device_ms",
+                                   "launches_a_call", "cudnn_partial_ms",
                                    "turns_ms", "earlier_ms",
-                                   "earlier_device_ms", "host_us",
-                                   "earlier_host_us")
+                                   "turns_device_ms", "earlier_device_ms",
+                                   "host_us", "earlier_host_us")
                if m in rec}})
     print(json.dumps({"cli": cli}))
     print(json.dumps({"evaluators": evaluators}))

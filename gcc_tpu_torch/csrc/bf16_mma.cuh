@@ -1,6 +1,5 @@
 // bf16 tensor-core products, ldmatrix fragments and bf16 storage helpers for
-// Hopper (sm_90a), used by mobile_block_bf16.cu, flash_attention_bf16.cu
-// and mobile_block.cu's bf16 depthwise backward.
+// Hopper (sm_90a), used by mobile_block_bf16.cu and flash_attention_bf16.cu.
 //
 // The TPU kernels' bf16 arithmetic: products of bf16 operands, exact in
 // fp32, summed in fp32 (the MXU's preferred_element_type=f32). On Hopper

@@ -1,6 +1,6 @@
 // Fused MobileResnet separable-conv stage for Hopper (sm_90a), NCHW, in
-// fp32, and the bf16 depthwise backward (the JAX package's default
-// --compute_dtype; the other bf16 entry points are in mobile_block_bf16.cu).
+// fp32. The bf16 entry points (the JAX package's default --compute_dtype)
+// are mobile_block_bf16.cu's.
 //
 // One stage is  y = IN(pw1x1(IN(dw3x3(reflectpad1(x))))) [relu] [+ res]
 // with affine-free InstanceNorm (eps 1e-5, two-pass statistics in fp32).
@@ -103,17 +103,6 @@
 //    of blocks per plane only splits the same threads. The best fit, 320
 //    threads (3 blocks an SM), would reach 68 %; it was not tried.
 //
-// bf16: the depthwise side of the backward, gcc_stage_bwd_dw_bf16 (the TPU
-// kernel with a bf16 activation). gah, a-hat, x and dx are bf16 in device
-// memory, the depthwise weight, 1/std of a and dW_dw fp32. ga rounds to
-// bf16, and dx is the TPU kernel's bf16 sum: each transposed tap a product
-// of ga and the weight rounded to bf16, rounded, added in tap order and
-// rounded, then the pad adjoint's folds (columns, then rows), each sum
-// rounded (gx_bf16 below); dW_dw is an fp32 sum, as in fp32. The bf16
-// forward and pointwise backward are mobile_block_bf16.cu's. The fp32
-// instantiation (T = float) is the fp32 code: every rounding helper is the
-// identity there.
-//
 // Every entry point but the *_partials counts returns cudaGetLastError()
 // as an int; the Python wrapper raises when it is not 0. Nothing here
 // allocates or synchronises.
@@ -122,15 +111,11 @@
 #include <stdint.h>
 
 #include <algorithm>
-#include <type_traits>
 
-#include "bf16_mma.cuh"
 #include "stage_common.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
-
-using bf16mma::bf16;
 
 constexpr int GM = 128, GN = 128, GK = 16;  // pw_gemm_kernel's tiles
 constexpr int LDA = GK + 4;  // row stride of a [row][k] tile: A, or B^T
@@ -140,26 +125,6 @@ constexpr int kGemmBlocksPerSM = 2;  // pw_gemm_kernel's launch bounds
 // a plane's three tiles at most this: 64x64 (52,272 B) fits 4 blocks an SM
 constexpr int kPlaneSmem = 54 * 1024;
 constexpr int kPlaneBlocksPerSM = 4;  // dw_bwd_plane_kernel: 64 registers
-
-// Storage of activations: fp32, or bf16 rounded to nearest even on store.
-template <typename T>
-constexpr bool kF32 = std::is_same<T, float>::value;
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const bf16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(bf16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-// v as a store to T keeps it (the identity for fp32)
-template <typename T>
-__device__ __forceinline__ float rnd(float v) {
-  if constexpr (kF32<T>)
-    return v;
-  else
-    return bf16mma::round_bf16(v);
-}
 
 // One block per (b, c) plane: a = dw3x3(reflectpad1(x)), then a-hat = IN(a)
 // written in place of a, and 1/std of the plane.
@@ -304,46 +269,6 @@ __global__ void __launch_bounds__(kThreads) in_bwd_kernel(
   }
 }
 
-// dx at one pixel in bf16, as the TPU kernel sums it (_stage_bwd_dw_kernel,
-// ops/pallas/mobile_block.py:220-243): the padded gradient gxp at a padded
-// position is sum over taps t of rnd(w[t] d a[...]), added in tap order,
-// each sum rounded (w is rounded to bf16 already); then the pad adjoint adds
-// column 0 or W + 1 of gxp onto column 1 or W - 2, then row 0 or H + 1 of
-// that onto row 1 or H - 2, each sum rounded. ga holds d a at padded rows
-// i .. i + 2, columns j .. j + 2 around the pixel (i, j) (0 on the frame);
-// r0, r1, c0, c1: the pixel is on row 1, row H - 2, column 1, column W - 2.
-// Of a frame position's taps only those on d a's rows 1, H and columns 1, W
-// are not 0, and the window holds them (adding a zero is exact).
-__device__ __forceinline__ float gx_bf16(const float (&w)[9],
-                                         const float (&ga)[3][3], bool r0,
-                                         bool r1, bool c0, bool c1) {
-  using bf16mma::round_bf16;
-  auto tap = [](float sum, float wt, float g) {
-    return round_bf16(__fadd_rn(sum, round_bf16(__fmul_rn(wt, g))));
-  };
-  auto add = [](float a, float b) { return round_bf16(__fadd_rn(a, b)); };
-  float g = 0.f;  // gxp at the pixel
-#pragma unroll
-  for (int t = 0; t < 9; ++t) g = tap(g, w[t], ga[2 - t / 3][2 - t % 3]);
-  float col = 0.f;  // gxp on column 0 or W + 1, at the pixel's row
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    if (c0) col = tap(col, w[3 * i], ga[2 - i][0]);
-    if (c1) col = tap(col, w[3 * i + 2], ga[2 - i][2]);
-  }
-  if (c0 || c1) g = add(g, col);
-  if (r0 || r1) {
-    const int u = r0 ? 0 : 2;  // the window row that reaches row 0 or H + 1
-    float row = 0.f;           // gxp on row 0 or H + 1, at the pixel's column
-#pragma unroll
-    for (int j = 0; j < 3; ++j) row = tap(row, w[3 * u + j], ga[u][2 - j]);
-    if (c0) row = add(row, round_bf16(__fmul_rn(w[3 * u], ga[u][0])));
-    if (c1) row = add(row, round_bf16(__fmul_rn(w[3 * u + 2], ga[u][2])));
-    g = add(g, row);
-  }
-  return g;
-}
-
 // One block per (b, c) plane: IN1's backward and the depthwise side at once.
 // ga = r * (gah - mean(gah) - a-hat * mean(gah * a-hat)) (IN1's backward),
 //   gx = reflect-pad adjoint of the transposed depthwise conv of ga,
@@ -357,21 +282,19 @@ __device__ __forceinline__ float gx_bf16(const float (&w)[9],
 // Each thread walks one column strip (column j, rows i0 .. i1 - 1; W columns
 // x kThreads / W strips), keeping the 3x3 windows of ga and padded x around
 // its pixel in registers: three new values of each per pixel.
-// bf16: the tiles hold fp32 (x is loaded, not copied asynchronously), ga
-// rounds to bf16, and gx is the TPU kernel's bf16 sum (gx_bf16 below).
-template <typename T, bool SMEM>
+template <bool SMEM>
 __global__ void __launch_bounds__(kThreads, kPlaneBlocksPerSM)
-    dw_bwd_plane_kernel(const T* __restrict__ gah,
-                        const T* __restrict__ ahat,
+    dw_bwd_plane_kernel(const float* __restrict__ gah,
+                        const float* __restrict__ ahat,
                         const float* __restrict__ rstd,
-                        const T* __restrict__ x,
-                        const float* __restrict__ dw, T* __restrict__ gx,
+                        const float* __restrict__ x,
+                        const float* __restrict__ dw, float* __restrict__ gx,
                         float* __restrict__ gdw_part, int C, int H, int W) {
   extern __shared__ float tiles[];  // SMEM: ga, x, a-hat, (H+2) x (W+2) each
   __shared__ float sh[kThreads / 32 * 9];
   const int plane = blockIdx.x, c = plane % C, n = H * W, Wp = W + 2;
   const size_t off = (size_t)plane * n;
-  const T *gp = gah + off, *ap = ahat + off, *xp = x + off;
+  const float *gp = gah + off, *ap = ahat + off, *xp = x + off;
   float *gs = tiles, *xs = gs + (H + 2) * Wp, *as = xs + (H + 2) * Wp;
   const int segs = max(1, kThreads / W), rows = (H + segs - 1) / segs;
   // f(j, i0, i1) on each of this thread's strips
@@ -382,7 +305,7 @@ __global__ void __launch_bounds__(kThreads, kPlaneBlocksPerSM)
     }
   };
 
-  if constexpr (SMEM && kF32<T>) {
+  if constexpr (SMEM) {
     strips([&](int j, int i0, int i1) {
       for (int i = i0; i < i1; ++i)
         tf32x3::cp_async(&xs[(i + 1) * Wp + j + 1], xp + i * W + j, 4, false);
@@ -392,13 +315,12 @@ __global__ void __launch_bounds__(kThreads, kPlaneBlocksPerSM)
   float s[2] = {0.f, 0.f};  // IN1's sums of gah and gah * a-hat
   strips([&](int j, int i0, int i1) {
     for (int i = i0; i < i1; ++i) {
-      const float v = ld(gp + i * W + j), a = ld(ap + i * W + j);
+      const float v = gp[i * W + j], a = ap[i * W + j];
       s[0] += v;
       s[1] += v * a;
       if constexpr (SMEM) {
         gs[(i + 1) * Wp + j + 1] = v;
         as[(i + 1) * Wp + j + 1] = a;
-        if constexpr (!kF32<T>) xs[(i + 1) * Wp + j + 1] = ld(xp + i * W + j);
       }
     }
   });
@@ -408,7 +330,7 @@ __global__ void __launch_bounds__(kThreads, kPlaneBlocksPerSM)
       const int i = e < Wp ? 0 : e < 2 * Wp ? H + 1 : f < H ? f + 1 : f - H + 1;
       const int j = e < Wp ? e : e < 2 * Wp ? e - Wp : f < H ? 0 : W + 1;
       gs[i * Wp + j] = 0.f;
-      xs[i * Wp + j] = ld(xp + reflect1(i - 1, H) * W + reflect1(j - 1, W));
+      xs[i * Wp + j] = xp[reflect1(i - 1, H) * W + reflect1(j - 1, W)];
     }
   block_sums(s, sh);
   const float gm = s[0] / n, gym = s[1] / n, r = rstd[plane];
@@ -416,7 +338,7 @@ __global__ void __launch_bounds__(kThreads, kPlaneBlocksPerSM)
     strips([&](int j, int i0, int i1) {
       for (int i = i0; i < i1; ++i) {
         const int q = (i + 1) * Wp + j + 1;
-        gs[q] = rnd<T>(r * (gs[q] - gm - as[q] * gym));
+        gs[q] = r * (gs[q] - gm - as[q] * gym);
       }
     });
     tf32x3::cp_wait<0>();
@@ -430,20 +352,19 @@ __global__ void __launch_bounds__(kThreads, kPlaneBlocksPerSM)
     } else {
       if (i < 1 || i > H || j < 1 || j > W) return 0.f;
       const int p = (i - 1) * W + j - 1;
-      return rnd<T>(r * (ld(gp + p) - gm - ld(ap + p) * gym));
+      return r * (gp[p] - gm - ap[p] * gym);
     }
   };
   auto XP = [&](int i, int j) -> float {
     if constexpr (SMEM)
       return xs[i * Wp + j];
     else
-      return ld(xp + reflect1(i - 1, H) * W + reflect1(j - 1, W));
+      return xp[reflect1(i - 1, H) * W + reflect1(j - 1, W)];
   };
   float w[9], acc[9];
 #pragma unroll
   for (int t = 0; t < 9; ++t) {
-    // bf16: the transposed taps take the weight rounded to bf16
-    w[t] = rnd<T>(dw[c * 9 + t]);
+    w[t] = dw[c * 9 + t];
     acc[t] = 0.f;
   }
   strips([&](int j, int i0, int i1) {
@@ -467,13 +388,6 @@ __global__ void __launch_bounds__(kThreads, kPlaneBlocksPerSM)
         xw[2][v] = XP(i + 2, j + v);
       }
       const float gc = gw[1][1];
-      if constexpr (!kF32<T>) {
-#pragma unroll
-        for (int t = 0; t < 9; ++t) acc[t] += gc * xw[t / 3][t % 3];
-        st(gx + off + i * W + j, gx_bf16(w, gw, i == 1, i == H - 2, j == 1,
-                                         j == W - 2));
-        continue;
-      }
       float g = 0.f;
 #pragma unroll
       for (int di = 0; di < 3; ++di)
@@ -500,7 +414,7 @@ __global__ void __launch_bounds__(kThreads, kPlaneBlocksPerSM)
         if (r1 && c0) g += w[6] * gw[2][0];
         if (r1 && c1) g += w[8] * gw[2][2];
       }
-      st(gx + off + i * W + j, g);
+      gx[off + i * W + j] = g;
     }
   });
   block_sums(acc, sh);
@@ -668,10 +582,9 @@ int gemm(const float* A, const float* Bm, float* Cm, int M, int N, int K,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dw_bwd_plane(const T* gah, const T* ahat, const float* rstd_a, const T* x,
-                 const float* dw, T* gx, float* gdw_part, int B, int C, int H,
-                 int W, cudaStream_t st) {
+int dw_bwd_plane(const float* gah, const float* ahat, const float* rstd_a,
+                 const float* x, const float* dw, float* gx, float* gdw_part,
+                 int B, int C, int H, int W, cudaStream_t st) {
   const size_t smem = 3 * sizeof(float) * (H + 2) * (W + 2);
   if (smem <= kPlaneSmem) {
     // above 48 KB of dynamic shared memory only when asked for; asked once
@@ -682,15 +595,15 @@ int dw_bwd_plane(const T* gah, const T* ahat, const float* rstd_a, const T* x,
     if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
     if (!raised[dev]) {
       if (int e = (int)cudaFuncSetAttribute(
-              dw_bwd_plane_kernel<T, true>,
+              dw_bwd_plane_kernel<true>,
               cudaFuncAttributeMaxDynamicSharedMemorySize, kPlaneSmem))
         return e;
       raised[dev] = true;
     }
-    dw_bwd_plane_kernel<T, true><<<B * C, kThreads, smem, st>>>(
+    dw_bwd_plane_kernel<true><<<B * C, kThreads, smem, st>>>(
         gah, ahat, rstd_a, x, dw, gx, gdw_part, C, H, W);
   } else {
-    dw_bwd_plane_kernel<T, false><<<B * C, kThreads, 0, st>>>(
+    dw_bwd_plane_kernel<false><<<B * C, kThreads, 0, st>>>(
         gah, ahat, rstd_a, x, dw, gx, gdw_part, C, H, W);
   }
   return (int)cudaGetLastError();
@@ -780,19 +693,6 @@ int gcc_stage_bwd_dw(const float* gah, const float* ahat, const float* rstd_a,
                      const float* x, const float* dw, float* gx,
                      float* gdw_part, float* gdw, int B, int C, int H, int W,
                      void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (int e = dw_bwd_plane(gah, ahat, rstd_a, x, dw, gx, gdw_part, B, C, H, W,
-                           st))
-    return e;
-  return sum_partials(gdw_part, gdw, B, (long long)C * 9, st);
-}
-
-// bf16 backward, depthwise side: gah, a-hat, x, gx bf16; gdw fp32.
-// Scratch: gdw_part (B, C, 9) fp32.
-int gcc_stage_bwd_dw_bf16(const bf16* gah, const bf16* ahat,
-                          const float* rstd_a, const bf16* x, const float* dw,
-                          bf16* gx, float* gdw_part, float* gdw, int B, int C,
-                          int H, int W, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (int e = dw_bwd_plane(gah, ahat, rstd_a, x, dw, gx, gdw_part, B, C, H, W,
                            st))

@@ -1,17 +1,17 @@
-// Kernel B2's bf16 forward and pointwise backward for Hopper (sm_90a), NCHW:
-// the MobileResnet separable-conv stage in the JAX package's default
-// --compute_dtype bfloat16,
+// Kernel B2 in bf16 for Hopper (sm_90a), NCHW: the MobileResnet
+// separable-conv stage in the JAX package's default --compute_dtype
+// bfloat16,
 //
 //   y = IN(pw1x1(IN(dw3x3(reflectpad1(x))))) [relu] [+ res]
 //
-// Replaces, for a bf16 activation, two Pallas kernels of
+// Replaces, for a bf16 activation, the three Pallas kernels of
 // gcc_tpu/ops/pallas/mobile_block.py:
 //   gcc_stage_fwd_bf16     <- _stage_fwd_kernel     (:155, pallas_call :286)
 //   gcc_stage_bwd_pw_bf16  <- _stage_bwd_pw_kernel  (:187, pallas_call :324)
-// (the third, _stage_bwd_dw_kernel, is mobile_block.cu's
-// gcc_stage_bwd_dw_bf16). x, y, res, g, a-hat, b-hat, d b-hat (gb) and
-// d a-hat are bf16 in device memory; the weights, both 1/std vectors and
-// dW_pw are fp32.
+//   gcc_stage_bwd_dw_bf16  <- _stage_bwd_dw_kernel  (:220, pallas_call :345)
+// (mobile_block.cu holds the fp32 entry points). x, y, res, g, a-hat, b-hat,
+// d b-hat (gb), d a-hat, d a (ga) and dx are bf16 in device memory; the
+// weights, both 1/std vectors and the weight gradients are fp32.
 //
 // Arithmetic, rounding for rounding the TPU kernel's (ops/mobile_block.py's
 // plain versions repeat it in PyTorch):
@@ -33,9 +33,15 @@
 //    the order kept).
 //  * Backward: the relu test compares b-hat in fp32; gb = r (g - mean(g) -
 //    b-hat mean(g b-hat)) and d a-hat round to bf16; dW_pw is an fp32 sum.
+//  * Depthwise backward: ga = r (gah - mean(gah) - a-hat mean(gah a-hat))
+//    rounds to bf16; dx is the TPU kernel's bf16 sum: each transposed tap
+//    the product of ga and the weight rounded to bf16, rounded, added in
+//    tap order and rounded, then the pad adjoint's folds (columns, then
+//    rows), each sum rounded; dW_dw is an fp32 sum.
 //  Only the sums' order differs from the plain versions: the statistics
 //  sum pixel by pixel (thread t takes pixels t + 256 u), then by warp tree
-//  and warps in order (plane_stats, block_sums), the products by k step.
+//  and warps in order (plane_stats, block_sums), the depthwise backward's
+//  by column strips, the products by k step.
 //
 // What bounds it on the card. The function's bytes: at the teacher stage
 // (B 4, C = M = 256, 64 x 64) 17.0 MB in the forward (x in, y out: 0.0051
@@ -93,22 +99,58 @@
 //     a partial per (sample, 256-pixel chunk) made 64.
 //  3. sum_partials_kernel: the partials in a fixed order. No float
 //     atomics: two calls give the same bits.
+// Depthwise backward (one launch up to a batch of 8, else two):
+//  1. dw_bwd_bf16_kernel, one block of 256 threads per (b, c) plane. It
+//     reads gah, a-hat and x (the function's bytes, with the saved a-hat)
+//     once and writes dx once, and is bound by those bytes: 33.6 MB at the
+//     teacher stage, 0.010 ms at 3.35 TB/s. The plane's three inputs come
+//     into bf16 shared tiles (24 KB at 64 x 64; fp32 tiles would take 52
+//     KB) by 16-byte cp.async, gah and a-hat in a first copy group, x in a
+//     second, all in flight at once; x's reflect frame is read from its
+//     tile where it lies. IN1's two sums read the tiles by column strips,
+//     the fp32 kernel's order: it fixes ga's rounding and so dx's bits, and
+//     deep bf16 teachers' card-vs-CPU agreement depends on the order of the
+//     InstanceNorm sums (chip_smoke.py phase 18 (e)); ga is written over
+//     gah in 16-byte vectors. dx: a thread takes vectors of 8 pixels of a
+//     row, the three rows of ga around them as 16-byte words and two
+//     neighbours, shifted by byte permutes, and the nine transposed taps
+//     on two pixels an instruction in bf16x2 arithmetic (mul2, add2: the TPU kernel's
+//     roundings bit for bit, without the ~18 conversions a pixel of the
+//     fp32 forms); the column folds go along in the same words, rows 1 and
+//     H - 2 take pad_folds; dx leaves in 16-byte stores straight from
+//     registers (a thread's 8 pixels are one vector: no staging tile is
+//     needed). dW_dw: the nine fp32 products by strips, block_sums; for a
+//     batch up to 8 the grid is channel-major and a channel's B planes are
+//     one thread-block cluster, whose rank 0 adds their sums through
+//     distributed shared memory in sample order from 0 (sum_partials'
+//     order for up to 8 partials) and writes dW_dw.
+//  2. sum_partials_kernel, past a batch of 8: the per-plane partials in
+//     a fixed order.
+// Launch bounds of 6 blocks an SM (40 registers): six planes' 147 KB of
+// tiles in flight an SM; 4 and 5 blocks (more registers) were no faster,
+// 7 and 8 spill (scripts/b2_dw_bf16_probes.py).
 // Routes: no shape is refused. Planes whose width is not a multiple of 8,
 // planes past 64 x 64 and bases not 16-byte aligned take the plane kernels'
 // pixel-by-pixel route (x staged in shared memory while it fits 40 KB, else
 // read from device memory at every tap; a and b re-read from device
-// memory); rows not a multiple of 8 take element copies in the products,
-// and weights whose rows are not a multiple of 4 element loads.
+// memory); the depthwise backward's, element copies into its tiles and dx
+// pixel by pixel, or, for planes whose tiles pass 48 KB, ga and x read
+// from device memory at every tap; rows not a multiple of 8 take element
+// copies in the products, and weights whose rows are not a multiple of 4
+// element loads.
 //
 // Registers and spills (nvcc -Xptxas -v, sm_90a, CUDA 12.8; chip_smoke.py
 // phase 17 (a) prints them): pw_fwd_bf16_kernel<128>, <256> and
 // pw_bwd_bf16_kernel<256> 128 registers, no spills; pw_bwd_bf16_kernel<128>
-// 128 with 96 bytes of spill stores; the plane kernels 32-60, none.
+// 128 with 96 bytes of spill stores; the plane kernels 32-60, none;
+// dw_bwd_bf16_kernel 40, with 4 bytes of spill stores (80 in its
+// device-memory route).
 //
 // Every entry point but the *_partials count returns cudaGetLastError() as
 // an int; the Python wrapper raises when it is not 0. Nothing here
 // allocates or synchronises.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -502,6 +544,346 @@ __global__ void __launch_bounds__(kPlaneThreads) in_bwd_bf16_kernel(
   }
 }
 
+// The depthwise backward's transposed taps in bf16 arithmetic: two bf16
+// values a 32-bit word (the lower-indexed pixel in the low half), each
+// product and each sum rounded once to nearest even. For bf16 operands the
+// TPU kernel's fp32 forms round_bf16(__fmul_rn(w, g)) and
+// round_bf16(__fadd_rn(s, p)) give the same bits: the product is exact in
+// fp32 down to the subnormals, where both forms round to 0 alike; the sum is
+// exact while the exponents differ by at most 16, and beyond that both
+// return the larger operand (tests/test_torch_stage_bf16_dw.py checks the
+// identity against exact results on the CPU, gcc_bf16x2_probe on the
+// card). Not fma.rn.bf16x2, which rounds once where the TPU kernel rounds
+// twice; the explicit .rn keeps ptxas from contracting a mul and an add.
+__device__ __forceinline__ uint32_t mul2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t add2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+// g + w v, each operation rounded: one transposed tap
+__device__ __forceinline__ uint32_t tap2(uint32_t g, uint32_t w, uint32_t v) {
+  return add2(g, mul2(w, v));
+}
+// a bf16 value in the low half of a word
+__device__ __forceinline__ uint32_t bits_bf16(bf16 v) {
+  return (uint32_t)__bfloat16_as_ushort(v);
+}
+
+// Shared memory that the depthwise backward's three bf16 tiles may take:
+// up to 48 KB no attribute is asked for (planes up to ~89 x 89; 64 x 64
+// takes 24 KB). Blocks an SM that its launch bounds ask for: six, so at
+// most 65,536 / (6 x 256) = 42 registers a thread. Planes of one channel
+// that it sums dW_dw over in a cluster (the portable cluster size); a
+// larger batch takes per-plane partials and sum_partials.
+constexpr int kDwSmem = 48 * 1024;
+constexpr int kDwBlocksPerSM = 6;
+constexpr int kDwCluster = 8;
+
+// dx at pixel (i, j) from the transposed taps' sum g there (in the low
+// half; the high half is ignored): the reflect pad's adjoint, in the TPU
+// kernel's order (the plain version's): padded column 0 folds onto column
+// 1 and column W + 1 onto column W - 2, then padded row 0 (that row's
+// folded value) onto row 1 and row H + 1 onto row H - 2; each fold is the
+// sum of its taps in tap order, and every sum is rounded. ga(i, j) gives ga
+// in the low half of a word, 0 outside the plane: only the taps from ga's
+// rows 0, H - 1 and columns 0, W - 1 reach the frame. A 3-row plane takes
+// both row folds, in that order.
+template <class GA>
+__device__ __forceinline__ uint32_t pad_folds(uint32_t g, const GA& ga,
+                                              const uint32_t (&w)[9], int i,
+                                              int j, int H, int W) {
+  const bool c0 = j == 1, c1 = j == W - 2;
+#pragma unroll
+  for (int side = 0; side < 2; ++side) {
+    if (!(side == 0 ? c0 : c1)) continue;
+    const int dj = side == 0 ? -1 : 1, wt = side == 0 ? 0 : 2;
+    uint32_t col = 0u;  // gxp on padded column 0 or W + 1, the pixel's row
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      col = tap2(col, w[3 * k + wt], ga(i + 1 - k, j + dj));
+    g = add2(g, col);
+  }
+#pragma unroll
+  for (int u = 0; u < 3; u += 2) {
+    if (!(u == 0 ? i == 1 : i == H - 2)) continue;
+    const int rr = i - 1 + u;  // ga's row that reaches padded row 0 or H + 1
+    uint32_t row = 0u;         // gxp on that padded row, the pixel's column
+#pragma unroll
+    for (int jj = 0; jj < 3; ++jj)
+      row = tap2(row, w[3 * u + jj], ga(rr, j + 1 - jj));
+    if (c0) row = add2(row, mul2(w[3 * u], ga(rr, j - 1)));
+    if (c1) row = add2(row, mul2(w[3 * u + 2], ga(rr, j + 1)));
+    g = add2(g, row);
+  }
+  return g;
+}
+
+// One block per (b, c) plane: IN1's backward and the depthwise side at once,
+// in bf16 (gah, a-hat, x and gx bf16; 1/std, the weight and dW_dw fp32):
+//   ga = r (gah - mean(gah) - a-hat mean(gah a-hat)), rounded to bf16,
+//   gx = the reflect pad's adjoint of the transposed depthwise taps of ga,
+//   dW_dw[c, tap] = sum over samples and pixels of ga (tap-shifted padded x).
+// SMEM: the plane's gah, a-hat and x in three unpadded bf16 shared tiles (H
+// x W, rows W apart), ga written over gah. VEC (W a multiple of 8, 16-byte
+// aligned bases): 16-byte cp.async, gah and a-hat in a first copy group and
+// x in a second, so IN1's sums start while x arrives; ga in 16-byte
+// vectors; dx by vectors of 8 pixels of a row on bf16x2 taps, out in
+// 16-byte stores. SMEM only: element copies and dx pixel by pixel. Neither
+// (the tiles past kDwSmem): ga and x read from device memory at every tap.
+// IN1's two sums and dW_dw's nine take the column strips of the fp32
+// kernel (mobile_block.cu's dw_bwd_plane_kernel): thread t sums column
+// t % W from row (t / W) ceil(H / segs) on, segs = max(1, 256 / W) strips a
+// column, then block_sums. So ga, dx and each plane's dW_dw have the bits
+// of that order.
+// cl 0: each plane's dW_dw into gdw_part, for sum_partials. cl = B (at most
+// kDwCluster): the grid is channel-major (block c B + b holds plane b C +
+// c), the B planes of a channel are one cluster, and rank 0 adds the
+// ranks' sums through distributed shared memory in sample order from 0
+// (sum_partials' order for up to 8 partials) into gdw; at B = 1 the block
+// writes its own sum.
+template <bool VEC, bool SMEM>
+__global__ void __launch_bounds__(kThreads, kDwBlocksPerSM)
+    dw_bwd_bf16_kernel(const bf16* __restrict__ gah,
+                       const bf16* __restrict__ ahat,
+                       const float* __restrict__ rstd,
+                       const bf16* __restrict__ x,
+                       const float* __restrict__ dw, bf16* __restrict__ gx,
+                       float* __restrict__ gdw_part, float* __restrict__ gdw,
+                       int C, int H, int W, int cl) {
+  static_assert(SMEM || !VEC, "the vector route stages the plane");
+  constexpr int NT = kThreads;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float sh[NT / 32 * 9];
+  __shared__ float part[9];  // the plane's dW_dw, for the cluster's sum
+  const int n = H * W;
+  const int c = cl ? blockIdx.x / cl : blockIdx.x % C;
+  const int plane = cl ? blockIdx.x % cl * C + c : blockIdx.x;
+  const size_t off = (size_t)plane * n;
+  const bf16 *gp = gah + off, *ap = ahat + off, *xp = x + off;
+  bf16* gs = reinterpret_cast<bf16*>(smem);  // gah, then ga
+  bf16 *as = gs + n, *xs = as + n;
+  const int segs = max(1, NT / W), rows = (H + segs - 1) / segs;
+  // f(j, i0, i1) on each of this thread's strips
+  auto strips = [&](auto&& f) {
+    for (int task = threadIdx.x; task < W * segs; task += NT) {
+      const int j = task % W, i0 = task / W * rows;
+      if (i0 < H) f(j, i0, min(H, i0 + rows));
+    }
+  };
+
+  if constexpr (VEC) {
+    for (int e = threadIdx.x; e < n / kVec; e += NT) {
+      cp_async16(gs + kVec * e, gp + kVec * e, 16);
+      cp_async16(as + kVec * e, ap + kVec * e, 16);
+    }
+    cp_commit();
+    for (int e = threadIdx.x; e < n / kVec; e += NT)
+      cp_async16(xs + kVec * e, xp + kVec * e, 16);
+    cp_commit();
+    cp_wait<1>();
+  } else if constexpr (SMEM) {
+    for (int p = threadIdx.x; p < n; p += NT) {
+      gs[p] = gp[p];
+      as[p] = ap[p];
+      xs[p] = xp[p];
+    }
+  }
+  __syncthreads();
+  const bf16 *gsrc = SMEM ? gs : gp, *asrc = SMEM ? as : ap,
+             *xsrc = SMEM ? xs : xp;
+  float s[2] = {0.f, 0.f};  // IN1's sums of gah and gah * a-hat
+  strips([&](int j, int i0, int i1) {
+#pragma unroll 4
+    for (int i = i0; i < i1; ++i) {
+      const float v = __bfloat162float(gsrc[i * W + j]),
+                  a = __bfloat162float(asrc[i * W + j]);
+      s[0] += v;
+      s[1] += v * a;
+    }
+  });
+  block_sums(s, sh);
+  const float gm = s[0] / n, gym = s[1] / n, r = rstd[plane];
+  if constexpr (VEC) {
+    for (int e = threadIdx.x; e < n / kVec; e += NT) {
+      float v[kVec], a[kVec];
+      unpack8(ld16(gs + kVec * e), v);
+      unpack8(ld16(as + kVec * e), a);
+#pragma unroll
+      for (int u = 0; u < kVec; ++u) v[u] = r * (v[u] - gm - a[u] * gym);
+      st16(gs + kVec * e, pack8(v));
+    }
+    cp_wait<0>();
+  } else if constexpr (SMEM) {
+    for (int p = threadIdx.x; p < n; p += NT)
+      gs[p] = __float2bfloat16_rn(r * (__bfloat162float(gs[p]) - gm -
+                                       __bfloat162float(as[p]) * gym));
+  }
+  __syncthreads();
+  // ga at (i, j) of the plane, 0 outside it: as a float, and as bf16 bits
+  // in the low half of a word
+  auto ga_f = [&](int i, int j) -> float {
+    if (i < 0 || i >= H || j < 0 || j >= W) return 0.f;
+    const int p = i * W + j;
+    if constexpr (SMEM)
+      return __bfloat162float(gs[p]);
+    else
+      return round_bf16(r * (__bfloat162float(gp[p]) - gm -
+                             __bfloat162float(ap[p]) * gym));
+  };
+  auto ga = [&](int i, int j) -> uint32_t {
+    if constexpr (SMEM)
+      return i < 0 || i >= H || j < 0 || j >= W ? 0u
+                                                 : bits_bf16(gs[i * W + j]);
+    else
+      return bits_bf16(__float2bfloat16_rn(ga_f(i, j)));
+  };
+  uint32_t w2[9];  // the weight rounded to bf16, in both halves
+#pragma unroll
+  for (int t = 0; t < 9; ++t)
+    w2[t] = bits_bf16(__float2bfloat16_rn(dw[c * 9 + t])) * 0x10001u;
+
+  if constexpr (VEC) {
+    // vector e: pixels j0 .. j0 + 7 of row i. Of ga's row `row` its taps
+    // read e_k = ga(row, j0 - 1 + k), k = 0 .. 9: the words m[q] = (e_2q+1,
+    // e_2q+2) as they lie in shared memory, and sv[q] = (e_2q, e_2q+1)
+    // shifted by one value. Pixel pair q (pixels j0 + 2q, j0 + 2q + 1) takes
+    // tap t = 3 ti + tj from row i + 1 - ti at column offset 1 - tj:
+    // sv[q + 1], m[q] or sv[q]; the taps in t order, as the TPU kernel.
+    // The column folds' taps go along in fc: pixel 1 of a row's first
+    // vector folds in ga's column 0 (e_1, m[0]'s low half), pixel W - 2 of
+    // its last column W - 1 (e_8, m[3]'s high half); fc's other halves are
+    // not read. Rows 1 and H - 2, whose every pixel folds, take pad_folds.
+    for (int e = threadIdx.x; e < n / kVec; e += NT) {
+      const int p0 = kVec * e, i = p0 / W, j0 = p0 - i * W;
+      uint32_t g[4] = {0u, 0u, 0u, 0u}, fc[2] = {0u, 0u};
+#pragma unroll
+      for (int ti = 0; ti < 3; ++ti) {
+        const int row = i + 1 - ti;
+        uint32_t m[4] = {0u, 0u, 0u, 0u}, lo = 0u, hi = 0u;
+        if (row >= 0 && row < H) {
+          const uint4 q = ld16(gs + row * W + j0);
+          m[0] = q.x, m[1] = q.y, m[2] = q.z, m[3] = q.w;
+          if (j0 > 0) lo = bits_bf16(gs[row * W + j0 - 1]);
+          if (j0 + kVec < W) hi = bits_bf16(gs[row * W + j0 + kVec]);
+        }
+        uint32_t sv[5];
+        sv[0] = __byte_perm(lo, m[0], 0x5410);
+#pragma unroll
+        for (int k = 1; k < 4; ++k)
+          sv[k] = __byte_perm(m[k - 1], m[k], 0x5432);
+        sv[4] = __byte_perm(m[3], hi, 0x5432);
+#pragma unroll
+        for (int tj = 0; tj < 3; ++tj)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            g[q] = tap2(g[q], w2[3 * ti + tj],
+                        tj == 0 ? sv[q + 1] : tj == 1 ? m[q] : sv[q]);
+        fc[0] = tap2(fc[0], w2[3 * ti], m[0]);
+        fc[1] = tap2(fc[1], w2[3 * ti + 2], m[3]);
+      }
+      if (i == 1 || i == H - 2) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint32_t a = pad_folds(g[q], ga, w2, i, j0 + 2 * q, H, W),
+                         b = pad_folds(g[q] >> 16, ga, w2, i,
+                                       j0 + 2 * q + 1, H, W);
+          g[q] = __byte_perm(a, b, 0x5410);
+        }
+      } else {  // the one half that folds, the other kept as it is
+        if (j0 == 0) g[0] = __byte_perm(g[0], add2(g[0], fc[0] << 16), 0x7610);
+        if (j0 + kVec == W)
+          g[3] = __byte_perm(add2(g[3], fc[1] >> 16), g[3], 0x7610);
+      }
+      st16(gx + off + p0, make_uint4(g[0], g[1], g[2], g[3]));
+    }
+  } else {
+    for (int p = threadIdx.x; p < n; p += NT) {
+      const int i = p / W, j = p - i * W;
+      uint32_t g = 0u;
+#pragma unroll
+      for (int t = 0; t < 9; ++t)
+        g = tap2(g, w2[t], ga(i + 1 - t / 3, j + 1 - t % 3));
+      g = pad_folds(g, ga, w2, i, j, H, W);
+      gx[off + p] = __ushort_as_bfloat16((unsigned short)g);
+    }
+  }
+
+  // dW_dw: the nine products of ga and the 3 x 3 window of padded x around
+  // the pixel, fp32 (exact products of bf16 values), summed by strips
+  float acc[9];
+#pragma unroll
+  for (int t = 0; t < 9; ++t) acc[t] = 0.f;
+  strips([&](int j, int i0, int i1) {
+    const int jc[3] = {reflect1(j - 1, W), j, reflect1(j + 1, W)};
+    float xw[3][3];  // x rows i - 1 .. i + 1 (reflected), columns jc
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int v = 0; v < 3; ++v)
+        xw[u + 1][v] =
+            __bfloat162float(xsrc[reflect1(i0 - 1 + u, H) * W + jc[v]]);
+#pragma unroll 4
+    for (int i = i0; i < i1; ++i) {
+      const int xr = reflect1(i + 1, H) * W;
+#pragma unroll
+      for (int v = 0; v < 3; ++v) {
+        xw[0][v] = xw[1][v];
+        xw[1][v] = xw[2][v];
+        xw[2][v] = __bfloat162float(xsrc[xr + jc[v]]);
+      }
+      float gc;
+      if constexpr (SMEM)
+        gc = __bfloat162float(gs[i * W + j]);
+      else
+        gc = ga_f(i, j);
+#pragma unroll
+      for (int t = 0; t < 9; ++t) acc[t] += gc * xw[t / 3][t % 3];
+    }
+  });
+  block_sums(acc, sh);
+  if (cl == 0) {
+    if (threadIdx.x == 0)
+#pragma unroll
+      for (int t = 0; t < 9; ++t) gdw_part[(size_t)plane * 9 + t] = acc[t];
+  } else if (cl == 1) {
+    if (threadIdx.x == 0)
+#pragma unroll
+      for (int t = 0; t < 9; ++t) gdw[c * 9 + t] = __fadd_rn(0.f, acc[t]);
+  } else {
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    if (threadIdx.x == 0)
+#pragma unroll
+      for (int t = 0; t < 9; ++t) part[t] = acc[t];
+    cluster.sync();  // every rank's sums are in its shared memory
+    if (cluster.block_rank() == 0 && threadIdx.x < 9) {
+      float t = 0.f;
+      for (int k = 0; k < cl; ++k)
+        t = __fadd_rn(t, *cluster.map_shared_rank(part + threadIdx.x, k));
+      gdw[c * 9 + threadIdx.x] = t;
+    }
+    cluster.sync();  // rank 0 has read them: the others may leave
+  }
+}
+
+// mul.rn.bf16x2 and add.rn.bf16x2, the depthwise backward's own helpers, on
+// n pairs of words: for the card test of their identity with the fp32 forms
+__global__ void bf16x2_probe_kernel(const uint32_t* __restrict__ a,
+                                    const uint32_t* __restrict__ b,
+                                    uint32_t* __restrict__ prod,
+                                    uint32_t* __restrict__ sum, int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    prod[i] = mul2(a[i], b[i]);
+    sum[i] = add2(a[i], b[i]);
+  }
+}
+
 // The 16 x 8 x 16 products of one k step (16 deep at ks of a stage) for a
 // warp's 64 x 32 outputs, summed straight into acc: A fragments from an
 // [m][k] tile (plain ldmatrix) or, AK, a [k][m] tile (.trans); B from a
@@ -859,6 +1241,42 @@ int grad_splits(int B, int C, int M, int n, int sms) {
   return cdiv(B * cdiv(n, BK), grad_per(B, C, M, n, sms));
 }
 
+
+// dW_dw's per-plane partials (C x 9 each) that the depthwise backward sums
+// for B samples in a second launch: none where one launch sums them in a
+// cluster
+int dw_partials(int B) { return B <= kDwCluster ? 0 : B; }
+
+int dw_bwd(const bf16* gah, const bf16* ahat, const float* rstd_a,
+           const bf16* x, const float* dw, bf16* gx, float* gdw_part,
+           float* gdw, int B, int C, int H, int W, cudaStream_t st) {
+  const size_t smem = 3 * sizeof(bf16) * (size_t)H * W;
+  const bool staged = smem <= kDwSmem;
+  const bool vec = staged && W % kVec == 0 && aligned16(gah) &&
+                   aligned16(ahat) && aligned16(x) && aligned16(gx);
+  const int cl = dw_partials(B) ? 0 : B;
+  auto kernel = vec      ? &dw_bwd_bf16_kernel<true, true>
+                : staged ? &dw_bwd_bf16_kernel<false, true>
+                         : &dw_bwd_bf16_kernel<false, false>;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = cl;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * C);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = staged ? smem : 0;
+  cfg.stream = st;
+  cfg.attrs = cluster;
+  cfg.numAttrs = cl > 1 ? 1 : 0;
+  if (int e = (int)cudaLaunchKernelEx(&cfg, kernel, gah, ahat, rstd_a, x, dw,
+                                      gx, gdw_part, gdw, C, H, W, cl))
+    return e;
+  if (int e = (int)cudaGetLastError()) return e;
+  return cl ? 0 : sum_partials(gdw_part, gdw, B, (long long)C * 9, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -954,6 +1372,35 @@ int gcc_stage_bwd_pw_bf16(const bf16* g, const bf16* ahat, const bf16* bhat,
   if (int e = (int)cudaGetLastError()) return e;
   if (splits == 1) return 0;
   return sum_partials(gpw_part, gpw, splits, (long long)M * C, st);
+}
+
+// The number of (C, 9) fp32 partials of dW_dw that gcc_stage_bwd_dw_bf16
+// sums for B samples (0 where it sums them in one launch): the size of its
+// gdw_part scratch. Returns a count, not an error.
+int gcc_stage_bwd_dw_bf16_partials(int B) { return dw_partials(B); }
+
+// Backward, depthwise side, in bf16: IN1 + depthwise conv + reflect-pad
+// adjoint. gah (B,C,H,W) from gcc_stage_bwd_pw_bf16, a-hat and x bf16;
+// rstd_a (B,C) and dw (C,1,3,3) fp32. Writes gx (B,C,H,W) bf16 and gdw
+// (C,1,3,3) fp32. Scratch: gdw_part (gcc_stage_bwd_dw_bf16_partials(B), C,
+// 9) fp32, null where that is 0. One launch for B <= 8, else two.
+int gcc_stage_bwd_dw_bf16(const bf16* gah, const bf16* ahat,
+                          const float* rstd_a, const bf16* x, const float* dw,
+                          bf16* gx, float* gdw_part, float* gdw, int B, int C,
+                          int H, int W, void* stream) {
+  return dw_bwd(gah, ahat, rstd_a, x, dw, gx, gdw_part, gdw, B, C, H, W,
+                static_cast<cudaStream_t>(stream));
+}
+
+// mul.rn.bf16x2 and add.rn.bf16x2 of the words a[i], b[i] into prod[i] and
+// sum[i], i < n (a probe of the depthwise backward's arithmetic).
+int gcc_bf16x2_probe(const uint32_t* a, const uint32_t* b, uint32_t* prod,
+                     uint32_t* sum, int n, void* stream) {
+  if (n > 0)
+    bf16x2_probe_kernel<<<std::min(cdiv(n, kThreads), 1024), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(a, b, prod,
+                                                               sum, n);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

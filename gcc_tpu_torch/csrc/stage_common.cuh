@@ -1,7 +1,6 @@
 // Pieces shared by the MobileResnet stage kernels (kernel B2) of
-// mobile_block.cu (fp32, and bf16's depthwise backward) and
-// mobile_block_bf16.cu (bf16 forward and pointwise backward): the block
-// size, InstanceNorm's eps, the reflect index, fixed-order block sums and the
+// mobile_block.cu (fp32) and mobile_block_bf16.cu (bf16): the block size,
+// InstanceNorm's eps, the reflect index, fixed-order block sums and the
 // ordered sum of split-k partials. Each library is one translation unit.
 
 #pragma once

@@ -38,12 +38,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "gcc_stage_bwd_pw_partials": [_I] * 6,
         "gcc_stage_bwd_pw": [_P] * 9 + [_I] * 7 + [_P],
         "gcc_stage_bwd_dw": [_P] * 8 + [_I] * 4 + [_P],
-        "gcc_stage_bwd_dw_bf16": [_P] * 8 + [_I] * 4 + [_P],
     },
     "mobile_block_bf16": {
         "gcc_stage_fwd_bf16": [_P] * 9 + [_I] * 7 + [_P],
         "gcc_stage_bwd_pw_bf16_partials": [_I] * 6,
         "gcc_stage_bwd_pw_bf16": [_P] * 9 + [_I] * 7 + [_P],
+        "gcc_stage_bwd_dw_bf16_partials": [_I],
+        "gcc_stage_bwd_dw_bf16": [_P] * 8 + [_I] * 4 + [_P],
+        "gcc_bf16x2_probe": [_P] * 4 + [_I] + [_P],
     },
     "flash_attention": {
         "gcc_attn_fwd": [_P] * 5 + [_I] * 4 + [_P],

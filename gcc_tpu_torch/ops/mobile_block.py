@@ -20,9 +20,8 @@ Three wrappers stand for the three TPU kernels, with the same split of work:
     stage_bwd_dw  <- _stage_bwd_dw_kernel  (:220)  IN1 + depthwise + pad adjoint
 
 On a CUDA tensor each launches its kernel or raises, also for an activation
-dtype without a kernel: csrc/mobile_block.cu in fp32 and for the bf16
-depthwise backward, csrc/mobile_block_bf16.cu for the bf16 forward and
-pointwise backward. On a CPU tensor it runs its
+dtype without a kernel: csrc/mobile_block.cu in fp32, csrc/mobile_block_bf16.cu
+in bf16. On a CPU tensor it runs its
 plain version, ``*_plain`` below, which repeats the kernel's arithmetic in
 PyTorch. ``LAUNCHES`` counts the CUDA calls of each wrapper by dtype
 (``stage_fwd`` fp32, ``stage_fwd_bf16`` bf16, and so on). The forward
@@ -49,8 +48,7 @@ EPS = 1e-5  # torch InstanceNorm2d default
 
 # the entry points' suffix by activation dtype
 _SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
-# the library of the forward's and the pointwise backward's entry points, by
-# suffix (the depthwise backward's is mobile_block in both dtypes)
+# the library of the entry points, by suffix
 _LIBRARY = {"": "mobile_block", "_bf16": "mobile_block_bf16"}
 
 LAUNCHES = {f"{k}{sfx}": 0 for sfx in _SUFFIX.values()
@@ -235,6 +233,16 @@ def _pw_grad_partials(B: int, C: int, M: int, H: int, W: int, sms: int,
                    f"gcc_stage_bwd_pw{sfx}_partials")(B, C, M, H, W, sms)
 
 
+@functools.lru_cache(maxsize=None)
+def _dw_grad_partials(B: int, sfx: str) -> int:
+    """Per-plane partials of the depthwise weight gradient's ordered sum over
+    B samples: B in fp32; in bf16 as the library sizes them (0 where one
+    launch sums them)."""
+    if not sfx:
+        return B
+    return kernels.library(_LIBRARY[sfx]).gcc_stage_bwd_dw_bf16_partials(B)
+
+
 def stage_fwd(x, dwk, pwk, residual=None, relu=False):
     """Forward of one stage: (y, a-hat, b-hat, 1/std of a, 1/std of b)."""
     if not x.is_cuda:
@@ -306,10 +314,11 @@ def stage_bwd_dw(gah, ahat, rstd_a, x, dwk):
     kernels.check(dev, "dwk", dwk, (C, 1, 3, 3))
     with _on(dev):
         gx = torch.empty_like(x)
-        gdw_part = torch.empty(B, C, 9, device=dev)
+        parts = _dw_grad_partials(B, sfx)
+        gdw_part = torch.empty(parts, C, 9, device=dev) if parts else None
         gdw = torch.empty_like(dwk)
         p = kernels.ptr
-        kernels.launch("mobile_block", f"gcc_stage_bwd_dw{sfx}", p(gah),
+        kernels.launch(_LIBRARY[sfx], f"gcc_stage_bwd_dw{sfx}", p(gah),
                        p(ahat), p(rstd_a), p(x), p(dwk), p(gx), p(gdw_part),
                        p(gdw), B, C, H, W)
     LAUNCHES[f"stage_bwd_dw{sfx}"] += 1

@@ -29,8 +29,8 @@ CycleGAN's batch-1 teacher stage; the forward product against K with
 cuBLAS's bf16 product of the same shape (torch.matmul) as a yardstick; and
 chip_smoke.py phase 18 (e)'s CycleGAN check (the card in bf16 against the
 CPU in bf16 and fp32) with the source, zeroed, vectors and, where
-chip_ab/b2_parent/ holds an earlier mobile_block.cu with its headers, that
-library's bf16 entry points.
+chip_ab/b2_parent/ holds an earlier mobile_block_bf16.cu with its headers,
+that library's bf16 entry points.
 """
 
 import ctypes
@@ -110,8 +110,8 @@ def bind(kernels, path):
 
 
 def parent_entry_points(torch, mb, kernels, lib):
-    """stage_fwd / stage_bwd_pw on the earlier library's bf16 entry points
-    (which take the rounded weight's scratch), for bf16 CUDA tensors."""
+    """stage_fwd / stage_bwd_pw on the earlier library's bf16 entry points,
+    for bf16 CUDA tensors."""
     p, bf = kernels.ptr, torch.bfloat16
     fwd0, bwd0 = mb.stage_fwd, mb.stage_bwd_pw
 
@@ -124,11 +124,10 @@ def parent_entry_points(torch, mb, kernels, lib):
         (B, C, H, W), M, dev = x.shape, pwk.shape[0], x.device
         y = torch.empty(B, M, H, W, device=dev, dtype=bf)
         outs = (y, torch.empty_like(x), torch.empty_like(y),
-                torch.empty(B, C, device=dev), torch.empty(B, M, device=dev),
-                torch.empty(M, C, device=dev, dtype=bf))
+                torch.empty(B, C, device=dev), torch.empty(B, M, device=dev))
         if lib.gcc_stage_fwd_bf16(p(x), p(dwk), p(pwk), p(residual),
                                   *map(p, outs), B, C, M, H, W, int(relu),
-                                  stream()):
+                                  mb._sms(dev.index), stream()):
             raise RuntimeError("the earlier gcc_stage_fwd_bf16 failed")
         mb.LAUNCHES["stage_fwd_bf16"] += 1
         return outs[:5]
@@ -140,8 +139,7 @@ def parent_entry_points(torch, mb, kernels, lib):
         sms = mb._sms(dev.index)
         n = lib.gcc_stage_bwd_pw_bf16_partials(B, C, M, H, W, sms)
         outs = (torch.empty_like(g), torch.empty_like(ahat),
-                torch.empty(n, M, C, device=dev), torch.empty_like(pwk),
-                torch.empty(M, C, device=dev, dtype=bf))
+                torch.empty(n, M, C, device=dev), torch.empty_like(pwk))
         if lib.gcc_stage_bwd_pw_bf16(p(g), p(ahat), p(bhat), p(rstd_b),
                                      p(pwk), *map(p, outs), B, C, M, H, W,
                                      int(relu), sms, stream()):
@@ -169,7 +167,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     procs = build_variants(kernels)
-    parent = cs.start_parent_build(cs.B2_PARENT, "mobile_block")
+    parent = cs.start_parent_build(cs.B2_PARENT, "mobile_block_bf16")
     kernels.build()
     libs = {"source": kernels.library("mobile_block_bf16")}
     for name, (proc, out) in procs.items():
@@ -177,12 +175,8 @@ def main():
         if proc.returncode:
             raise RuntimeError(f"nvcc of the {name} variant:\n{log}")
         libs[name] = bind(kernels, out)
-    sigs = kernels.SIGNATURES
     parent = cs.parent_library(
-        parent, cs.B2_PARENT, "mobile_block",
-        {**{fn: sigs["mobile_block"][fn] for fn in (
-            "gcc_stage_fwd", "gcc_stage_bwd_pw_partials", "gcc_stage_bwd_pw",
-            "gcc_stage_bwd_dw")}, **cs.B2_PARENT_BF16},
+        parent, cs.B2_PARENT, "mobile_block_bf16", cs.B2_PARENT_BF16,
         "the CycleGAN check with the earlier bf16 entry points")
 
     def use(name):

@@ -147,7 +147,10 @@ def test_wrapper_rejects_bad_input(cuda):
 # memory, 128x128; 150x150 read from device memory at every tap), which take
 # their pixel-by-pixel route; small planes whose width is a multiple of 8
 # (8x8, the tiny CycleGAN's blocks; 16x24), which take the 16-byte route
-# with fewer vectors than threads
+# with fewer vectors than threads; 3-row and 3-column planes, where both
+# reflect-pad folds of the depthwise backward land on one row or column; a
+# batch of 12, whose depthwise dW takes per-plane partials and a second
+# launch (a batch up to 8 sums them in one launch, in a cluster)
 BF16_CASES = [(4, 256, 256, 64, 64, True, False),
               (4, 256, 256, 64, 64, False, True),
               (4, 112, 72, 64, 64, True, False),
@@ -160,7 +163,8 @@ BF16_CASES = [(4, 256, 256, 64, 64, True, False),
               (1, 24, 136, 128, 128, False, True),
               (1, 3, 5, 150, 150, True, False),
               (2, 32, 32, 8, 8, True, False), (2, 12, 6, 8, 8, False, True),
-              (3, 40, 24, 16, 24, True, True)]
+              (3, 40, 24, 16, 24, True, True), (2, 16, 8, 3, 8, True, False),
+              (1, 8, 8, 8, 3, False, True), (12, 16, 24, 16, 16, True, False)]
 
 
 def _close_bf16(name, a, b):
@@ -222,6 +226,58 @@ def test_bf16_kernels_match_plain(cuda, case):
         pw_k, mb.stage_bwd_pw(g, ahat, bhat, rstd_b, pwk, relu)))
     assert all(torch.equal(a, b) for a, b in zip(
         dw_k, mb.stage_bwd_dw(gah, ahat, rstd_a, x, dwk)))
+
+
+@pytest.mark.cuda
+def test_bf16x2_native_ops_match_the_fp32_forms(cuda):
+    """The depthwise backward's mul.rn.bf16x2 and add.rn.bf16x2 (its own
+    helpers, through gcc_bf16x2_probe) give round_bf16(fp32(a * b)) and
+    round_bf16(fp32(a + b)) bit for bit, the TPU kernel's forms, on the
+    pairs of tests/test_torch_stage_bf16_dw.py (subnormals, zeros of both
+    signs, every exponent, exponent gaps 0 .. 30)."""
+    import numpy as np
+
+    import torch_bf16_pairs as bp
+
+    a, b = bp.bf16_pairs()
+    words = [torch.from_numpy(np.ascontiguousarray(t).view(np.int32)).to(cuda)
+             for t in (a, b)]
+    prod, total = torch.empty_like(words[0]), torch.empty_like(words[0])
+    kernels.launch("mobile_block_bf16", "gcc_bf16x2_probe",
+                   words[0].data_ptr(), words[1].data_ptr(), prod.data_ptr(),
+                   total.data_ptr(), words[0].numel())
+    assert np.array_equal(prod.cpu().numpy().view(np.uint16),
+                          bp.emulated_mul(a, b))
+    assert np.array_equal(total.cpu().numpy().view(np.uint16),
+                          bp.emulated_add(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4, 8, 9])
+def test_bf16_dw_launches(cuda, B):
+    """gcc_stage_bwd_dw_bf16 is one launch up to a batch of 8 (dW_dw summed
+    in a cluster), two past it (per-plane partials, then sum_partials), by
+    torch.profiler's kernel count; dx and dW_dw within their bounds of the
+    plain version either way."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(7)
+    bf = torch.bfloat16
+    x, gah, ahat = (torch.randn(B, 16, 64, 64, generator=gen).to(cuda, bf)
+                    for _ in range(3))
+    rstd = (torch.rand(B, 16, generator=gen) + 0.5).to(cuda)
+    dwk = (torch.randn(16, 1, 3, 3, generator=gen) * 0.2).to(cuda)
+    mb.stage_bwd_dw(gah, ahat, rstd, x, dwk)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = mb.stage_bwd_dw(gah, ahat, rstd, x, dwk)
+        torch.cuda.synchronize()
+    launched = sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    assert launched == (1 if B <= 8 else 2)
+    ref = mb.stage_bwd_dw_plain(gah, ahat, rstd, x, dwk)
+    _close_bf16("dx", got[0], ref[0])
+    _close_dw(got[1], ref[1])
 
 
 @pytest.mark.cuda

@@ -334,8 +334,10 @@ def test_build_covers_the_bf16_library(monkeypatch, tmp_path):
     library's name follows its source and the shared headers."""
     assert set(kernels.SIGNATURES["mobile_block_bf16"]) == {
         "gcc_stage_fwd_bf16", "gcc_stage_bwd_pw_bf16_partials",
-        "gcc_stage_bwd_pw_bf16"}
-    assert not {"gcc_stage_fwd_bf16", "gcc_stage_bwd_pw_bf16"} & set(
+        "gcc_stage_bwd_pw_bf16", "gcc_stage_bwd_dw_bf16_partials",
+        "gcc_stage_bwd_dw_bf16", "gcc_bf16x2_probe"}
+    assert not {"gcc_stage_fwd_bf16", "gcc_stage_bwd_pw_bf16",
+                "gcc_stage_bwd_dw_bf16"} & set(
         kernels.SIGNATURES["mobile_block"])
     assert mb._LIBRARY["_bf16"] == "mobile_block_bf16"
     assert (kernels.CSRC / "mobile_block_bf16.cu").exists()
