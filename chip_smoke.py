@@ -246,11 +246,37 @@ Phases, each of which exits non-zero on failure:
               CPU in bf16 and in fp32, as phase 17 (d); (f) one cli.train
               epoch of SAGAN with default flags, which logs bfloat16 and
               launches only B1's bf16 entry points.
+ 19. serve    the serving export (utils/serve_export.py, cli.export): (a)
+              phase 9's pruned U-Net student (the engine's seeded init
+              weights: phase 9's spread weights put every output pixel at
+              +-1, which the phase prints) written as a checkpoint and
+              exported by the CLI in this process in fp32, bf16 and bf16
+              with int8 weights (the CLI checks fp32 on cpu and cuda, the
+              others on cuda):
+              export seconds, MB, the symbolic batch served at 1, 3 and 8,
+              the artifact against engine.generate in its dtype (fp32 within
+              1e-5 under exact_fp32; bf16 no farther from the fp32 generate,
+              in rms, than twice the bf16 generate; int8 >= 45 dB against
+              the bf16 generate), images/s at batch 1 and 8 of the artifact
+              and of generate (CUDA events); (b) phase 4's fused resnet
+              student and phase 12's CycleGAN (both directions), (c) phase
+              7's SAGAN student (gammas non-zero) and phase 14's SRGAN
+              student: export_generator in fp32 and bf16 against generate
+              (fp32 within 1e-3 where generate runs B2 or B1, phases 5's and
+              8's bound, else 1e-5; bf16 by (a)'s rule), B2's or B1's
+              forward launched by generate and nothing by the artifact, ms
+              at batch 1 each way; (d) a U-Net artifact run on the
+              card by a fresh python -I process that cannot import
+              gcc_tpu_torch (the int8 one), and one traced on the
+              CPU by the CLI
+              (--gpu_ids -1) moved to the card by load_exported, each within
+              1e-5 of the artifact traced on the card.
 Phases 1-16 run fp32 (phases 7, 8, 12 and 14 on fp32 batches; phases 11 and
 16 pass --compute_dtype float32): TF32 is off for cuDNN and matmul, except
-in phase 15 (g). The last eight lines are phase 11's JSON record of its
-stages, phase 15's, phase 16's, phase 17's, phase 18's, the card's name and
-power limit, the kernels' JSON record and {"ok": true, "device": ...}. A
+in phase 15 (g). The last nine lines are phase 11's JSON record of its
+stages, phase 15's, phase 16's, phase 17's, phase 18's, phase 19's, the
+card's name and power limit, the kernels' JSON record and {"ok": true,
+"device": ...}. A
 kernel's "launches" is the main path's count (phase 4 for B2, phase 7 for
 B1, phase 17 (c) for B2's bf16 entry points, phase 18 (b) for B1's);
 "launches_by_path" adds phase 12's for B2, phase 16 (c)'s cached runs and
@@ -2196,16 +2222,29 @@ def random_vgg19(np):
     return load_torch_vgg19(sd)
 
 
+def srgan_student(np):
+    """Phase 14's student: SRResNet(ngf 24) pruned by the port's
+    prune_srresnet(mode="scale") from spread weights to SRGAN_BUDGET GMACs
+    at SRGAN_HR / 4 px; (filter_cfgs, GMACs)."""
+    from gcc_tpu_torch.compress import prune_srresnet
+    from gcc_tpu_torch.models.generators import SRResNet
+    from gcc_tpu_torch.utils.weights import export_jax_variables
+
+    w = SRGAN_WIDTHS
+    tree = export_jax_variables(SRResNet(w["ngf"]))["params"]
+    return prune_srresnet(spread_tree(np, tree, np.random.RandomState(0)),
+                          mode="scale", n_channels=w["ngf"],
+                          target_budget_g=SRGAN_BUDGET, tolerance_g=0.01,
+                          lr_size=SRGAN_HR // 4)
+
+
 def phase_srgan(torch, np, dtype=None, record=None):
     """Phase 14 (and phase 18 (d) with dtype bfloat16: the batches cast to
     it, generate on the fp32 batch, as the epoch-end eval runs)."""
-    from gcc_tpu_torch.compress import prune_srresnet
     from gcc_tpu_torch.config import Config
     from gcc_tpu_torch.engines.srgan import SRGANEngine
-    from gcc_tpu_torch.models.generators import SRResNet
     from gcc_tpu_torch.ops import flash_attention as fa
     from gcc_tpu_torch.ops import mobile_block as mb
-    from gcc_tpu_torch.utils.weights import export_jax_variables
 
     hr, batch, w = SRGAN_HR, SRGAN_BATCH, SRGAN_WIDTHS
     lr_size = hr // 4
@@ -2216,11 +2255,7 @@ def phase_srgan(torch, np, dtype=None, record=None):
           f"{w['ndf']} masked, content 0.1, gram 0.1; VGG19 perceptual term "
           f"on SEEDED RANDOM weights (not the pretrained ones), "
           f"lambda_SR_perceptual 1; 1 warm-up + {N_TIMED} timed")
-    tree = export_jax_variables(SRResNet(w["ngf"]))["params"]
-    fc, gmacs = prune_srresnet(spread_tree(np, tree, np.random.RandomState(0)),
-                               mode="scale", n_channels=w["ngf"],
-                               target_budget_g=SRGAN_BUDGET, tolerance_g=0.01,
-                               lr_size=lr_size)
+    fc, gmacs = srgan_student(np)
     print(f"  student pruned by prune_srresnet(mode='scale') from spread "
           f"weights: filter_cfgs {fc}, {gmacs:.4f} GMACs")
     cfg = Config(model="srgan", gan_mode="vanilla", image_size=hr,
@@ -3972,6 +4007,373 @@ def phase_bf16_families(torch, np, F, ptxas):
 
 
 
+# phase 19: the batches the U-Net artifact serves (one symbolic export), the
+# batches timed for images/s, and the batches of the other generators'
+# comparisons; the bf16 rule: an artifact no farther from the fp32 generate,
+# in rms, than SERVE_BF16_RMS times the engine's own bf16 generate
+SERVE_BATCHES, SERVE_TIMED, SERVE_CHECK = (1, 3, 8), (1, 8), 2
+SERVE_BF16_RMS = 2.0
+SERVE_INT8_DB = 45.0  # int8 artifact against the bf16 generate
+# fp32 artifact against generate: 1e-5 where generate runs no kernel (cuDNN
+# both ways under exact_fp32); phases 5's and 8's kernel-against-plain-route
+# bound where generate runs B2 or B1
+SERVE_FP32_TOL = {"unet": 1e-5, "resnet": 1e-3, "cyclegan": 1e-3,
+                  "sagan": 1e-3, "srgan": 1e-5}
+SERVE_LOADER = """
+import importlib.util, sys
+for m in ("gcc_tpu_torch", "gcc_tpu"):
+    assert importlib.util.find_spec(m) is None, m
+    sys.modules[m] = None
+import numpy as np, torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+x = torch.from_numpy(np.load(sys.argv[2])).to(sys.argv[4],
+                                               getattr(torch, sys.argv[5]))
+with torch.no_grad():
+    y = torch.export.load(sys.argv[1]).module()(x)
+np.save(sys.argv[3], y.float().cpu().numpy())
+print(y.device, torch.cuda.get_device_name(0) if y.is_cuda else "")
+"""
+
+
+def rms(a):
+    return float(a.detach().double().pow(2).mean().sqrt())
+
+
+def psnr(a, b):
+    """dB of b against a, for images in [-1, 1]."""
+    mse = float((a.detach().double() - b.detach().double()).pow(2).mean())
+    return math.inf if mse == 0 else 10 * math.log10(4.0 / mse)
+
+
+def launched(torch, counters, fn):
+    """fn() under no_grad and the kernel launches it made, the counters set
+    to 0 just before and read just after."""
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    with torch.no_grad():
+        out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for c in counters for k, v in c.items() if v}
+
+
+def serve_images_per_s(torch, fn, b):
+    with torch.no_grad():
+        return b / (cuda_ms(torch, fn, n=10, warmup=2) / 1e3)
+
+
+def bf16_rule(what, art, gen, ref32, rec):
+    """The bf16 artifact no farther from the fp32 generate, in rms, than
+    SERVE_BF16_RMS times the engine's own bf16 generate."""
+    got, own = rms(art.float() - ref32), rms(gen.float() - ref32)
+    rec.update({"rms_to_fp32": got, "generate_bf16_rms_to_fp32": own,
+                "rms_ratio": got / own if own else math.inf})
+    print(f"    {what}: rms to the fp32 generate {got:.4g}, the bf16 "
+          f"generate's {own:.4g} (ratio {got / own if own else math.inf:.3f}"
+          f", bound {SERVE_BF16_RMS})")
+    if not got <= SERVE_BF16_RMS * own:
+        fail(f"phase 19 {what}: bf16 artifact {got} from the fp32 generate, "
+             f"the bf16 generate {own}")
+
+
+def serve_family(torch, name, engine, state, x, counters, kernels, rec,
+                 direction=None):
+    """Phase 19 (b), (c): the generator's artifact (export_generator) in
+    fp32 and bf16 against engine.generate on x, the kernels' launches
+    around each call (``kernels``: the wrapper counted in each dtype's
+    generate, None where generate runs none), ms at batch 1 each way."""
+    from gcc_tpu_torch.device import exact_fp32
+    from gcc_tpu_torch.utils import serve_export as sx
+
+    kw = {} if direction is None else {"direction": direction}
+    label = name if direction is None else f"{name} {direction}"
+    with exact_fp32():
+        ref32 = launched(torch, counters,
+                         lambda: engine.generate(state, x, **kw))[0]
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).replace("torch.", "")
+        t0 = time.perf_counter()
+        ep = sx.export_generator(engine, state, (1,) + tuple(x.shape[1:]),
+                                 direction=direction or "AtoB", dtype=dtype)
+        export_s = time.perf_counter() - t0
+        art, xd, x1 = ep.module(), x.to(dtype), x[:1].to(dtype)
+        with exact_fp32(), torch.no_grad():
+            got, l_art = launched(torch, counters, lambda: art(xd))
+            gen, l_gen = launched(torch, counters,
+                                  lambda: engine.generate(state, xd, **kw))
+            ms_art = cuda_ms(torch, lambda: art(x1), n=10, warmup=2)
+            ms_gen = cuda_ms(torch, lambda: engine.generate(state, x1, **kw),
+                             n=10, warmup=2)
+        r = {"export_s": export_s, "artifact_ms_b1": ms_art,
+             "generate_ms_b1": ms_gen, "artifact_launches": l_art,
+             "generate_launches": l_gen}
+        want = kernels and kernels[dtype]
+        print(f"  {label} {dt}: export {export_s:.2f} s; batch 1 artifact "
+              f"{ms_art:.4f} ms, generate {ms_gen:.4f} ms; launches: "
+              f"artifact {l_art}, generate {l_gen}")
+        if l_art or (want and not l_gen.get(want)) \
+                or (not want and l_gen):
+            fail(f"phase 19 {label} {dt}: launches artifact {l_art}, "
+                 f"generate {l_gen}, expected {want} in generate only")
+        if tuple(got.shape) != tuple(gen.shape) \
+                or not bool(torch.isfinite(got).all()):
+            fail(f"phase 19 {label} {dt}: artifact output "
+                 f"{tuple(got.shape)} or not finite")
+        if dtype == torch.float32:
+            err, tol = max_err(got, gen), SERVE_FP32_TOL[name]
+            r["max_abs_err"] = err
+            print(f"    {label} fp32: max|artifact - generate| {err:.3e} "
+                  f"(bound {tol})")
+            if not err <= tol:
+                fail(f"phase 19 {label} fp32: artifact {err} from generate")
+        else:
+            r["max_abs_err"] = max_err(got.float(), gen.float())
+            bf16_rule(f"{label} bf16", got, gen, ref32, r)
+        rec[f"{label} {dt}"] = r
+
+
+def serve_unet(torch, np, tmp, counters, rec):
+    """Phase 19 (a) and (d): phase 9's pruned U-Net student through
+    python -m gcc_tpu_torch.cli.export (in this process) in fp32, bf16 and
+    bf16 with int8 weights; a fresh python -I process that cannot import
+    gcc_tpu_torch runs the fp32 artifact on the card; the CLI on the CPU
+    (--gpu_ids -1) traces one that load_exported moves to the card."""
+    import copy
+
+    from gcc_tpu_torch.cli import export
+    from gcc_tpu_torch.device import exact_fp32
+    from gcc_tpu_torch.utils import serve_export as sx
+    from gcc_tpu_torch.utils.checkpoint import save_checkpoint
+    from gcc_tpu_torch.utils.weights import (export_jax_variables,
+                                             load_jax_variables)
+
+    engine, cfg = unet_engine(torch, np, max(SERVE_BATCHES))
+    state = engine.init_state(seed=0)
+    net = state.nets["g"]
+    tree = export_jax_variables(net)
+    ckpt = os.path.join(tmp, "unet_student.ckpt")
+    save_checkpoint(ckpt, {"G": tree, "D": None, "epoch": 1,
+                           "cfg": (engine.filter_cfgs, engine.channel_cfgs),
+                           "fid": None})
+    size = cfg.crop_size
+    gen = torch.Generator().manual_seed(19)
+    x = (torch.rand(max(SERVE_BATCHES), 3, size, size, generator=gen) * 2
+         - 1).to(engine.device)
+    # phase 9's spread weights (prune_unet's input) drive the eval-mode
+    # output to +-1 (BatchNorm's running statistics 0 and 1 do not
+    # renormalize them), which would hide any error: the checkpoint holds
+    # the engine's seeded init weights
+    spread = dict(tree, params=spread_tree(np, tree["params"],
+                                           np.random.RandomState(0)))
+    probe = copy.deepcopy(net)
+    load_jax_variables(probe, spread)
+    with torch.no_grad():
+        sat = float((probe.eval()(x[:1])[0].abs() > 0.999).float().mean())
+        sat_init = float((engine.generate(state, x[:1]).abs() > 0.999)
+                         .float().mean())
+    del probe
+    print(f"  (a) U-Net student {engine.filter_cfgs}: share of output "
+          f"pixels at +-1 (|y| > 0.999): {sat:.4f} with phase 9's spread "
+          f"weights, {sat_init:.4f} with the seeded init weights the "
+          f"checkpoint holds")
+    rec["unet saturated share"] = {"spread": sat, "init": sat_init}
+    with exact_fp32():
+        ref = {torch.float32: engine.generate(state, x),
+               torch.bfloat16: engine.generate(state, x.to(torch.bfloat16))}
+    base = ["--model", "pix2pix", "--dataroot", "unused", "--name", "serve",
+            "--checkpoints_dir", tmp, "--pretrain_path", ckpt, "--ngf",
+            str(cfg.ngf), "--num_downs", str(cfg.num_downs), "--crop_size",
+            str(size), "--load_size", str(size)]
+    paths = {}
+    # the default --platforms cpu,cuda once; (d) checks the CPU again
+    for mode, flags in (("fp32", []),
+                        ("bf16", ["--serve_dtype", "bfloat16",
+                                  "--platforms", "cuda"]),
+                        ("int8", ["--serve_dtype", "bfloat16",
+                                  "--quantize", "int8",
+                                  "--platforms", "cuda"])):
+        out_dir = os.path.join(tmp, f"serving_{mode}")
+        t0 = time.perf_counter()
+        export.main(base + flags + ["--output_dir", out_dir])
+        export_s = time.perf_counter() - t0
+        path = os.path.join(out_dir, "pix2pix_G"
+                            + ("_int8" if mode == "int8" else "") + ".pt2")
+        paths[mode] = path
+        dtype = torch.float32 if mode == "fp32" else torch.bfloat16
+        art = sx.load_exported(path, engine.device)
+        r = {"export_s": export_s, "mb": os.path.getsize(path) / 1e6}
+        with exact_fp32():
+            for b in SERVE_BATCHES:
+                y, l_art = launched(torch, counters,
+                                    lambda: art(x[:b].to(dtype)))
+                if tuple(y.shape) != (b, 3, size, size) or l_art \
+                        or not bool(torch.isfinite(y).all()):
+                    fail(f"phase 19 (a) {mode} at batch {b}: "
+                         f"{tuple(y.shape)}, launches {l_art}, or not finite")
+            r["max_abs_err"] = max_err(y.float(), ref[dtype].float())
+            if mode == "fp32":
+                if not r["max_abs_err"] <= SERVE_FP32_TOL["unet"]:
+                    fail(f"phase 19 (a) fp32: {r['max_abs_err']} from "
+                         f"generate")
+            elif mode == "bf16":
+                bf16_rule("(a) U-Net bf16", y, ref[dtype],
+                          ref[torch.float32], r)
+            else:
+                r["psnr_db"] = psnr(ref[dtype].float(), y.float())
+                if not r["psnr_db"] >= SERVE_INT8_DB:
+                    fail(f"phase 19 (a) int8: {r['psnr_db']} dB against "
+                         f"the bf16 generate")
+            for b in SERVE_TIMED:
+                xb = x[:b].to(dtype)
+                r[f"artifact_images_per_s_b{b}"] = serve_images_per_s(
+                    torch, lambda: art(xb), b)
+                r[f"generate_images_per_s_b{b}"] = serve_images_per_s(
+                    torch, lambda: engine.generate(state, xb), b)
+            if mode == "fp32":  # where the artifact's time goes
+                for who, fn in (("artifact", lambda: art(xb)),
+                                ("generate",
+                                 lambda: engine.generate(state, xb))):
+                    with torch.no_grad():
+                        ks, wall_us = device_kernels(torch, fn)
+                    ks.sort(key=lambda k: -k[1])
+                    r[f"{who}_profile_b{b}"] = {
+                        "wall_ms": wall_us / 1e3,
+                        "device_ms": sum(k[1] for k in ks) / 1e3,
+                        "launches": sum(k[2] for k in ks),
+                        "top": [(short_name(k[0]), round(k[1] / 1e3, 4), k[2])
+                                for k in ks[:4]]}
+                    print(f"    (a) fp32 {who} at batch {b} under the "
+                          f"profiler: {r[f'{who}_profile_b{b}']}")
+        print(f"  (a) {mode}: export {export_s:.2f} s (the CLI, its load "
+              f"and call on cpu and cuda included), {r['mb']:.3f} MB; "
+              f"served at batches {SERVE_BATCHES}; max|artifact - generate "
+              f"{str(dtype).replace('torch.', '')}| {r['max_abs_err']:.3e}"
+              + (f", PSNR {r['psnr_db']:.2f} dB" if "psnr_db" in r else "")
+              + "; images/s " + ", ".join(
+                  f"batch {b}: artifact {r[f'artifact_images_per_s_b{b}']:.1f}"
+                  f" generate {r[f'generate_images_per_s_b{b}']:.1f}"
+                  for b in SERVE_TIMED))
+        rec[f"unet {mode}"] = r
+
+    # (d) a fresh interpreter that cannot import the port runs the int8
+    # artifact (the smallest file), after this process's call of it
+    xin = os.path.join(tmp, "serve_x.npy")
+    yout = os.path.join(tmp, "serve_y.npy")
+    xq = x[:SERVE_CHECK].to(torch.bfloat16)
+    np.save(xin, xq.float().cpu().numpy())
+    with torch.no_grad():
+        here = sx.load_exported(paths["int8"], engine.device)(xq)
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-I", "-c", SERVE_LOADER,
+                           paths["int8"], xin, yout, engine.device.type,
+                           "bfloat16"],
+                          cwd=tmp, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.perf_counter() - t0
+    if done.returncode != 0:
+        fail(f"phase 19 (d) python -I: {done.stderr[-2000:]}")
+    err = max_err(torch.from_numpy(np.load(yout)).to(here.device),
+                  here.float())
+    print(f"  (d) python -I without gcc_tpu_torch on "
+          f"{done.stdout.strip()}: {seconds:.2f} s, int8 artifact max|d| "
+          f"{err:.3e} from this process's call")
+    if not err <= 1e-5:
+        fail(f"phase 19 (d) python -I: {err}")
+    rec["python -I"] = {"seconds": seconds, "max_abs_err": err}
+    with exact_fp32(), torch.no_grad():
+        here = sx.load_exported(paths["fp32"], engine.device)(
+            x[:SERVE_CHECK])
+    # (d) traced on the CPU by the CLI, moved to the card
+    out_dir = os.path.join(tmp, "serving_cpu")
+    t0 = time.perf_counter()
+    export.main(base + ["--gpu_ids", "-1", "--output_dir", out_dir])
+    cpu_s = time.perf_counter() - t0
+    moved = sx.load_exported(os.path.join(out_dir, "pix2pix_G.pt2"), "cuda")
+    with exact_fp32(), torch.no_grad():
+        err = max_err(moved(x[:SERVE_CHECK]), here)
+    print(f"  (d) traced on the CPU ({cpu_s:.2f} s with its checks on cpu "
+          f"and cuda), moved by load_exported(path, 'cuda'): max|d| "
+          f"{err:.3e} from the artifact traced on the card")
+    if not err <= 1e-5:
+        fail(f"phase 19 (d) CPU-traced artifact on the card: {err}")
+    rec["cpu traced"] = {"export_s": cpu_s, "max_abs_err": err}
+
+
+def serve_kernel_paths(torch, np, counters, rec):
+    """Phase 19 (b) and (c): the generators whose generate runs B2 or B1,
+    and SRGAN's, at their phases' full widths."""
+    from gcc_tpu_torch.compress import cyclegan_reference_cfgs
+    from gcc_tpu_torch.config import Config
+    from gcc_tpu_torch.engines.cyclegan import CycleGANEngine
+    from gcc_tpu_torch.engines.pix2pix import Pix2PixEngine
+    from gcc_tpu_torch.engines.sagan import SAGANEngine
+    from gcc_tpu_torch.engines.srgan import SRGANEngine
+    from gcc_tpu_torch.ops.attention import SelfAttention
+
+    rng = np.random.RandomState(19)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
+
+    def images(b, size):
+        return torch.from_numpy((rng.rand(b, 3, size, size) * 2 - 1).astype(
+            np.float32)).cuda()
+
+    b2 = {torch.float32: "stage_fwd", torch.bfloat16: "stage_fwd_bf16"}
+    b1 = {torch.float32: "attn_fwd", torch.bfloat16: "attn_fwd_bf16"}
+    # (b) phase 4's fused pix2pix resnet student, phase 12's CycleGAN
+    cfg = main_config(Config, ngf=24, ndf=128, teacher_ngf=64,
+                      teacher_ndf=128, crop_size=256, batch_size=4)
+    engine = Pix2PixEngine(cfg, filter_cfgs=STUDENT_CFG)
+    serve_family(torch, "resnet", engine, engine.init_state(seed=0),
+                 images(SERVE_CHECK, 256), counters, b2, rec)
+    cfg_a, cfg_b = cyclegan_reference_cfgs()
+    cfg = cyclegan_config(Config, crop_size=CYCLEGAN_SIZE,
+                          load_size=CYCLEGAN_SIZE, **CYCLEGAN_WIDTHS)
+    engine = CycleGANEngine(cfg, cfg_AtoB=cfg_a, cfg_BtoA=cfg_b)
+    state = engine.init_state(seed=0)
+    x = images(SERVE_CHECK, CYCLEGAN_SIZE)
+    for direction in ("AtoB", "BtoA"):
+        serve_family(torch, "cyclegan", engine, state, x, counters, b2, rec,
+                     direction)
+    # (c) phase 7's SAGAN (B1 at N 1024; gammas non-zero, as phase 8's),
+    # phase 14's SRGAN
+    cfg = sagan_config(Config, ngf=48, ndf=64, teacher_ngf=64,
+                       teacher_ndf=64, z_dim=128, batch_size=64)
+    engine = SAGANEngine(cfg, filter_cfgs=SAGAN_STUDENT_CFG)
+    state = engine.init_state(seed=0)
+    for name, mod in state.nets["g"].named_modules():
+        if isinstance(mod, SelfAttention):
+            mod.gamma.data.fill_(0.5 if name == "attn1" else -0.3)
+    serve_family(torch, "sagan", engine, state, normal(8, cfg.z_dim),
+                 counters, b1, rec)
+    cfg = Config(model="srgan", image_size=SRGAN_HR, **SRGAN_WIDTHS)
+    engine = SRGANEngine(cfg, filter_cfgs=srgan_student(np)[0])
+    lr_size = SRGAN_HR // 4
+    serve_family(torch, "srgan", engine, engine.init_state(seed=0),
+                 normal(4, 3, lr_size, lr_size), counters, None, rec)
+
+
+def phase_serve_export(torch, np):
+    """Phase 19: the serving export on the card (module docstring)."""
+    import tempfile
+
+    from gcc_tpu_torch.ops import flash_attention as fa
+    from gcc_tpu_torch.ops import mobile_block as mb
+
+    t_phase = time.perf_counter()
+    print("== phase 19: serving export (gcc_tpu_torch.cli.export, "
+          "utils/serve_export.py) on the card")
+    counters, rec = (mb.LAUNCHES, fa.LAUNCHES), {}
+    with tempfile.TemporaryDirectory() as tmp:
+        serve_unet(torch, np, tmp, counters, rec)
+    serve_kernel_paths(torch, np, counters, rec)
+    rec["seconds"] = round(time.perf_counter() - t_phase, 3)
+    print(f"  phase 19 took {rec['seconds']} s")
+    return rec
+
+
 def main():
     import numpy as np
     import torch
@@ -4065,6 +4467,7 @@ def main():
         by_path[k] = {"sagan bf16": sagan_bf16[k]}
     for k in PER_ITER_BF16:
         by_path[k]["cyclegan bf16"] = cg_bf16[k]
+    serve = phase_serve_export(torch, np)
 
     entries = []
     for k, rec in record.items():
@@ -4094,6 +4497,7 @@ def main():
     print(json.dumps({"pipeline": pipeline}))
     print(json.dumps({"bf16": bf16}))
     print(json.dumps({"bf16_families": families}))
+    print(json.dumps({"serve_export": serve}))
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

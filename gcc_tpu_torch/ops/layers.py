@@ -50,7 +50,7 @@ class Conv(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dtype == self.weight.dtype:
+        if full_precision(x, self.weight):
             return F.conv2d(x, self.weight, self.bias, self.stride,
                             self.padding, groups=self.groups)
         return add_bias(F.conv2d(x, self.weight.to(x.dtype), None,
@@ -75,7 +75,7 @@ class ConvTranspose(nn.Module):
     reset_parameters = Conv.reset_parameters
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dtype == self.weight.dtype:
+        if full_precision(x, self.weight):
             return F.conv_transpose2d(x, self.weight, self.bias, self.stride,
                                       self.padding, self.output_padding)
         return add_bias(F.conv_transpose2d(
@@ -130,14 +130,28 @@ class BatchNorm(nn.Module):
                         var.detach() * unbias, alpha=self.momentum)
         else:
             mean, var = self.running_mean, self.running_var
-        inv = torch.rsqrt(var + self.eps) * self.weight
+        # fp32 also where the net was cast below it (a bf16 serving artifact,
+        # utils/serve_export.py), as XLA folds the JAX layer's constants; a
+        # no-op on the engines' fp32 tensors
+        mean, var = mean.float(), var.float()
+        inv = torch.rsqrt(var + self.eps) * self.weight.float()
         return ((xf - mean[None, :, None, None]) * inv[None, :, None, None]
-                + self.bias[None, :, None, None]).to(x.dtype)
+                + self.bias.float()[None, :, None, None]).to(x.dtype)
+
+
+def full_precision(x: torch.Tensor, weight: torch.Tensor) -> bool:
+    """Whether a conv of x and weight takes its bias inside the library
+    call: both in fp32 (or wider). Below fp32 the output is rounded before
+    its bias is added (``add_bias``), as in the JAX layers, also where the
+    weights themselves were cast (a bf16 serving artifact,
+    utils/serve_export.py)."""
+    return x.dtype == weight.dtype and x.element_size() >= 4
 
 
 def add_bias(y: torch.Tensor, bias) -> torch.Tensor:
-    """A low-precision conv output plus its fp32 bias, rounded once to the
-    output's dtype (torch would otherwise promote the sum to fp32)."""
+    """A low-precision conv output plus its bias, rounded once to the
+    output's dtype (torch would otherwise promote the sum with an fp32 bias
+    to fp32; a bias cast to the output's dtype is added in it)."""
     return y if bias is None else (y + bias[None, :, None, None]).to(y.dtype)
 
 

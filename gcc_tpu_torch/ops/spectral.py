@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from gcc_tpu_torch.ops.layers import Conv, ConvTranspose
+from gcc_tpu_torch.ops.layers import Conv, ConvTranspose, full_precision
 
 EPS = 1e-12
 
@@ -49,15 +49,19 @@ class SpectralNormed:
             self.v.copy_(_l2n(torch.randn(self.v.shape, generator=generator)))
 
     def normalized_weight(self, update_stats: bool) -> torch.Tensor:
+        """w / sigma, the power iteration and sigma in fp32 and sigma
+        rounded to the weight's dtype (spectral.py:41-67): a no-op on the
+        engines' fp32 weights, the JAX layer's rounding on a net cast to
+        bf16 (a serving artifact, utils/serve_export.py)."""
         w = self.weight
-        wm = w.permute(0, 2, 3, 1).reshape(w.shape[0], -1)  # JAX order
-        with torch.no_grad():
-            v = _l2n(wm.t() @ self.u)
+        wm = w.float().permute(0, 2, 3, 1).reshape(w.shape[0], -1)
+        with torch.no_grad():  # the JAX matricization's order
+            v = _l2n(wm.t() @ self.u.float())
             u = _l2n(wm @ v)
             if self.training and update_stats:
                 self.u.copy_(u)
                 self.v.copy_(v)
-        return w / (u @ (wm @ v))
+        return w / (u @ (wm @ v)).to(w.dtype)
 
     def _low_precision(self, y: torch.Tensor) -> torch.Tensor:
         """A conv output below fp32 plus the bias rounded to its dtype."""
@@ -82,7 +86,7 @@ class SpectralConv(SpectralNormed, Conv):
     def forward(self, x: torch.Tensor, update_stats: bool = True
                 ) -> torch.Tensor:
         w = self.normalized_weight(update_stats)
-        if x.dtype == w.dtype:
+        if full_precision(x, w):
             return F.conv2d(x, w, self.bias, self.stride, self.padding)
         return self._low_precision(F.conv2d(x, w.to(x.dtype), None,
                                             self.stride, self.padding))
@@ -104,7 +108,7 @@ class SpectralConvTranspose(SpectralNormed, ConvTranspose):
     def forward(self, x: torch.Tensor, update_stats: bool = True
                 ) -> torch.Tensor:
         w = self.normalized_weight(update_stats)
-        if x.dtype == w.dtype:
+        if full_precision(x, w):
             return F.conv_transpose2d(x, w, self.bias, self.stride,
                                       self.padding)
         return self._low_precision(F.conv_transpose2d(

@@ -130,6 +130,27 @@ def test_sagan_engine_without_device_needs_cuda():
     assert normal.distill and not normal.online
 
 
+def test_export_cli_device_from_run_device(tmp_path, monkeypatch):
+    """cli.export takes its device from cli.train's run_device, as the
+    other entry points do: --gpu_ids 0 without a card raises (no silent
+    CPU path), and the device it traces on is run_device's."""
+    from gcc_tpu_torch.cli import export, train
+    argv = ["--platforms", "cpu", "--model", "pix2pix", "--dataroot",
+            str(tmp_path), "--checkpoints_dir", str(tmp_path), "--name", "e"]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            export.main(argv + ["--gpu_ids", "0"])
+    seen = []
+
+    def spy(cfg, device=None):
+        seen.append(cfg.gpu_ids)
+        raise KeyboardInterrupt  # stop before the checkpoint is read
+    monkeypatch.setattr(train, "run_device", spy)
+    with pytest.raises(KeyboardInterrupt):
+        export.main(argv + ["--gpu_ids", "-1"])
+    assert seen == ["-1"]
+
+
 def test_unet_backbone_not_in_this_slice():
     """The U-Net backbone (the default) came with a later slice: the engine
     builds it on the CPU, student and teacher."""
