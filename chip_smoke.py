@@ -271,16 +271,33 @@ Phases, each of which exits non-zero on failure:
               CPU by the CLI
               (--gpu_ids -1) moved to the card by load_exported, each within
               1e-5 of the artifact traced on the card.
+ 20. dp       data-parallel training (parallel/mesh.py): (a) phase 17
+              (c)'s pix2pix resnet iteration in bf16 through the DP path at
+              W = 1 on NCCL, in turns with the engine without a mesh on the
+              same batches: ms an iteration each way and the DP path's
+              overhead, the bytes and calls it all-reduces an iteration,
+              B2's bf16 launches (108/36/36 an iteration, either way), the
+              first iteration's losses within 1e-2 relative; (b) 2 Gloo
+              ranks on the one card (NCCL refuses two ranks on one card)
+              against 1 process at the same global batch, 2 iterations of
+              SAGAN (B1 at N 1024) and of CycleGAN at 80 px (B2, replay
+              pools of 4): tests/test_torch_parallel.py's bounds and the
+              first update's gradients within 1e-4 rms relative, each at its
+              bound or at twice the card's floor where that is above it
+              (the 1-process run again, by the plain route and, SAGAN, on
+              its rows reversed or rolled, against the first), the ranks'
+              states bit for bit equal, B1 or B2
+              launched by every kernel run and by none of the plain ones.
 Phases 1-16 run fp32 (phases 7, 8, 12 and 14 on fp32 batches; phases 11 and
 16 pass --compute_dtype float32): TF32 is off for cuDNN and matmul, except
-in phase 15 (g). The last nine lines are phase 11's JSON record of its
-stages, phase 15's, phase 16's, phase 17's, phase 18's, phase 19's, the
-card's name and power limit, the kernels' JSON record and {"ok": true,
-"device": ...}. A
+in phase 15 (g). The last ten lines are phase 11's JSON record of its
+stages, phase 15's, phase 16's, phase 17's, phase 18's, phase 19's, phase
+20's, the card's name and power limit, the kernels' JSON record and {"ok":
+true, "device": ...}. A
 kernel's "launches" is the main path's count (phase 4 for B2, phase 7 for
 B1, phase 17 (c) for B2's bf16 entry points, phase 18 (b) for B1's);
 "launches_by_path" adds phase 12's for B2, phase 16 (c)'s cached runs and
-phase 18 (c)'s for B2 in bf16.
+phase 18 (c)'s for B2 in bf16, and phase 20 (a)'s DP iteration's.
 """
 
 import ast
@@ -4373,6 +4390,403 @@ def phase_serve_export(torch, np):
     print(f"  phase 19 took {rec['seconds']} s")
     return rec
 
+# phase 20: data-parallel training (gcc_tpu_torch/parallel/mesh.py). (a)
+# phase 17 (c)'s pix2pix resnet iteration in bf16 (fused blocks, batch 4)
+# through the DP path at W = 1 on NCCL, in turns with the same engine
+# without a mesh on the same batches; (b) 2 Gloo ranks on the one card (NCCL
+# refuses two ranks on one card) against 1 process over the same global
+# batch, 2 iterations each: SAGAN with B1 (attn2 at N 1024) and CycleGAN
+# with B2 (80 px) and replay pools, at tests/test_torch_parallel.py's bounds
+# or, where the card's own floor is above them, at twice that floor: the
+# 1-process run again, by the plain route, and (without pools) on its rows
+# reversed or rolled, each against the first, measured in the same phase
+# (dp_ranks). The CPU tests' bounds assume the
+# per-sample arithmetic of one process at one thread, the same at any
+# batch; on the card it depends on the batch (cuDNN's algorithms, the
+# kernels' grids), and Adam's first steps move a parameter +-lr by the sign
+# of its gradient even where that gradient is at noise level
+DP_TIMED = 3
+DP_LOSS_RTOL = 1e-2  # (a): the first iteration's losses, DP against plain
+DP_GRAD_RTOL = 1e-4  # (b): first-update gradients, rms relative by update
+# tests/test_torch_parallel.py's SAGAN and CycleGAN, CycleGAN at 80 px, where
+# the fused blocks' gate opens (their bounds are set at these widths: at
+# ngf 16 two thread counts of one process already move SAGAN's spectral
+# vectors 4x past theirs, through Adam's sign steps)
+DP_FAMILIES = {
+    "sagan": dict(model="sagan", ngf=4, ndf=4, teacher_ngf=8, teacher_ndf=8,
+                  crop_size=64, z_dim=16, gan_mode="hinge",
+                  online_distillation=True, darts_discriminator=True,
+                  lambda_content=1.0, lambda_gram=1.0, lr=2e-4,
+                  arch_lr=1e-4),
+    "cyclegan": dict(model="cyclegan", ngf=4, ndf=4, teacher_ngf=4,
+                     teacher_ndf=4, crop_size=80, gan_mode="lsgan",
+                     online_distillation=True, darts_discriminator=True,
+                     lambda_content=0.01, lambda_gram=10.0, pool_size=4,
+                     fused_resblock="on", lr=2e-4, arch_lr=1e-4),
+}
+DP_BATCH = {"sagan": 4, "cyclegan": 4}  # global batches
+
+
+def dp_turn(torch, engine, batches, mesh, counters):
+    """One run of the engine over the batches (the first pair a warm-up),
+    the counters set to 0 just before and read by iteration: ms, losses,
+    B2 launches and the bytes the mesh reduced, by iteration."""
+    state = engine.init_state(seed=0)
+    torch.cuda.synchronize()
+    for k in counters:
+        counters[k] = 0
+    out = {"ms": [], "losses": [], "launches": [], "bytes": []}
+    for i in range(len(batches) // 2):
+        before = dict(counters)
+        if mesh is not None:
+            mesh.reset_counters()
+        t0 = time.perf_counter()
+        state, m = engine.train_arch_step(state, batches[2 * i],
+                                          batches[2 * i + 1], 2e-4, 0.9)
+        torch.cuda.synchronize()
+        dt = 1e3 * (time.perf_counter() - t0)
+        if i:
+            out["ms"].append(dt)
+        out["losses"].append({k: float(v) for k, v in m.items()})
+        out["launches"].append({k: counters[k] - before[k] for k in counters
+                                if counters[k] != before[k]})
+        out["bytes"].append({} if mesh is None else dict(mesh.counters))
+    return out
+
+
+def dp_overhead(torch, np):
+    """Phase 20 (a)."""
+    from gcc_tpu_torch.config import Config
+    from gcc_tpu_torch.engines.pix2pix import Pix2PixEngine
+    from gcc_tpu_torch.ops import mobile_block as mb
+    from gcc_tpu_torch.parallel import mesh as pmesh
+
+    batch, size = 4, 256
+    print(f"  (a) phase 17 (c)'s pix2pix resnet iteration in bf16 through "
+          f"the DP path at W = 1 (NCCL) and without a mesh, in turns, "
+          f"{size}px, batch {batch}, 1 warm-up + {DP_TIMED} timed a turn")
+    cfg = main_config(Config, ngf=24, ndf=128, teacher_ngf=64,
+                      teacher_ndf=128, crop_size=size, batch_size=batch)
+    batches = _bf16_batches(torch, make_batches(
+        torch, np, 2 * (DP_TIMED + 1), batch, size, 0, "cuda"))
+    mesh = pmesh.init_distributed(
+        0, 1, f"tcp://127.0.0.1:{pmesh.free_port()}", "cuda:0")
+    if mesh.group is None or torch.distributed.get_backend() != "nccl":
+        fail("phase 20 (a): the W = 1 mesh is not NCCL")
+    runs = {"plain": [], "dp": []}
+    try:
+        cost = collective_cost(torch, mesh)
+        for name in ("plain", "dp", "dp", "plain"):
+            engine = Pix2PixEngine(cfg, filter_cfgs=STUDENT_CFG,
+                                   mesh=mesh if name == "dp" else None)
+            runs[name].append(dp_turn(torch, engine, batches,
+                                      engine.mesh, mb.LAUNCHES))
+            del engine
+            torch.cuda.empty_cache()
+    finally:
+        pmesh.shutdown()
+    for name, turns in runs.items():
+        for t in turns:
+            for i, got in enumerate(t["launches"]):
+                if got != PER_ITER_BF16:
+                    fail(f"(a) {name} iteration {i}: B2 launches {got}, "
+                         f"expected {PER_ITER_BF16}")
+            for losses in t["losses"]:
+                if not all(math.isfinite(v) for v in losses.values()):
+                    fail(f"(a) {name}: non-finite losses {losses}")
+    plain0, dp0 = runs["plain"][0]["losses"][0], runs["dp"][0]["losses"][0]
+    worst = max(abs(dp0[k] - plain0[k]) / max(abs(plain0[k]), 1e-3)
+                for k in plain0)
+    if worst > DP_LOSS_RTOL:
+        fail(f"(a) first iteration: DP losses {dp0} against plain {plain0}")
+    ms = {k: float(np.mean([m for t in v for m in t["ms"]]))
+          for k, v in runs.items()}
+    per_iter = runs["dp"][0]["bytes"][1]
+    rec = {"plain_ms_per_iter": ms["plain"], "dp_ms_per_iter": ms["dp"],
+           "dp_overhead": ms["dp"] / ms["plain"] - 1.0,
+           "turn_ms": {k: [float(np.mean(t["ms"])) for t in v]
+                       for k, v in runs.items()},
+           "bytes_per_iter": per_iter["grad_bytes"] + per_iter["stat_bytes"],
+           **{f"{k}_per_iter": v for k, v in per_iter.items()},
+           "b2_launches_per_iter": runs["dp"][0]["launches"][1],
+           "first_losses_rel_diff": worst, **cost}
+    print(f"    plain {ms['plain']:.3f} ms/iteration, DP W=1 {ms['dp']:.3f} "
+          f"ms/iteration (overhead {100 * rec['dp_overhead']:.2f} %; turns "
+          f"{rec['turn_ms']}); all-reduced per iteration "
+          f"{rec['bytes_per_iter']} bytes ({per_iter['grad_calls']} gradient "
+          f"all-reduces of {per_iter['grad_bytes']} bytes, "
+          f"{per_iter['stat_calls']} statistics collectives of "
+          f"{per_iter['stat_bytes']} bytes); B2 {rec['b2_launches_per_iter']} "
+          f"an iteration; first-iteration losses within {worst:.2e} "
+          f"relative (bound {DP_LOSS_RTOL})")
+    print(f"    one NCCL all-reduce at W = 1: {cost['small_call_host_us']:.1f} "
+          f"us of host time for 4 bytes, {cost['grad_buffer_ms']:.3f} ms "
+          f"(CUDA events) for the iteration's largest gradient buffer of "
+          f"{cost['grad_buffer_bytes']} bytes")
+    return rec
+
+
+def collective_cost(torch, mesh, n=200):
+    """What one collective of the mesh costs: host us a call of a 4-byte
+    all-reduce (n calls, then a synchronize), and the CUDA-event ms of an
+    all-reduce of phase 20 (a)'s largest gradient buffer (the student G's
+    and transforms' update, fp32)."""
+    from gcc_tpu_torch.config import Config
+    from gcc_tpu_torch.engines.common import weight_params
+    from gcc_tpu_torch.engines.pix2pix import Pix2PixEngine
+
+    small = torch.ones(1, device=mesh.device)
+    for _ in range(10):
+        torch.distributed.all_reduce(small)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        torch.distributed.all_reduce(small)
+    torch.cuda.synchronize()
+    host_us = 1e6 * (time.perf_counter() - t0) / n
+    cfg = main_config(Config, ngf=24, ndf=128, teacher_ngf=64,
+                      teacher_ndf=128, crop_size=256, batch_size=4)
+    nets = Pix2PixEngine(cfg, filter_cfgs=STUDENT_CFG).build_nets()
+    numel = max(sum(p.numel() for p in ps) for ps in (
+        weight_params(nets["g"]) + weight_params(nets["tf"]),
+        weight_params(nets["tg"]), weight_params(nets["d"]),
+        weight_params(nets["td"])))
+    buf = torch.zeros(numel, device=mesh.device)
+    ms = cuda_ms(torch, lambda: torch.distributed.all_reduce(buf))
+    return {"small_call_host_us": host_us, "grad_buffer_bytes": 4 * numel,
+            "grad_buffer_ms": ms}
+
+
+def dp_batches(np, family):
+    """The 2 iterations' global (train, val) batches of a phase 20 (b)
+    family, numpy NCHW."""
+    cfg, n = DP_FAMILIES[family], DP_BATCH[family]
+    rng = np.random.RandomState(5)
+
+    def img(size):
+        return (rng.rand(n, 3, size, size) * 2 - 1).astype(np.float32)
+
+    def one():
+        if family == "sagan":
+            return {"z": rng.randn(n, cfg["z_dim"]).astype(np.float32),
+                    "real_img": img(cfg["crop_size"])}
+        return {"A": img(cfg["crop_size"]), "B": img(cfg["crop_size"])}
+
+    return [(one(), one()) for _ in range(2)]
+
+
+def dp_run(family, device, mesh=None, plain=False, order=None):
+    """A phase 20 (b) family's 2 iterations on ``device``; under ``mesh`` on
+    this rank's rows; ``plain``: without B1 and B2 (the einsum attention,
+    the unfused blocks); ``order``: the global batches' rows in that order
+    (the same batch, its sums in another order). Metrics, nets (JAX
+    layout), the state's checksum, the first update's moments and the B1/B2
+    launches counted from 0 just before."""
+    import numpy as np
+    import torch
+
+    from gcc_tpu_torch.cli.train import engine_class
+    from gcc_tpu_torch.config import Config
+    from gcc_tpu_torch.ops import flash_attention as fa
+    from gcc_tpu_torch.ops import mobile_block as mb
+    from gcc_tpu_torch.parallel import mesh as pmesh
+    from gcc_tpu_torch.utils.weights import to_jax_nets
+
+    cfg = Config(**DP_FAMILIES[family])
+    if plain:
+        cfg = cfg.replace(pallas_attn_threshold=2 ** 31,
+                          fused_resblock="off")
+    engine = engine_class(cfg.model)(cfg, device=device, mesh=mesh)
+    state = pmesh.replicate_state(engine.init_state(seed=0), mesh)
+    for counters in (mb.LAUNCHES, fa.LAUNCHES):
+        for k in counters:
+            counters[k] = 0
+    metrics, moments = [], None
+    for tb, vb in dp_batches(np, family):
+        tb, vb = ({k: torch.from_numpy(v if order is None else v[order]).to(
+            device) for k, v in b.items()} for b in (tb, vb))
+        state, m = engine.train_arch_step(
+            state, pmesh.shard_batch(tb, mesh), pmesh.shard_batch(vb, mesh),
+            cfg.lr, 0.9)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if moments is None:  # a fixed multiple of each update's gradient
+            moments = {k: np.concatenate([
+                np.ravel(a) for a in _first_moments(o.state_dict())])
+                for k, o in state.opts.items()}
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    launches = {k: v for c in (mb.LAUNCHES, fa.LAUNCHES)
+                for k, v in c.items() if v}
+    return {"metrics": metrics, "nets": to_jax_nets(state),
+            "checksum": pmesh.state_checksum(state), "launches": launches,
+            "moments": moments}
+
+
+def _first_moments(sd):
+    """An optimizer state_dict's first moments (Adam's mu; DupAdam's two)."""
+    if "mu" in sd:
+        return sd["mu"]
+    return sd["single"]["mu"] + sd["double"]["mu"]
+
+
+def dp_rank(mesh, out_dir):
+    """A phase 20 (b) rank: each family's run, pickled by rank. A new
+    process: TF32 off, as main sets it for the 1-process run."""
+    import pickle
+
+    import torch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for family in DP_FAMILIES:
+        res = dp_run(family, mesh.device, mesh)
+        with open(os.path.join(out_dir, f"{family}.{mesh.rank}.pkl"),
+                  "wb") as f:
+            pickle.dump(res, f)
+
+
+def _tree_leaves(tree, prefix=""):
+    if not isinstance(tree, dict):
+        yield prefix.rstrip("/"), tree
+        return
+    for k in sorted(tree):
+        yield from _tree_leaves(tree[k], f"{prefix}{k}/")
+
+
+def dp_agree(np, one, two, what):
+    """tests/test_torch_parallel.py's bounds, as the worst ratio of a
+    difference to its bound: losses rtol 2e-4 / atol 1e-5 (the first
+    iteration's on their own); generators' BatchNorm scale, bias and running
+    stats 2e-5 / 2e-3; spectral u, v 1e-5 / 1e-4; every other leaf atol
+    1e-3; and the first update's gradients (Adam's first moments, a fixed
+    multiple of them), rms relative by update, DP_GRAD_RTOL."""
+    worst = {}
+
+    def held(name, a, b, atol, rtol):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        r = float(np.max(np.abs(a - b) / (atol + rtol * np.abs(a))))
+        worst[name] = max(worst.get(name, 0.0), r)
+
+    for i, (a, b) in enumerate(zip(one["metrics"], two["metrics"])):
+        if set(a) != set(b):
+            fail(f"{what}: metrics {sorted(a)} against {sorted(b)}")
+        for k in a:
+            held("losses", a[k], b[k], 1e-5, 2e-4)
+            if i == 0:
+                held("first-iteration losses", a[k], b[k], 1e-5, 2e-4)
+    for net, colls in one["nets"].items():
+        for coll, tree in colls.items():
+            other = dict(_tree_leaves(two["nets"][net][coll]))
+            leaves = dict(_tree_leaves(tree))
+            norms = {p.rsplit("/", 1)[0] for p in leaves
+                     if p.endswith("/scale")}
+            for path, a in leaves.items():
+                d_side = net.lstrip("t").startswith("d")
+                if not d_side and (coll == "batch_stats"
+                                   or path.rsplit("/", 1)[0] in norms):
+                    held("generator BatchNorm", a, other[path], 2e-5, 2e-3)
+                elif coll == "spectral":
+                    held("spectral u, v", a, other[path], 1e-5, 1e-4)
+                else:
+                    held("other leaves", a, other[path], 1e-3, 0.0)
+    for k, a in one["moments"].items():
+        b = two["moments"][k]
+        den = float(np.sqrt(np.sum(np.square(a, dtype=np.float64))))
+        err = float(np.sqrt(np.sum(np.square(a - b, dtype=np.float64))))
+        worst["first-update gradients"] = max(
+            worst.get("first-update gradients", 0.0),
+            (err / den if den else 0.0) / DP_GRAD_RTOL)
+    return worst
+
+
+def dp_ranks(torch, np):
+    """Phase 20 (b)."""
+    import pickle
+    import tempfile
+
+    from gcc_tpu_torch.parallel import mesh as pmesh
+
+    print("  (b) 2 Gloo ranks on the one card against 1 process, the same "
+          f"global batch ({DP_BATCH}), 2 iterations: SAGAN (B1) and "
+          "CycleGAN (fused blocks, pools of 4)")
+    one = {f: dp_run(f, "cuda") for f in DP_FAMILIES}
+    # the card's floor: the 1-process run again (the card's convolutions
+    # need not repeat bit for bit), by the plain route (another valid
+    # arithmetic, phases 5 and 8), and, where rows are exchangeable (no
+    # replay pool, whose fill follows the rows), on the batch's rows
+    # reversed and rolled (every batch sum in another order, as the ranks
+    # sum them)
+    floor_runs = {f: {"again": dp_run(f, "cuda"),
+                      "plain route": dp_run(f, "cuda", plain=True)}
+                  for f in DP_FAMILIES}
+    for f, cfg in DP_FAMILIES.items():
+        if not cfg.get("pool_size"):
+            n = DP_BATCH[f]
+            for name, order in (("rows reversed", np.arange(n)[::-1]),
+                                ("rows rolled by 1", np.roll(np.arange(n), 1)),
+                                ("rows rolled by 2",
+                                 np.roll(np.arange(n), 2))):
+                floor_runs[f][name] = dp_run(f, "cuda", order=order)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        pmesh.spawn(dp_rank, 2, args=(tmp,), device_kind="cuda",
+                    devices=[0, 0], backend="gloo", timeout=300.0)
+        spawn_s = time.perf_counter() - t0
+        two = {f: [pickle.load(open(os.path.join(tmp, f"{f}.{r}.pkl"),
+                                    "rb")) for r in (0, 1)]
+               for f in DP_FAMILIES}
+    rec, failed = {"spawn_s": spawn_s}, []
+    for f in DP_FAMILIES:
+        r0, r1 = two[f]
+        if r0["checksum"] != r1["checksum"]:
+            failed.append(f"(b) {f}: the two ranks' states differ")
+        kernel = "attn_fwd" if f == "sagan" else "stage_fwd"
+        for who, res in (("1 process", one[f]), ("rank 0", r0),
+                         ("rank 1", r1)):
+            if not res["launches"].get(kernel):
+                failed.append(f"(b) {f} {who}: {kernel} not launched "
+                              f"({res['launches']})")
+        if floor_runs[f]["plain route"]["launches"]:
+            failed.append(f"(b) {f}: the plain run launched "
+                          f"{floor_runs[f]['plain route']['launches']}")
+        worst = {}
+        for r in (r0, r1):
+            for k, v in dp_agree(np, one[f], r, f).items():
+                worst[k] = max(worst.get(k, 0.0), v)
+        floors = {name: dp_agree(np, one[f], run, f"{f} {name}")
+                  for name, run in floor_runs[f].items()}
+        floor = {k: max(fl[k] for fl in floors.values()) for k in worst}
+        allowed = {k: max(1.0, 2.0 * floor[k]) for k in worst}
+        rec[f] = {"worst_ratio_to_bound": worst, "floors": floors,
+                  "allowed_ratio": allowed,
+                  "launches_1_process": one[f]["launches"],
+                  "launches_a_rank": r0["launches"],
+                  "ranks_bit_equal": r0["checksum"] == r1["checksum"]}
+        print(f"    {f}: difference / the CPU tests' bound, 2 ranks against "
+              f"1 process {worst}; the same for the 1-process floor runs "
+              f"{floors}; allowed "
+              f"{allowed}; launches 1 process {one[f]['launches']}, a rank "
+              f"{r0['launches']}; the ranks' states bit for bit equal: "
+              f"{rec[f]['ranks_bit_equal']}")
+        over = {k: v for k, v in worst.items() if not v <= allowed[k]}
+        if over:
+            failed.append(f"(b) {f}: 2 ranks against 1 process past the "
+                          f"bounds {over}")
+    print(f"    the two ranks took {spawn_s:.1f} s, start-up included")
+    if failed:
+        fail("; ".join(failed))
+    return rec
+
+
+def phase_dp(torch, np):
+    """Phase 20: data-parallel training (module docstring)."""
+    t_phase = time.perf_counter()
+    print("== phase 20: data-parallel training (parallel/mesh.py)")
+    rec = {"w1_nccl": dp_overhead(torch, np), "two_gloo_ranks":
+           dp_ranks(torch, np)}
+    rec["seconds"] = round(time.perf_counter() - t_phase, 3)
+    print(f"  phase 20 took {rec['seconds']} s")
+    return rec
+
 
 def main():
     import numpy as np
@@ -4468,6 +4882,9 @@ def main():
     for k in PER_ITER_BF16:
         by_path[k]["cyclegan bf16"] = cg_bf16[k]
     serve = phase_serve_export(torch, np)
+    dp = phase_dp(torch, np)
+    for k, v in dp["w1_nccl"]["b2_launches_per_iter"].items():
+        by_path[k]["pix2pix resnet bf16, DP W=1, an iteration"] = v
 
     entries = []
     for k, rec in record.items():
@@ -4498,6 +4915,7 @@ def main():
     print(json.dumps({"bf16": bf16}))
     print(json.dumps({"bf16_families": families}))
     print(json.dumps({"serve_export": serve}))
+    print(json.dumps({"dp": dp}))
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

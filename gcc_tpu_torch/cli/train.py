@@ -12,15 +12,22 @@ The epoch-end metric is FID with ``--inception_path`` (the TF-FID ``.pth``
 or its ingested ``.npz``) and real statistics, mIoU on cityscapes with
 ``--drn_path``, else the proxies; the best checkpoint follows it.
 
-The run is on the card unless ``--gpu_ids -1`` asks for the CPU; one card
-only. A packed root (``cli.prepare``) streams uint8 batches that normalize
-on the device; ``--device_cache`` keeps the packed store on the device
-(``auto``: a store of at most 25 % of the card's memory, on a card) and then
-each iteration ships only the transform parameters. ``--memory_guard``
-measures the first step's peak device memory before the run goes on
-(utils/memory_guard.py; ``auto`` on a card, ``strict`` aborts when it does
-not fit). Meshes and spatial shards are refused. ``--compute_dtype`` (bf16
-by default, as in the JAX package) casts every family's train and val
+The run is on the card unless ``--gpu_ids -1`` asks for the CPU.
+``--gpu_ids 0,1,...`` or ``--mesh_shape N`` trains data-parallel, one
+process a card (parallel/mesh.py: NCCL, global BatchNorm and losses, one
+gradient all-reduce per update); ``--gpu_ids -1 --mesh_shape N`` runs N
+Gloo ranks on the CPU. The count is the largest at most the request that
+divides ``--batch_size``, the global batch. Rank 0 logs, evaluates and
+writes the checkpoints; the other ranks wait for it at a barrier with a
+timeout. A packed root (``cli.prepare``) streams uint8 batches that
+normalize on the device; ``--device_cache`` keeps the packed store on the
+device (``auto``: a store of at most 25 % of the card's memory, on a card)
+and then each iteration ships only the transform parameters.
+``--memory_guard`` measures the first step's peak device memory before the
+run goes on (utils/memory_guard.py; ``auto`` on a card, ``strict`` aborts
+when it does not fit; each rank measures its shard). Spatial shards and
+meshes of more than one axis are refused. ``--compute_dtype`` (bf16 by
+default, as in the JAX package) casts every family's train and val
 batches, and the engine computes in their dtype. ``--compile_cache`` is
 XLA's and ignored.
 """
@@ -29,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import os
 import signal
 import time
@@ -54,20 +62,24 @@ def engine_class(model: str):
     raise NotImplementedError(f"model {model!r} is not implemented")
 
 
+def _gpu_ids(cfg) -> list:
+    return [s.strip() for s in str(cfg.gpu_ids).split(",") if s.strip()]
+
+
 def run_device(cfg, device=None) -> torch.device:
-    """The device of a run: ``device`` when given, else ``--gpu_ids``: -1 is
-    the CPU, one id is that card (an error without one), several ids raise
-    (data parallelism is ROADMAP Queue A item 5)."""
+    """The device of a one-process run: ``device`` when given, else
+    ``--gpu_ids``: -1 is the CPU, one id is that card (an error without
+    one); several ids raise (only cli.train trains data-parallel)."""
     from gcc_tpu_torch.device import resolve_device
     if device is not None:
         return resolve_device(device)
-    ids = [s.strip() for s in str(cfg.gpu_ids).split(",") if s.strip()]
+    ids = _gpu_ids(cfg)
     if ids == ["-1"]:
         return torch.device("cpu")
     if len(ids) != 1:
         raise NotImplementedError(
-            f"--gpu_ids {cfg.gpu_ids}: the port runs on one card; data "
-            f"parallelism is ROADMAP Queue A item 5")
+            f"--gpu_ids {cfg.gpu_ids}: this entry point runs on one card; "
+            f"cli.train trains data-parallel (ROADMAP Queue A item 5)")
     resolve_device(None)  # raises without a card
     dev = torch.device("cuda", int(ids[0]))
     if dev.index >= torch.cuda.device_count():
@@ -78,18 +90,20 @@ def run_device(cfg, device=None) -> torch.device:
 
 
 def check_knobs(cfg, logger) -> None:
-    """Refuse the JAX package's multi-device features; log the dtype the
-    run computes in and what is ignored."""
+    """Refuse the JAX package's multi-device features the port lacks
+    (spatial shards, a mesh of more than the data axis, a mesh outside
+    training); log the dtype the run computes in and what is ignored."""
     from gcc_tpu_torch.device import compute_dtype
     refused = []
-    if cfg.mesh_shape:
+    if cfg.mesh_shape and (len(cfg.mesh_shape) > 1 or not cfg.isTrain):
         refused.append(f"--mesh_shape {cfg.mesh_shape}")
     if int(cfg.spatial_shards) > 1:
         refused.append(f"--spatial_shards {cfg.spatial_shards}")
     if refused:
         raise NotImplementedError(
-            f"{', '.join(refused)}: not in the port yet (ROADMAP Queue A "
-            f"item 5: meshes and spatial shards)")
+            f"{', '.join(refused)}: not in the port yet (the port's mesh is "
+            f"the data axis of cli.train; spatial shards and row-sharded "
+            f"eval are the next part of ROADMAP Queue A item 5)")
     dtype = str(compute_dtype(cfg)).replace("torch.", "")
     if not cfg.isTrain:
         what = ("port: evaluates in float32, as the JAX package's eval "
@@ -203,6 +217,37 @@ def _head(x, n: int):
     return x
 
 
+def mesh_plan(cfg):
+    """The data-parallel layout a run asks for: None (one process, no
+    mesh), or (device kind, the ranks' card ids; None each on the CPU).
+
+    ``--gpu_ids -1 --mesh_shape N``: N ranks on the CPU. ``--gpu_ids
+    a,b,...``: one rank a card; with ``--mesh_shape N`` the first N of
+    them, or N cards from a single id up. Cards that this host lacks
+    raise."""
+    ids = _gpu_ids(cfg)
+    n = cfg.mesh_shape[0] if cfg.mesh_shape else None
+    if ids == ["-1"]:
+        return None if n is None else ("cpu", [None] * n)
+    if n is None and len(ids) == 1:
+        return None
+    cards = [int(i) for i in ids]
+    if n is not None:
+        if len(cards) == 1:
+            cards = list(range(cards[0], cards[0] + n))
+        elif n > len(cards):
+            raise ValueError(f"--mesh_shape {n} over --gpu_ids "
+                             f"{cfg.gpu_ids}: more ranks than cards")
+        cards = cards[:n]
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if max(cards) >= have or len(set(cards)) != len(cards):
+        raise NotImplementedError(
+            f"--gpu_ids {cfg.gpu_ids}: data parallelism (ROADMAP Queue A "
+            f"item 5) over cards {cards} needs them, and this host has "
+            f"{have}; --gpu_ids -1 --mesh_shape N runs N ranks on the CPU")
+    return "cuda", cards
+
+
 def main(argv=None) -> int:
     from gcc_tpu_torch import config as config_mod
     return run(config_mod.parse(argv))
@@ -274,14 +319,24 @@ def _arch_lr(cfg, epoch: int, plateau) -> float:
     return cfg.arch_lr
 
 
-def run(cfg, device=None) -> int:
-    """One training run; ``device`` None takes ``--gpu_ids`` (the card)."""
+def run(cfg, device=None, mesh=None) -> int:
+    """One training run; ``device`` None takes ``--gpu_ids`` (the card)
+    and ``--mesh_shape``; ``mesh`` is set in a rank of a data-parallel run
+    (``run_mesh``)."""
     from gcc_tpu_torch.utils.logging import get_logger
 
     run_dir = os.path.join(cfg.checkpoints_dir, cfg.name)
     os.makedirs(run_dir, exist_ok=True)
-    logger = get_logger(os.path.join(run_dir, "logger.log"))
+    if mesh is None or mesh.rank == 0:
+        logger = get_logger(os.path.join(run_dir, "logger.log"))
+    else:  # the other ranks say only what goes wrong
+        logger = logging.getLogger(f"gcc-tpu-torch.rank{mesh.rank}")
+        logger.setLevel(logging.WARNING)
     check_knobs(cfg, logger)
+    if device is None and mesh is None:
+        plan = mesh_plan(cfg)
+        if plan is not None:
+            return run_mesh(cfg, *plan, logger=logger)
     dev = run_device(cfg, device)
 
     # Graceful preemption: SIGTERM finishes the in-flight iteration, saves
@@ -300,14 +355,47 @@ def run(cfg, device=None) -> int:
         torch.autograd.set_detect_anomaly(True)
         logger.info("autograd anomaly detection enabled (--debug_nans)")
     try:
-        return _train(cfg, dev, run_dir, logger, preempt)
+        return _train(cfg, dev, run_dir, logger, preempt, mesh)
     finally:
         torch.autograd.set_detect_anomaly(anomaly)
         if prev_sigterm is not None:
             signal.signal(signal.SIGTERM, prev_sigterm)
 
 
-def _train(cfg, dev, run_dir, logger, preempt) -> int:
+def run_mesh(cfg, kind: str, cards, logger) -> int:
+    """A data-parallel run over ``cards`` (``mesh_plan``): as many ranks as
+    divide ``--batch_size``, each a process that runs ``run`` under its
+    mesh; one rank runs in this process, through the collectives all the
+    same. SIGTERM here reaches every rank, and they stop together."""
+    from gcc_tpu_torch.parallel import mesh as pmesh
+    world = len(cards)
+    while cfg.batch_size % world:
+        world -= 1
+    where = "the CPU (Gloo)" if kind == "cpu" else f"cards {cards[:world]}"
+    logger.info(f"mesh: {world} data-parallel ranks on {where} (requested "
+                f"{len(cards)}; the largest count that divides --batch_size "
+                f"{cfg.batch_size}), {cfg.batch_size // world} rows a rank")
+    if world == 1:
+        device = "cpu" if kind == "cpu" else f"cuda:{cards[0]}"
+        mesh = pmesh.init_distributed(
+            0, 1, f"tcp://127.0.0.1:{pmesh.free_port()}", device)
+        try:
+            return run(cfg, mesh.device, mesh)
+        finally:
+            pmesh.shutdown()
+    threads = max(1, torch.get_num_threads() // world) \
+        if kind == "cpu" else None
+    pmesh.spawn(_rank_run, world, args=(cfg,), device_kind=kind,
+                devices=cards[:world], threads=threads)
+    return 0
+
+
+def _rank_run(mesh, cfg) -> None:
+    """One rank of ``run_mesh``."""
+    run(cfg, mesh.device, mesh)
+
+
+def _train(cfg, dev, run_dir, logger, preempt, mesh=None) -> int:
     from gcc_tpu_torch.data import create_split_dataset
     from gcc_tpu_torch.data.device_cache import (DeviceCacheLoader,
                                                  FusedCachedStep,
@@ -315,6 +403,7 @@ def _train(cfg, dev, run_dir, logger, preempt) -> int:
     from gcc_tpu_torch.data.loader import InfiniteLoader
     from gcc_tpu_torch.eval.orchestrators import evaluate_engine
     from gcc_tpu_torch.ops.mask import named_alphas, sparsity_report
+    from gcc_tpu_torch.parallel.mesh import any_rank, replicate_state
     from gcc_tpu_torch.utils.best_info import BestInfo, maximize_metric
     from gcc_tpu_torch.utils.checkpoint import (ckpt_name, load_state,
                                                 save_checkpoint, save_state)
@@ -324,15 +413,18 @@ def _train(cfg, dev, run_dir, logger, preempt) -> int:
     from gcc_tpu_torch.utils.schedule import (Plateau, ema_beta_for_epoch,
                                               lr_for_epoch)
 
-    _write_opt(os.path.join(run_dir, "opt.txt"), cfg)
+    lead = mesh is None or mesh.rank == 0  # logs, evaluates, saves
+    if lead:
+        _write_opt(os.path.join(run_dir, "opt.txt"), cfg)
     jsonl = JsonlWriter(os.path.join(run_dir, "metrics.jsonl")) \
-        if cfg.log_jsonl else None
+        if cfg.log_jsonl and lead else None
     best = BestInfo(cfg)
     logger.info(f"device: {dev}"
                 + (f" ({torch.cuda.get_device_name(dev)})"
                    if dev.type == "cuda" else ""))
 
     engine = build_engine(cfg, logger, device=dev)
+    engine.mesh = mesh
     state = engine.init_state(seed=cfg.seed)
     _load_teachers(cfg, engine, state, logger)
 
@@ -348,13 +440,19 @@ def _train(cfg, dev, run_dir, logger, preempt) -> int:
         logger.info(f"resumed full train state from {state_path} "
                     f"(continuing at epoch {start_epoch})")
 
+    # rank 0's state on every rank, checked by checksum
+    state = replicate_state(state, mesh)
+
     def save_train_state(meta: dict) -> None:
+        if not lead:
+            return
         save_state(state_path, state)
         with open(meta_path, "w") as f:
             json.dump(meta, f)
 
     train_loader, val_loader = create_split_dataset(
-        cfg, seed=cfg.seed, device=dev, logger=logger)
+        cfg, seed=cfg.seed, device=dev, logger=logger, mesh=mesh)
+    rows = cfg.batch_size // (1 if mesh is None else mesh.world)
     logger.info(f"The number of training images = "
                 f"{len(train_loader.dataset)}")
 
@@ -380,7 +478,7 @@ def _train(cfg, dev, run_dir, logger, preempt) -> int:
     # eval metric each save_epoch_freq, negated when the metric maximizes)
     plateau = Plateau(cfg.lr) if cfg.lr_policy == "plateau" else None
     prof = None
-    if cfg.profile_steps > 0:
+    if cfg.profile_steps > 0 and lead:
         acts = [torch.profiler.ProfilerActivity.CPU]
         if dev.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -431,10 +529,9 @@ def _train(cfg, dev, run_dir, logger, preempt) -> int:
 
                 if guard_pending:
                     guard_pending = False
-                    check_step(step, state, cfg.batch_size, dev,
-                               logger=logger,
+                    check_step(step, state, rows, dev, logger=logger,
                                strict=cfg.memory_guard == "strict")
-                state, losses = step(cfg.batch_size)
+                state, losses = step(rows)
                 total_iters += cfg.batch_size
                 n_iters += 1
 
@@ -466,7 +563,7 @@ def _train(cfg, dev, run_dir, logger, preempt) -> int:
                         jsonl.write({"epoch": epoch, "iters": total_iters,
                                      "lr": lr, **vals})
 
-                if preempt["flag"]:
+                if any_rank(mesh, preempt["flag"]):
                     save_train_state({"epoch": epoch - 1,
                                       "preempted_in_epoch": epoch})
                     logger.info(
@@ -483,23 +580,32 @@ def _train(cfg, dev, run_dir, logger, preempt) -> int:
                         f"iteration for its batches ({n_iters} iterations)")
 
         if epoch % cfg.save_epoch_freq == 0:
-            # FID / mIoU with the evaluator weights, else the proxy
-            current_perf = evaluate_engine(cfg, engine, state, logger, epoch)
-            _save_best(cfg, engine, state, best, current_perf, epoch, logger)
-            if plateau is not None and current_perf is not None:
-                scalar = (float(np.mean(list(current_perf.values())))
-                          if isinstance(current_perf, dict)
-                          else float(current_perf))
-                if maximize_metric(cfg):
-                    scalar = -scalar
+            scalar = None
+            if lead:
+                # FID / mIoU with the evaluator weights, else the proxy
+                current_perf = evaluate_engine(cfg, engine, state, logger,
+                                               epoch)
+                _save_best(cfg, engine, state, best, current_perf, epoch,
+                           logger)
+                if current_perf is not None:
+                    scalar = (float(np.mean(list(current_perf.values())))
+                              if isinstance(current_perf, dict)
+                              else float(current_perf))
+                    if maximize_metric(cfg):
+                        scalar = -scalar
+                save_train_state({"epoch": epoch})
+                if epoch == total_epochs:
+                    save_checkpoint(
+                        ckpt_name(ckpt_dir, epoch),
+                        engine.checkpoint_payload(state, epoch, current_perf))
+            if mesh is not None:
+                # the other ranks wait for rank 0's eval and take its metric
+                scalar = json.loads(mesh.barrier(f"epoch/{epoch}",
+                                                 json.dumps(scalar)))
+            if plateau is not None and scalar is not None:
                 new_lr = plateau.step(scalar)
                 if new_lr != lr:
                     logger.info(f"plateau: lr {lr:.7f} -> {new_lr:.7f}")
-            save_train_state({"epoch": epoch})
-            if epoch == total_epochs:
-                save_checkpoint(
-                    ckpt_name(ckpt_dir, epoch),
-                    engine.checkpoint_payload(state, epoch, current_perf))
         if cfg.darts_discriminator:
             alphas = {}
             for key in ("d", "d_a", "d_b"):
@@ -511,7 +617,7 @@ def _train(cfg, dev, run_dir, logger, preempt) -> int:
         logger.info(f"End of epoch {epoch} / {total_epochs} \t "
                     f"Time Taken: {int(time.time() - epoch_start)} sec \t "
                     f"lr: {lr:.7f} ema_beta: {ema_beta:.4f}")
-        if preempt["flag"]:
+        if any_rank(mesh, preempt["flag"]):
             # SIGTERM during epoch-end eval/save: the epoch is complete, so
             # save with this epoch's number and exit now
             save_train_state({"epoch": epoch})

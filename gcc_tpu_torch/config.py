@@ -163,7 +163,8 @@ class Config:
     log_jsonl: bool = True
     isTrain: bool = True
     # the reference's --gpu_ids: the port's CLIs run on that card, or on the
-    # CPU with -1 (one id: data parallelism is ROADMAP Queue A item 5)
+    # CPU with -1; several ids train data-parallel, one rank a card
+    # (cli.train; ROADMAP Queue A item 5)
     gpu_ids: str = "0"
 
     # populated by presets

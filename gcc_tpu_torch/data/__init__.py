@@ -67,7 +67,8 @@ def create_dataset(cfg, seed: int = 0, drop_last: bool = False) -> Loader:
                   seed=seed, drop_last=drop_last)
 
 
-def _maybe_device_cache(ds, cfg, seed, drop_last, device, logger):
+def _maybe_device_cache(ds, cfg, seed, drop_last, device, logger,
+                        shard=(0, 1)):
     """A DeviceCacheLoader over a packed store when --device_cache allows
     it, else None (keep streaming): ``off`` streams, ``on`` caches (and
     raises on a store that cannot be cached), ``auto`` caches a store of at
@@ -105,24 +106,29 @@ def _maybe_device_cache(ds, cfg, seed, drop_last, device, logger):
         f"host->device image traffic)")
     return DeviceCacheLoader(ds, cfg.batch_size, device, dtype=dtype,
                              shuffle=not cfg.serial_batches, seed=seed,
-                             drop_last=drop_last)
+                             drop_last=drop_last, shard=shard)
 
 
-def create_split_dataset(cfg, seed: int = 0, device="cpu", logger=None):
+def create_split_dataset(cfg, seed: int = 0, device="cpu", logger=None,
+                         mesh=None):
     """(train, val) loaders. drop_last keeps every train batch full, as the
     JAX package's static shapes need (the port follows it for equal
     batches); packed data comes as uint8, normalized on ``device`` by the
     training entry (cli/train.py set_input), and a packed store that
-    --device_cache admits lives on ``device``."""
+    --device_cache admits lives on ``device``. Under a data-parallel
+    ``mesh`` both yield this rank's rows of the global batches of
+    ``--batch_size``."""
     drop_last = cfg.batch_size > 1
+    shard = (0, 1) if mesh is None else (mesh.rank, mesh.world)
     loaders = []
     for s in (seed, seed + 1):
         ds = build_dataset(cfg, seed=s, prefer_uint8=True)
-        dl = _maybe_device_cache(ds, cfg, s, drop_last, device, logger)
+        dl = _maybe_device_cache(ds, cfg, s, drop_last, device, logger,
+                                 shard)
         loaders.append(dl if dl is not None else Loader(
             ds, cfg.batch_size, shuffle=not cfg.serial_batches,
             num_threads=cfg.num_threads, prefetch=cfg.prefetch,
-            seed=s, drop_last=drop_last))
+            seed=s, drop_last=drop_last, shard=shard))
     return loaders[0], loaders[1]
 
 

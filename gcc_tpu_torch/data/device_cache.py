@@ -22,7 +22,10 @@ normalization is device_normalize's (within 1 ulp of the host's float32).
 Scope: aligned / unaligned / sa packed stores with uniform item shapes
 (PackedDataset.device_cacheable). sr keeps the streaming path (variable HR
 shapes + an online bicubic). Whether the store fits is the caller's
-decision (data._maybe_device_cache). One device: no mesh.
+decision (data._maybe_device_cache). Under a data-parallel mesh each rank
+holds the store on its card, draws every item's parameters of the global
+batch (the 1-process stream) and gathers only its rows (Loader's
+``shard``).
 
 No reference equivalent: the reference streams every batch through a torch
 DataLoader and .cuda() copies every iteration (train.py:135-146).
@@ -40,6 +43,7 @@ import torch
 
 from gcc_tpu_torch.data.loader import Loader
 from gcc_tpu_torch.data.packed import PackedDataset, normalize_tensor
+from gcc_tpu_torch.parallel.mesh import rows
 
 # one upload per (blob file, device): the train and DARTS-val loaders view
 # the same store, so they share the device copy, which is freed with the
@@ -109,9 +113,11 @@ class DeviceCacheLoader(Loader):
     # -- packed transform parameters ---------------------------------------
     def param_batch(self, idx_batch) -> Tuple[tuple, Dict]:
         """The batch's randomized transform parameters as ONE int32 matrix
-        (plus the float32 z for sa), and the host-side paths."""
+        (plus the float32 z for sa), and the host-side paths: this rank's
+        rows, after every item's parameters are drawn."""
         ds = self.dataset
         params = [ds.sample_params(int(i)) for i in idx_batch]
+        params = params[rows(*self.shard, len(params))]
         if ds.mode == "aligned":
             pm = np.array([(j, x, y, int(f)) for j, x, y, f in params],
                           np.int32).reshape(len(params), 4)

@@ -5,14 +5,24 @@ serial_batches, num_threads decode workers (image decoding and the numpy
 resampler release the GIL for the heavy work), and a small prefetch queue
 that overlaps the next batch's host work with device compute. Batches stay
 NHWC numpy on the host; the CLI moves them to the device.
+
+``shard=(rank, world)``: one rank of a data-parallel mesh. Every rank walks
+the same global batches (the same shuffle from the same seed) and yields its
+rows [rank B/W, (rank+1) B/W) of each. A whole-batch dataset
+(PackedDataset.get_batch) draws every item's transform parameters, so the
+stream stays the 1-process run's, and builds only the rank's rows; the
+per-item datasets draw theirs inside the decode, so a rank decodes the
+global batch and keeps its rows.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as futures
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
+
+from gcc_tpu_torch.parallel.mesh import rows
 
 
 def collate(samples: List[Dict]) -> Dict:
@@ -29,7 +39,9 @@ def collate(samples: List[Dict]) -> Dict:
 class Loader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_threads: int = 4, prefetch: int = 2, seed: int = 0,
-                 drop_last: bool = False):
+                 drop_last: bool = False, shard: Tuple[int, int] = (0, 1)):
+        rows(*shard, batch_size)  # raises where the batch does not split
+        self.shard = shard
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -89,7 +101,8 @@ class Loader:
                 except StopIteration:
                     return False
                 if whole_batch:
-                    pending.append(pool.submit(self.dataset.get_batch, b))
+                    pending.append(pool.submit(self.dataset.get_batch, b,
+                                               rows(*self.shard, len(b))))
                 else:
                     pending.append(
                         [pool.submit(self.dataset.__getitem__, int(i))
@@ -105,7 +118,9 @@ class Loader:
                 if whole_batch:
                     yield futs.result()
                 else:
-                    yield collate([f.result() for f in futs])
+                    yield collate([f.result()
+                                   for f in futs][rows(*self.shard,
+                                                       len(futs))])
 
 
 class InfiniteLoader:

@@ -448,11 +448,14 @@ class PackedDataset:
         return {"lr": self._norm_imagenet(lr), "hr": _m11(hr),
                 "lr_names": name, "hr_names": name}
 
-    def get_batch(self, indices) -> Dict:
+    def get_batch(self, indices, rows: slice = slice(None)) -> Dict:
         """Whole-batch path: the Loader submits ONE pool task per batch,
-        since there is no decode to spread, only slicing and copies."""
+        since there is no decode to spread, only slicing and copies. Every
+        item's parameters are drawn, in order; only ``rows`` of the batch
+        are built (a data-parallel rank's)."""
         from gcc_tpu_torch.data.loader import collate
-        return collate([self[int(i)] for i in indices])
+        params = [self.sample_params(int(i)) for i in indices]
+        return collate([self.materialize(p) for p in params[rows]])
 
     # -- device-cache support (data/device_cache.py) ----------------------
     def uniform_shapes(self) -> Optional[Dict[str, tuple]]:

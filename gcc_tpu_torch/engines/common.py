@@ -22,6 +22,7 @@ import torch.nn as nn
 
 from gcc_tpu_torch.losses import gan_loss, gram_pair_err, mse, sqrt_mse
 from gcc_tpu_torch.ops.layers import BatchNorm, Conv, ConvTranspose, Dense
+from gcc_tpu_torch.parallel.mesh import reduce_gradients
 from gcc_tpu_torch.utils.weights import export_jax_variables, load_jax_variables
 
 
@@ -116,9 +117,11 @@ def arch_params(net: nn.Module) -> List[nn.Parameter]:
 def grads_of(loss: torch.Tensor, params: Sequence[torch.Tensor]
              ) -> List[torch.Tensor]:
     """d loss / d params; a parameter the loss does not reach gets zeros,
-    as jax.grad gives."""
+    as jax.grad gives. Under a mesh, averaged over the ranks in one
+    all-reduce (parallel/mesh.py's gradient convention)."""
     gs = torch.autograd.grad(loss, list(params), allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, gs)]
+    return reduce_gradients(
+        [torch.zeros_like(p) if g is None else g for p, g in zip(params, gs)])
 
 
 def d_pair(net: nn.Module, x_a: torch.Tensor, x_b: torch.Tensor,
@@ -130,7 +133,8 @@ def d_pair(net: nn.Module, x_a: torch.Tensor, x_b: torch.Tensor,
     updated by each. fused=True (--fused_d_batch): one forward over the pair
     interleaved on a new axis 1 and flattened into the batch, so BatchNorm
     sees the mixed 2B batch (see PARITY.md); per-sample outputs otherwise
-    identical. Returns (p_a, p_b, the captured features of x_b's forward);
+    identical. Under a mesh each half's (or the mixed batch's) statistics
+    are global: the same samples as the 1-process run's. Returns (p_a, p_b, the captured features of x_b's forward);
     the fused forward's features are sliced to x_b's half.
     """
     if not fused:

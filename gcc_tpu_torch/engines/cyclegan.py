@@ -49,6 +49,7 @@ from gcc_tpu_torch.models.generators import (
 )
 from gcc_tpu_torch.ops.layers import init_params
 from gcc_tpu_torch.ops.mask import clip_alphas
+from gcc_tpu_torch.parallel.mesh import mesh_step
 from gcc_tpu_torch.ops.pool import ReplayPool
 from gcc_tpu_torch.utils.weights import export_jax_variables, load_jax_variables
 
@@ -66,8 +67,9 @@ class CycleGANEngine(CombinedStepMixin):
                     "real_B", "fake_A", "rec_B", "idt_A"]
 
     def __init__(self, cfg: Config, cfg_AtoB=None, cfg_BtoA=None,
-                 device=None):
+                 device=None, mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
         configure_precision(self.device)  # the family's bf16 path
         self.cfg_AtoB, self.cfg_BtoA = cfg_AtoB, cfg_BtoA
@@ -181,6 +183,7 @@ class CycleGANEngine(CombinedStepMixin):
 
     # ------------------------------------------------------------- train step
 
+    @mesh_step
     def train_step(self, state: GANState, batch: Dict[str, torch.Tensor],
                    lr: float) -> Tuple[GANState, Dict[str, torch.Tensor]]:
         cfg = self.cfg
@@ -282,6 +285,7 @@ class CycleGANEngine(CombinedStepMixin):
 
     # -------------------------------------------------------------- arch step
 
+    @mesh_step
     def arch_step(self, state: GANState, batch: Dict[str, torch.Tensor],
                   ema_beta: float, arch_lr: Optional[float] = None
                   ) -> Tuple[GANState, Dict[str, torch.Tensor]]:

@@ -47,6 +47,7 @@ from gcc_tpu_torch.models.generators import (
 )
 from gcc_tpu_torch.ops.layers import Conv, init_params
 from gcc_tpu_torch.ops.mask import clip_alphas
+from gcc_tpu_torch.parallel.mesh import mesh_step
 
 
 class TransformConvs(nn.Module):
@@ -68,8 +69,9 @@ class Pix2PixEngine(CheckpointMixin, CombinedStepMixin):
     U-Net's input widths) is carried, not used to build, as in JAX."""
 
     def __init__(self, cfg: Config, filter_cfgs=None, device=None,
-                 channel_cfgs=None):
+                 channel_cfgs=None, mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
         configure_precision(self.device)  # the family's bf16 path
         self.filter_cfgs, self.channel_cfgs = filter_cfgs, channel_cfgs
@@ -163,6 +165,7 @@ class Pix2PixEngine(CheckpointMixin, CombinedStepMixin):
 
     # ------------------------------------------------------------- train step
 
+    @mesh_step
     def train_step(self, state: GANState, batch: Dict[str, torch.Tensor],
                    lr: float) -> Tuple[GANState, Dict[str, torch.Tensor]]:
         cfg = self.cfg
@@ -247,6 +250,7 @@ class Pix2PixEngine(CheckpointMixin, CombinedStepMixin):
 
     # -------------------------------------------------------------- arch step
 
+    @mesh_step
     def arch_step(self, state: GANState, batch: Dict[str, torch.Tensor],
                   ema_beta: float, arch_lr: Optional[float] = None
                   ) -> Tuple[GANState, Dict[str, torch.Tensor]]:

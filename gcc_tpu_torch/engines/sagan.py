@@ -49,6 +49,7 @@ from gcc_tpu_torch.models.generators import (
 )
 from gcc_tpu_torch.ops.layers import init_params
 from gcc_tpu_torch.ops.mask import clip_alphas
+from gcc_tpu_torch.parallel.mesh import mesh_step
 
 _DUP_SEGMENTS = ("l1", "l2", "l3", "l4", "query_conv", "key_conv",
                  "value_conv")
@@ -72,8 +73,10 @@ class SAGANEngine(CheckpointMixin, CombinedStepMixin):
     init_state, state_for, train_step, arch_step, train_arch_step, generate,
     checkpoint_payload, load_net_params."""
 
-    def __init__(self, cfg: Config, filter_cfgs=None, device=None):
+    def __init__(self, cfg: Config, filter_cfgs=None, device=None,
+                 mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
         configure_precision(self.device)  # the family's bf16 path
         self.filter_cfgs = filter_cfgs
@@ -146,6 +149,7 @@ class SAGANEngine(CheckpointMixin, CombinedStepMixin):
 
     # ------------------------------------------------------------- train step
 
+    @mesh_step
     def train_step(self, state: GANState, batch: Dict[str, torch.Tensor],
                    lr: float) -> Tuple[GANState, Dict[str, torch.Tensor]]:
         cfg = self.cfg
@@ -225,6 +229,7 @@ class SAGANEngine(CheckpointMixin, CombinedStepMixin):
 
     # -------------------------------------------------------------- arch step
 
+    @mesh_step
     def arch_step(self, state: GANState, batch: Dict[str, torch.Tensor],
                   ema_beta: float, arch_lr: Optional[float] = None
                   ) -> Tuple[GANState, Dict[str, torch.Tensor]]:

@@ -53,6 +53,7 @@ from gcc_tpu_torch.models.discriminators import SRGANDiscriminator
 from gcc_tpu_torch.models.generators import SRResNet
 from gcc_tpu_torch.ops.layers import init_params
 from gcc_tpu_torch.ops.mask import clip_alphas
+from gcc_tpu_torch.parallel.mesh import mesh_step
 from gcc_tpu_torch.utils.weights import load_jax_variables
 
 
@@ -67,8 +68,10 @@ class SRGANEngine(CheckpointMixin, CombinedStepMixin):
     visual_names = ["real_lr", "fake_hr", "real_hr"]
 
     def __init__(self, cfg: Config, filter_cfgs=None, device=None,
-                 vgg_params: Optional[dict] = None, channel_cfgs=None):
+                 vgg_params: Optional[dict] = None, channel_cfgs=None,
+                 mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
         configure_precision(self.device)  # the family's bf16 path
         self.filter_cfgs, self.channel_cfgs = filter_cfgs, channel_cfgs
@@ -146,6 +149,7 @@ class SRGANEngine(CheckpointMixin, CombinedStepMixin):
             target = self.vgg(real_in)
         return mse(self.vgg(fake_in), target)
 
+    @mesh_step
     def train_step(self, state: GANState, batch: Dict[str, torch.Tensor],
                    lr: float) -> Tuple[GANState, Dict[str, torch.Tensor]]:
         if self.generator_only:
@@ -249,6 +253,7 @@ class SRGANEngine(CheckpointMixin, CombinedStepMixin):
 
     # -------------------------------------------------------------- arch step
 
+    @mesh_step
     def arch_step(self, state: GANState, batch: Dict[str, torch.Tensor],
                   ema_beta: float, arch_lr: Optional[float] = None
                   ) -> Tuple[GANState, Dict[str, torch.Tensor]]:

@@ -6,7 +6,10 @@ GAN modes replicate models/GANLoss.py:38-59 exactly:
   hinge   : D: -E[min(+-pred - 1, 0)]; G: -E[pred] (target must be real)
   wgangp  : -+E[pred]
 
-Every loss is float32 whatever its inputs' dtype. ``gram_pair_err`` takes the
+Every loss is float32 whatever its inputs' dtype. Every mean over the batch
+is ``parallel.mesh.batch_mean``: under a data-parallel mesh the global
+batch's mean, on every rank, before any nonlinearity (``sqrt_mse``'s sqrt,
+``gram_pair_err``'s); torch.mean otherwise. ``gram_pair_err`` takes the
 JAX package's kernel-matrix identity for bf16 features with 2 h w <= c, the
 direct grams otherwise (fp32 always).
 """
@@ -16,6 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from gcc_tpu_torch.parallel.mesh import all_reduce_sum, batch_mean, global_batch
+
 GAN_MODES = ("lsgan", "vanilla", "hinge", "wgangp")
 
 
@@ -24,29 +29,29 @@ def gan_loss(pred: torch.Tensor, target_is_real: bool, gan_mode: str,
     pred = pred.float()
     if gan_mode == "lsgan":
         target = 1.0 if target_is_real else 0.0
-        return torch.mean(torch.square(pred - target))
+        return batch_mean(torch.square(pred - target))
     if gan_mode == "vanilla":
         # BCEWithLogits: softplus(-x) for target 1, softplus(x) for target 0
         z = pred if target_is_real else -pred
-        return torch.mean(F.softplus(-z))
+        return batch_mean(F.softplus(-z))
     if gan_mode == "hinge":
         if for_discriminator:
             signed = pred - 1.0 if target_is_real else -pred - 1.0
-            return -torch.mean(torch.clamp(signed, max=0.0))
+            return -batch_mean(torch.clamp(signed, max=0.0))
         if not target_is_real:
             raise ValueError("the generator's hinge loss needs a real target")
-        return -torch.mean(pred)
+        return -batch_mean(pred)
     if gan_mode == "wgangp":
-        return -torch.mean(pred) if target_is_real else torch.mean(pred)
+        return -batch_mean(pred) if target_is_real else batch_mean(pred)
     raise NotImplementedError(f"gan mode {gan_mode} not implemented")
 
 
 def l1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.mean(torch.abs(a.float() - b.float()))
+    return batch_mean(torch.abs(a.float() - b.float()))
 
 
 def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.mean(torch.square(a.float() - b.float()))
+    return batch_mean(torch.square(a.float() - b.float()))
 
 
 def gram(x: torch.Tensor) -> torch.Tensor:
@@ -85,7 +90,7 @@ def gram_pair_err(f: torch.Tensor, t: torch.Tensor,
             return torch.bmm(x.transpose(1, 2), y).square().sum(dim=(1, 2))
 
         per = sq_k(fr, fr) - 2.0 * sq_k(fr, tr) + sq_k(tr, tr)
-        m = per.clamp(min=0.0).mean() / (float(c) * n) ** 2 / (c * c)
+        m = batch_mean(per.clamp(min=0.0)) / (float(c) * n) ** 2 / (c * c)
         return torch.sqrt(torch.clamp(m, min=1e-12)) if use_sqrt else m
     return (sqrt_mse if use_sqrt else mse)(gram(f), gram(t))
 
@@ -95,6 +100,8 @@ def tv_loss(x: torch.Tensor, weight: float = 1.0) -> torch.Tensor:
     b, c, h, w = x.shape
     count_h = (h - 1) * w * c
     count_w = h * (w - 1) * c
-    h_tv = torch.sum(torch.square(x[:, :, 1:, :] - x[:, :, :-1, :]))
-    w_tv = torch.sum(torch.square(x[:, :, :, 1:] - x[:, :, :, :-1]))
-    return weight * 2.0 * (h_tv / count_h + w_tv / count_w) / b
+    h_tv = all_reduce_sum(torch.sum(torch.square(x[:, :, 1:, :]
+                                                 - x[:, :, :-1, :])))
+    w_tv = all_reduce_sum(torch.sum(torch.square(x[:, :, :, 1:]
+                                                 - x[:, :, :, :-1])))
+    return weight * 2.0 * (h_tv / count_h + w_tv / count_w) / global_batch(b)

@@ -25,6 +25,7 @@ from gcc_tpu_torch.ops.layers import (
 )
 from gcc_tpu_torch.ops.mobile_block import fused_mobile_block
 from gcc_tpu_torch.ops.spectral import SpectralConvTranspose
+from gcc_tpu_torch.parallel.mesh import global_batch, local_rows
 
 
 def unet_default_filter_cfgs(ngf: int, num_downs: int) -> list:
@@ -170,8 +171,12 @@ def mobile_resnet_default_cfg(ngf: int, n_blocks: int = 9) -> list:
 
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout with its mask drawn from ``generator``."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    """Inverted dropout with its mask drawn from ``generator``. Under a
+    data-parallel mesh the mask is drawn for the global batch and the rank
+    keeps its rows: the 1-process run's mask, whatever the layout."""
+    shape = (global_batch(x.shape[0]),) + tuple(x.shape[1:])
+    keep = local_rows(torch.rand(shape, generator=generator,
+                                 device=x.device)) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

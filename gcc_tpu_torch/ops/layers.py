@@ -28,6 +28,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from gcc_tpu_torch.parallel.mesh import active, all_reduce_sum
+
 CONV_STD = 0.02  # N(0, 0.02) conv/linear init (utils/util.py:266-268)
 
 
@@ -87,7 +89,9 @@ class BatchNorm(nn.Module):
     """BatchNorm2d with torch semantics and explicit running-stat control.
 
     In train mode the batch statistics normalise; the running statistics
-    are updated only when ``update_stats`` is True. This is the JAX
+    are updated only when ``update_stats`` is True. Under a data-parallel
+    mesh the statistics and the running variance's count are the global
+    batch's (``global_moments``). This is the JAX
     package's ``apply_net(..., update_stats=False)``: a train-mode forward
     that leaves ``batch_stats`` alone (engines/pix2pix.py:171-173), which
     torch's own BatchNorm cannot express.
@@ -114,14 +118,17 @@ class BatchNorm(nn.Module):
                 ) -> torch.Tensor:
         xf = x.float()
         if self.training:
-            mean = xf.mean(dim=(0, 2, 3))
-            if x.dtype == torch.float32:
-                var = (xf - mean[None, :, None, None]).square().mean(
-                    dim=(0, 2, 3))
-            else:  # the JAX package's one-pass form, E[x^2] - E[x]^2
-                var = xf.square().mean(dim=(0, 2, 3)) - mean.square()
+            n = x.shape[0] * x.shape[2] * x.shape[3]
+            if active() is not None:
+                mean, var, n = global_moments(xf, x.dtype == torch.float32)
+            else:
+                mean = xf.mean(dim=(0, 2, 3))
+                if x.dtype == torch.float32:
+                    var = (xf - mean[None, :, None, None]).square().mean(
+                        dim=(0, 2, 3))
+                else:  # the JAX package's one-pass form, E[x^2] - E[x]^2
+                    var = xf.square().mean(dim=(0, 2, 3)) - mean.square()
             if update_stats:
-                n = x.shape[0] * x.shape[2] * x.shape[3]
                 unbias = n / max(n - 1, 1)  # torch stores unbiased running var
                 with torch.no_grad():
                     self.running_mean.mul_(1 - self.momentum).add_(
@@ -137,6 +144,23 @@ class BatchNorm(nn.Module):
         inv = torch.rsqrt(var + self.eps) * self.weight.float()
         return ((xf - mean[None, :, None, None]) * inv[None, :, None, None]
                 + self.bias.float()[None, :, None, None]).to(x.dtype)
+
+
+def global_moments(xf: torch.Tensor, two_pass: bool):
+    """Per-channel (mean, biased variance, count) of an fp32 NCHW batch over
+    the active mesh's global batch. ``two_pass`` (fp32 inputs) keeps the
+    1-process form, the sum first and then the squared deviations from the
+    global mean: two all-reduces. Otherwise (bf16 inputs) the one-pass
+    E[x^2] - E[x]^2 of one all-reduce of the stacked [sum x, sum x^2]."""
+    n = xf.shape[0] * xf.shape[2] * xf.shape[3] * active().world
+    if two_pass:
+        mean = all_reduce_sum(xf.sum(dim=(0, 2, 3))) / n
+        var = all_reduce_sum((xf - mean[None, :, None, None]).square().sum(
+            dim=(0, 2, 3))) / n
+        return mean, var, n
+    sums = all_reduce_sum(torch.stack([xf.sum(dim=(0, 2, 3)),
+                                       xf.square().sum(dim=(0, 2, 3))])) / n
+    return sums[0], sums[1] - sums[0].square(), n
 
 
 def full_precision(x: torch.Tensor, weight: torch.Tensor) -> bool:

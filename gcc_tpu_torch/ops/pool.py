@@ -8,6 +8,8 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
+from gcc_tpu_torch.parallel.mesh import all_gather_rows, local_rows
+
 
 class ReplayPool(nn.Module):
     """The replay pool of generated images that feeds a discriminator update
@@ -23,6 +25,11 @@ class ReplayPool(nn.Module):
     module's extra state. The buffer stays fp32 whatever the images' dtype:
     images are cast to it as they are stored, and ``query`` returns the
     images' dtype (gcc_tpu/engines/common.py:345-374).
+
+    Under a data-parallel mesh the pool is global: every rank gathers the
+    global batch's images, queries its replicated pool with its replicated
+    generator as the 1-process run does, and keeps its rows, so pools and
+    generators stay identical across the ranks.
     """
 
     def __init__(self, pool_size: int, image_shape: Sequence[int]):
@@ -43,6 +50,11 @@ class ReplayPool(nn.Module):
         size = self.buffer.shape[0]
         if size == 0:
             return images
+        return local_rows(self._query(all_gather_rows(images), generator))
+
+    def _query(self, images: torch.Tensor,
+               generator: torch.Generator) -> torch.Tensor:
+        size = self.buffer.shape[0]
         out = []
         for img in images.to(self.buffer.dtype):
             if self.count < size:
