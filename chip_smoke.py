@@ -288,12 +288,30 @@ Phases, each of which exits non-zero on failure:
               its rows reversed or rolled, against the first), the ranks'
               states bit for bit equal, B1 or B2
               launched by every kernel run and by none of the plain ones.
+ 21. spatial  row-sharded eval (parallel/spatial.py), fp32, TF32 off: (a)
+              SRResNet x4 (64 channels, 16 blocks) on 256x256 and on
+              512x512 LR images (1024^2 and 2048^2 out), the pix2pix resnet
+              teacher (ngf 64, 9 blocks, fused blocks on) at 512x1024, the
+              U-Net teacher (ngf 64, 8 downs: 256 -> 1 row) at 256^2 and
+              CycleGAN's BtoA student (the reference cfgs) at 256^2, on
+              seeded weights with spread BatchNorm statistics, each sharded
+              over 2 and over 4 Gloo ranks on the one card against the
+              unsharded forward of the same weights on the card: max
+              |difference| within 1e-4, or twice the float64 floor where
+              that is larger (the ratio printed), the fused generate within
+              1e-3, the ranks' outputs bit for bit equal, no B2 launch under
+              the view (the unsharded fused generate's count beside it),
+              each rank's peak device memory against the unsharded run's,
+              ms per image either way, halo, statistic and gather bytes and
+              calls per image; (b) orchestrators._collect with
+              --spatial_shards 2 over 2 ranks against 1 process: the same
+              images within 1e-4.
 Phases 1-16 run fp32 (phases 7, 8, 12 and 14 on fp32 batches; phases 11 and
 16 pass --compute_dtype float32): TF32 is off for cuDNN and matmul, except
-in phase 15 (g). The last ten lines are phase 11's JSON record of its
+in phase 15 (g). The last eleven lines are phase 11's JSON record of its
 stages, phase 15's, phase 16's, phase 17's, phase 18's, phase 19's, phase
-20's, the card's name and power limit, the kernels' JSON record and {"ok":
-true, "device": ...}. A
+20's, phase 21's, the card's name and power limit, the kernels' JSON record
+and {"ok": true, "device": ...}. A
 kernel's "launches" is the main path's count (phase 4 for B2, phase 7 for
 B1, phase 17 (c) for B2's bf16 entry points, phase 18 (b) for B1's);
 "launches_by_path" adds phase 12's for B2, phase 16 (c)'s cached runs and
@@ -304,6 +322,7 @@ import ast
 import concurrent.futures
 import ctypes
 import functools
+import hashlib
 import json
 import math
 import multiprocessing
@@ -4788,6 +4807,277 @@ def phase_dp(torch, np):
     return rec
 
 
+# phase 21: row-sharded eval (gcc_tpu_torch/parallel/spatial.py). (a) each
+# full-width generator in fp32 (TF32 off) sharded over 2 and over 4 Gloo
+# ranks on the one card (NCCL refuses two ranks on one card), against the
+# unsharded forward of the same weights on the same input on the card, by
+# the route the view takes (the unfused blocks): within 1e-4 on the tanh
+# outputs, or within twice the floor measured beside it, the unsharded fp32
+# output's distance from the same forward in float64, where that is larger;
+# the fused generate (B2) beside it within 1e-3 (phases 5's and 19's
+# bound). (b) the eval path, orchestrators._collect with --spatial_shards 2
+# over 2 ranks, against the unsharded _collect: the same images within
+# 1e-4. One image whose rows the ranks share buys memory a rank, not speed:
+# the ranks share one card and its time, and every exchange goes through
+# the host (Gloo)
+SPATIAL_WORLDS = (2, 4)
+SPATIAL_ATOL = 1e-4
+SPATIAL_FUSED_ATOL = 1e-3
+SPATIAL_TIMED = 2
+# name: (net, constructor kwargs, input (batch, height, width))
+SPATIAL_CASES = {
+    "srresnet_x4_256": ("srresnet", dict(n_channels=64, n_blocks=16,
+                                         scaling_factor=4), (1, 256, 256)),
+    "srresnet_x4_512": ("srresnet", dict(n_channels=64, n_blocks=16,
+                                         scaling_factor=4), (1, 512, 512)),
+    "pix2pix_resnet_teacher": ("mobile_resnet", dict(
+        ngf=64, n_blocks=9, use_fused_blocks=True), (1, 512, 1024)),
+    "unet_teacher": ("unet", dict(ngf=64, num_downs=8, use_dropout=True),
+                     (1, 256, 256)),
+    "cyclegan_BtoA_student": ("mobile_resnet", dict(
+        ngf=24, n_blocks=9, cfg="BtoA", use_fused_blocks=True),
+        (1, 256, 256)),
+}
+SPATIAL_EVAL = dict(model="pix2pix", backbone="unet", ngf=64, ndf=64,
+                    num_downs=8, crop_size=256, load_size=256,
+                    dataroot="synthetic", dataset_mode="synthetic",
+                    max_dataset_size=4, eval_batch=2)
+
+
+def spatial_net(torch, name):
+    """A phase 21 generator from a seed, in eval mode on the CPU, its
+    BatchNorm running statistics spread so that they take part."""
+    from gcc_tpu_torch.compress import cyclegan_reference_cfgs
+    from gcc_tpu_torch.models import generators as G
+    from gcc_tpu_torch.ops.layers import BatchNorm, init_params
+
+    kind, kw, _ = SPATIAL_CASES[name]
+    kw = dict(kw)
+    if kw.get("cfg") == "BtoA":
+        kw["cfg"] = cyclegan_reference_cfgs()[1]
+    net = {"srresnet": G.SRResNet, "mobile_resnet": G.MobileResnetGenerator,
+           "unet": G.UnetGenerator}[kind](**kw)
+    gen = torch.Generator().manual_seed(21)
+    init_params(net, gen)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, BatchNorm):
+                m.running_mean.normal_(0.0, 0.2, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    return net.eval()
+
+
+def spatial_input(torch, np, name):
+    n, h, w = SPATIAL_CASES[name][2]
+    rng = np.random.RandomState(21)
+    return torch.from_numpy((rng.rand(n, 3, h, w) * 2 - 1).astype(np.float32))
+
+
+def spatial_rank(mesh, out_dir):
+    """A phase 21 rank: every case sharded over the group's ranks (one
+    warm-up, SPATIAL_TIMED timed calls), and with two ranks (b)'s eval
+    path; pickled by rank. A new process: TF32 off, as main sets it."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from gcc_tpu_torch.engines.common import generate_rows
+    from gcc_tpu_torch.ops import mobile_block as mb
+    from gcc_tpu_torch.parallel import spatial
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, cuda = mesh.device, mesh.device.type == "cuda"
+    grid = spatial.default_mesh()
+    res = {"cases": {}}
+    for name in SPATIAL_CASES:
+        net = spatial_net(torch, name).to(dev)
+        x = spatial_input(torch, np, name).to(dev)
+        generate_rows(net, x, mesh.world)
+        if cuda:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        mb.reset_launches()
+        grid.reset_counters()
+        ms = []
+        for _ in range(SPATIAL_TIMED):
+            t0 = time.perf_counter()
+            out = generate_rows(net, x, mesh.world)
+            if cuda:
+                torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        host = out.cpu().numpy()
+        res["cases"][name] = {
+            "ms": ms, "base_bytes": base if cuda else None,
+            "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+            "per_image": {k: v / (SPATIAL_TIMED * x.shape[0])
+                          for k, v in grid.counters.items()},
+            "b2": {k: v for k, v in mb.LAUNCHES.items() if v},
+            "sum": hashlib.sha256(host.tobytes()).hexdigest(),
+            "out": host if mesh.rank == 0 else None}
+        del net, x, out
+        if cuda:
+            torch.cuda.empty_cache()
+    if mesh.world == 2:
+        res["eval"] = spatial_collect(torch, dev, 2)
+    with open(os.path.join(out_dir, f"{mesh.rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def spatial_collect(torch, dev, shards):
+    """(b): orchestrators._collect over SPATIAL_EVAL's eval loader, its
+    rows sharded up to ``shards`` ways; the fakes, NHWC numpy."""
+    from gcc_tpu_torch.config import Config
+    from gcc_tpu_torch.data import create_dataset
+    from gcc_tpu_torch.engines.pix2pix import Pix2PixEngine
+    from gcc_tpu_torch.eval.orchestrators import _collect, eval_cfg
+
+    cfg = Config(**SPATIAL_EVAL, spatial_shards=shards)
+    engine = Pix2PixEngine(cfg, device=dev)
+    state = engine.init_state(seed=0)
+    loader = create_dataset(eval_cfg(cfg, load_size=256), seed=1234)
+    return _collect(cfg, engine, state, loader, "A", "B")[0]
+
+
+def spatial_reference(torch, np, name, dev):
+    """The unsharded side of a case on ``dev``: the engines' generate (the
+    fused blocks where the net has them; B2 counted), its ms and peak
+    memory, the unfused forward the view takes, and the float64 floor."""
+    from gcc_tpu_torch.ops import mobile_block as mb
+
+    cuda = dev.type == "cuda"
+    net = spatial_net(torch, name).to(dev)
+    x = spatial_input(torch, np, name).to(dev)
+
+    def generate():
+        with torch.no_grad():
+            return net(x)[0]
+
+    generate()
+    if cuda:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    mb.reset_launches()
+    ms = []
+    for _ in range(SPATIAL_TIMED):
+        t0 = time.perf_counter()
+        fused = generate()
+        if cuda:
+            torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    rec = {"ms": ms, "base_bytes": base if cuda else None,
+           "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+           "b2_per_image": {k: v / (SPATIAL_TIMED * x.shape[0])
+                            for k, v in mb.LAUNCHES.items() if v}}
+    has_fused = bool(getattr(net, "use_fused_blocks", False))
+    if has_fused:
+        net.use_fused_blocks = False
+    plain = generate()
+    net.double()
+    x = x.double()
+    floor = float((generate() - plain.double()).abs().max())
+    del net, x
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec, plain.cpu().numpy(), fused.cpu().numpy() if has_fused \
+        else None, floor
+
+
+def phase_spatial(torch, np, device="cuda"):
+    """Phase 21: row-sharded eval (the comment above SPATIAL_WORLDS)."""
+    import pickle
+    import tempfile
+
+    from gcc_tpu_torch.parallel import mesh as pmesh
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    print("== phase 21: row-sharded eval (parallel/spatial.py), fp32, "
+          f"{'/'.join(map(str, SPATIAL_WORLDS))} Gloo ranks on the one card")
+    ranks = {}
+    for world in SPATIAL_WORLDS:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            pmesh.spawn(spatial_rank, world, args=(tmp,),
+                        device_kind="cuda" if cuda else "cpu",
+                        devices=[dev.index or 0] * world, backend="gloo",
+                        threads=None if cuda else 1, timeout=300.0)
+            ranks[world] = [pickle.load(open(os.path.join(
+                tmp, f"{r}.pkl"), "rb")) for r in range(world)]
+            print(f"  {world} ranks took {time.perf_counter() - t0:.1f} s, "
+                  "start-up included")
+    rec, failed = {"cases": {}}, []
+    gib = 2 ** 30
+    for name in SPATIAL_CASES:
+        ref, plain, fused, floor = spatial_reference(torch, np, name, dev)
+        bound = max(SPATIAL_ATOL, 2.0 * floor)
+        case = {"unsharded": {"ms_per_image": float(np.mean(ref["ms"])),
+                              "peak_gib": None if not cuda else
+                              ref["peak_bytes"] / gib,
+                              "peak_above_base_gib": None if not cuda else
+                              (ref["peak_bytes"] - ref["base_bytes"]) / gib,
+                              "b2_per_image": ref["b2_per_image"]},
+                "float64_floor": floor, "bound": bound,
+                "out_mean_abs": float(np.abs(plain).mean()),
+                "out_share_saturated": float((np.abs(plain) > 0.99).mean())}
+        if "pix2pix" in name or "cyclegan" in name:
+            if cuda and not ref["b2_per_image"]:
+                failed.append(f"(a) {name}: the unsharded generate "
+                              "launched no B2")
+        for world, res in ranks.items():
+            got = [r["cases"][name] for r in res]
+            out = got[0]["out"]
+            diff = float(np.abs(out - plain).max())
+            row = {"max_abs_diff": diff, "ratio_to_bound": diff / bound,
+                   "ms_per_image": float(np.mean(got[0]["ms"])) /
+                   SPATIAL_CASES[name][2][0],
+                   "peak_gib_by_rank": None if not cuda else
+                   [g["peak_bytes"] / gib for g in got],
+                   "peak_above_base_gib_by_rank": None if not cuda else
+                   [(g["peak_bytes"] - g["base_bytes"]) / gib for g in got],
+                   "per_image": got[0]["per_image"],
+                   "b2_under_the_view": [g["b2"] for g in got],
+                   "ranks_bit_equal": len({g["sum"] for g in got}) == 1}
+            if fused is not None:
+                row["max_abs_diff_to_fused"] = float(np.abs(out - fused).max())
+                if not row["max_abs_diff_to_fused"] <= SPATIAL_FUSED_ATOL:
+                    failed.append(f"(a) {name} over {world}: "
+                                  f"{row['max_abs_diff_to_fused']} from the "
+                                  "fused generate")
+            if not diff <= bound:
+                failed.append(f"(a) {name} over {world}: max |sharded - "
+                              f"unsharded| {diff} > {bound}")
+            if any(g["b2"] for g in got):
+                failed.append(f"(a) {name} over {world}: B2 launched under "
+                              f"the view {[g['b2'] for g in got]}")
+            if not row["ranks_bit_equal"]:
+                failed.append(f"(a) {name} over {world}: the ranks' outputs "
+                              "differ")
+            case[f"{world}_ranks"] = row
+        rec["cases"][name] = case
+        print(f"  (a) {name} {SPATIAL_CASES[name][2]}: {json.dumps(case)}")
+    plain = spatial_collect(torch, dev, 1)
+    sharded = ranks[2][0]["eval"]
+    diff = float(np.abs(sharded - plain).max())
+    rec["eval"] = {"images": int(plain.shape[0]), "shape": list(plain.shape),
+                   "max_abs_diff": diff, "bound": SPATIAL_ATOL,
+                   "ranks_equal": bool(np.array_equal(sharded,
+                                                      ranks[2][1]["eval"]))}
+    print(f"  (b) _collect --spatial_shards 2 on 2 ranks against 1 process: "
+          f"{json.dumps(rec['eval'])}")
+    if not diff <= SPATIAL_ATOL or not rec["eval"]["ranks_equal"]:
+        failed.append(f"(b) the sharded eval's images {rec['eval']}")
+    rec["seconds"] = round(time.perf_counter() - t_phase, 3)
+    print(f"  phase 21 took {rec['seconds']} s")
+    if failed:
+        fail("phase 21: " + "; ".join(failed))
+    return rec
+
+
 def main():
     import numpy as np
     import torch
@@ -4883,6 +5173,7 @@ def main():
         by_path[k]["cyclegan bf16"] = cg_bf16[k]
     serve = phase_serve_export(torch, np)
     dp = phase_dp(torch, np)
+    spatial = phase_spatial(torch, np)
     for k, v in dp["w1_nccl"]["b2_launches_per_iter"].items():
         by_path[k]["pix2pix resnet bf16, DP W=1, an iteration"] = v
 
@@ -4916,6 +5207,7 @@ def main():
     print(json.dumps({"bf16_families": families}))
     print(json.dumps({"serve_export": serve}))
     print(json.dumps({"dp": dp}))
+    print(json.dumps({"spatial": spatial}))
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

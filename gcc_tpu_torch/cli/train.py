@@ -25,8 +25,12 @@ device (``auto``: a store of at most 25 % of the card's memory, on a card)
 and then each iteration ships only the transform parameters.
 ``--memory_guard`` measures the first step's peak device memory before the
 run goes on (utils/memory_guard.py; ``auto`` on a card, ``strict`` aborts
-when it does not fit; each rank measures its shard). Spatial shards and
-meshes of more than one axis are refused. ``--compute_dtype`` (bf16 by
+when it does not fit; each rank measures its shard). ``--mesh_shape a,b``
+asks for a*b ranks, as the JAX package's training mesh does.
+``--spatial_shards S`` shards the rows of the epoch-end eval's images over
+the ranks (parallel/spatial.py): in a data-parallel run every rank runs the
+eval's generator passes and rank 0 alone computes the metric; in one
+process the flag degrades to 1 shard. ``--compute_dtype`` (bf16 by
 default, as in the JAX package) casts every family's train and val
 batches, and the engine computes in their dtype. ``--compile_cache`` is
 XLA's and ignored.
@@ -90,20 +94,8 @@ def run_device(cfg, device=None) -> torch.device:
 
 
 def check_knobs(cfg, logger) -> None:
-    """Refuse the JAX package's multi-device features the port lacks
-    (spatial shards, a mesh of more than the data axis, a mesh outside
-    training); log the dtype the run computes in and what is ignored."""
+    """Log the dtype the run computes in and what is ignored."""
     from gcc_tpu_torch.device import compute_dtype
-    refused = []
-    if cfg.mesh_shape and (len(cfg.mesh_shape) > 1 or not cfg.isTrain):
-        refused.append(f"--mesh_shape {cfg.mesh_shape}")
-    if int(cfg.spatial_shards) > 1:
-        refused.append(f"--spatial_shards {cfg.spatial_shards}")
-    if refused:
-        raise NotImplementedError(
-            f"{', '.join(refused)}: not in the port yet (the port's mesh is "
-            f"the data axis of cli.train; spatial shards and row-sharded "
-            f"eval are the next part of ROADMAP Queue A item 5)")
     dtype = str(compute_dtype(cfg)).replace("torch.", "")
     if not cfg.isTrain:
         what = ("port: evaluates in float32, as the JAX package's eval "
@@ -223,10 +215,11 @@ def mesh_plan(cfg):
 
     ``--gpu_ids -1 --mesh_shape N``: N ranks on the CPU. ``--gpu_ids
     a,b,...``: one rank a card; with ``--mesh_shape N`` the first N of
-    them, or N cards from a single id up. Cards that this host lacks
+    them, or N cards from a single id up. ``--mesh_shape a,b`` asks for
+    a*b ranks (gcc_tpu/cli/train.py:233-237). Cards that this host lacks
     raise."""
     ids = _gpu_ids(cfg)
-    n = cfg.mesh_shape[0] if cfg.mesh_shape else None
+    n = int(np.prod(cfg.mesh_shape)) if cfg.mesh_shape else None
     if ids == ["-1"]:
         return None if n is None else ("cpu", [None] * n)
     if n is None and len(ids) == 1:
@@ -401,7 +394,7 @@ def _train(cfg, dev, run_dir, logger, preempt, mesh=None) -> int:
                                                  FusedCachedStep,
                                                  InfiniteParams)
     from gcc_tpu_torch.data.loader import InfiniteLoader
-    from gcc_tpu_torch.eval.orchestrators import evaluate_engine
+    from gcc_tpu_torch.eval.orchestrators import evaluate_engine, row_sharded
     from gcc_tpu_torch.ops.mask import named_alphas, sparsity_report
     from gcc_tpu_torch.parallel.mesh import any_rank, replicate_state
     from gcc_tpu_torch.utils.best_info import BestInfo, maximize_metric
@@ -598,6 +591,11 @@ def _train(cfg, dev, run_dir, logger, preempt, mesh=None) -> int:
                     save_checkpoint(
                         ckpt_name(ckpt_dir, epoch),
                         engine.checkpoint_payload(state, epoch, current_perf))
+            elif row_sharded(cfg):
+                # the eval's rows sharded over the ranks: this rank runs the
+                # generator passes beside rank 0, and no metric
+                evaluate_engine(cfg, engine, state, logger, epoch,
+                                lead=False)
             if mesh is not None:
                 # the other ranks wait for rank 0's eval and take its metric
                 scalar = json.loads(mesh.barrier(f"epoch/{epoch}",

@@ -23,6 +23,7 @@ import torch.nn as nn
 from gcc_tpu_torch.losses import gan_loss, gram_pair_err, mse, sqrt_mse
 from gcc_tpu_torch.ops.layers import BatchNorm, Conv, ConvTranspose, Dense
 from gcc_tpu_torch.parallel.mesh import reduce_gradients
+from gcc_tpu_torch.parallel.spatial import spatial_apply
 from gcc_tpu_torch.utils.weights import export_jax_variables, load_jax_variables
 
 
@@ -307,6 +308,30 @@ def ema_update(prev: torch.Tensor, new: torch.Tensor, beta) -> torch.Tensor:
     """EMA with first-call bootstrap: prev == 0 means uninitialised — the
     reference's own semantics (models/Pix2Pix.py:504-508)."""
     return torch.where(prev == 0.0, new, beta * new + (1.0 - beta) * prev)
+
+
+def generate_rows(net: nn.Module, x: torch.Tensor, n_spatial=None,
+                  mesh=None) -> torch.Tensor:
+    """Eval-mode forward of ``net`` with the image's rows sharded over the
+    ranks (parallel/spatial.py): an image whose activations do not fit one
+    card is served over several. The shard count drops to the largest
+    divisor of the image height; the full output on every rank. Every
+    rank of the group calls it with the same x."""
+    with eval_mode(net):
+        return spatial_apply(net, x, mesh=mesh, n_spatial=n_spatial)
+
+
+class RowShardedMixin:
+    """``generate_spatial`` of an engine whose generators are ``g`` and
+    ``tg`` (gcc_tpu/engines/common.py:295-310)."""
+
+    def generate_spatial(self, state: GANState, x: torch.Tensor,
+                         n_spatial=None, mesh=None,
+                         teacher: bool = False) -> torch.Tensor:
+        """``generate`` with the image's rows sharded over the ranks
+        (``generate_rows``)."""
+        return generate_rows(state.nets["tg" if teacher else "g"], x,
+                             n_spatial, mesh)
 
 
 class CombinedStepMixin:

@@ -39,7 +39,7 @@ from gcc_tpu_torch.device import configure_precision, resolve_device
 from gcc_tpu_torch.engines.common import (
     Adam, CombinedStepMixin, GANState, add_sign_sparsity, arch_params,
     cyclegan_heavy_sparsity, d_pair, discrepancy, distill_losses, ema_update,
-    eval_mode, grads_of, weight_params,
+    eval_mode, generate_rows, grads_of, weight_params,
 )
 from gcc_tpu_torch.engines.pix2pix import TransformConvs
 from gcc_tpu_torch.losses import gan_loss, l1
@@ -345,6 +345,16 @@ class CycleGANEngine(CombinedStepMixin):
         with eval_mode(state.nets[f"{'tg' if teacher else 'g'}_{side}"]) \
                 as (net,):
             return net(x)[0]
+
+    def generate_spatial(self, state: GANState, x: torch.Tensor,
+                         n_spatial=None, mesh=None, direction: str = "AtoB",
+                         teacher: bool = False) -> torch.Tensor:
+        """``generate`` with the image's rows sharded over the ranks
+        (engines/common.py ``generate_rows``; gcc_tpu/engines/
+        cyclegan.py:457-466)."""
+        side = "a" if direction == "AtoB" else "b"
+        return generate_rows(state.nets[f"{'tg' if teacher else 'g'}_{side}"],
+                             x, n_spatial, mesh)
 
     # ------------------------------------------------------------- checkpoint
 

@@ -274,3 +274,9 @@ class SAGANEngine(CheckpointMixin, CombinedStepMixin):
         BatchNorm stats, spectral vectors iterated but not stored."""
         with eval_mode(state.nets["tg" if teacher else "g"]) as (net,):
             return net(z)[0]
+
+    def generate_spatial(self, state: GANState, z: torch.Tensor, *args,
+                         **kw) -> torch.Tensor:
+        """Refused: SAGAN's z input has no rows to shard; use generate()."""
+        raise ValueError("generate_spatial: SAGAN's z input has no spatial "
+                         "axis; use generate()")

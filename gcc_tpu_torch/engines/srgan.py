@@ -40,9 +40,9 @@ import torch.nn as nn
 from gcc_tpu_torch.config import Config
 from gcc_tpu_torch.device import configure_precision, resolve_device
 from gcc_tpu_torch.engines.common import (
-    Adam, CheckpointMixin, CombinedStepMixin, GANState, add_sign_sparsity,
-    arch_params, d_pair, discrepancy, distill_losses, ema_update, eval_mode,
-    grads_of, weight_params,
+    Adam, CheckpointMixin, CombinedStepMixin, GANState, RowShardedMixin,
+    add_sign_sparsity, arch_params, d_pair, discrepancy, distill_losses,
+    ema_update, eval_mode, grads_of, weight_params,
 )
 from gcc_tpu_torch.engines.pix2pix import TransformConvs
 from gcc_tpu_torch.losses import gan_loss, l1, mse
@@ -57,7 +57,7 @@ from gcc_tpu_torch.parallel.mesh import mesh_step
 from gcc_tpu_torch.utils.weights import load_jax_variables
 
 
-class SRGANEngine(CheckpointMixin, CombinedStepMixin):
+class SRGANEngine(CheckpointMixin, CombinedStepMixin, RowShardedMixin):
     """Engine surface of the JAX package's SRGANEngine: build_nets,
     init_state, state_for, train_step (the content step under
     --generator_only), arch_step, train_arch_step, generate,

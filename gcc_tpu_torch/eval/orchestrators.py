@@ -16,6 +16,12 @@ run on the engine's device. Without their weights the orchestrator reports
 the JAX package's proxies and logs them as ``[proxy]``: pixel-FID (the
 Fréchet distance of 8x8-downsampled pixel statistics) or, on cityscapes,
 PSNR.
+
+``--spatial_shards S`` > 1 shards the rows of the pix2pix and CycleGAN
+eval images over the ranks of the process group (parallel/spatial.py,
+``row_sharded``), as gcc_tpu/eval/orchestrators.py:80-92 does; every rank
+runs the generator passes in step, and a rank that is not the lead
+(``lead=False``) stops there.
 """
 
 from __future__ import annotations
@@ -94,17 +100,31 @@ def _real_fid(cfg, fakes: np.ndarray, device,
         return fid_from_activations(acts, npz["mu"], npz["sigma"])
 
 
-def _collect(engine, state, loader, key_in: str, key_out: str,
+def row_sharded(cfg) -> bool:
+    """Whether the eval shards its images' rows: ``--spatial_shards`` > 1,
+    and a family whose eval images go through ``_collect`` (not SAGAN,
+    whose z has no rows, and not SRGAN, whose sets are scored one image at
+    a time by ``generate``, as in gcc_tpu)."""
+    return int(getattr(cfg, "spatial_shards", 1)) > 1 and (
+        "pix2pix" in cfg.model or "cyclegan" in cfg.model)
+
+
+def _collect(cfg, engine, state, loader, key_in: str, key_out: str,
              max_items: Optional[int] = None, direction: Optional[str] = None):
     """Run the generator over a loader in eval mode: (fakes, reals) as NHWC
     numpy, at most ``max_items`` of each. ``direction`` picks CycleGAN's
-    generator."""
+    generator. With ``row_sharded`` the rows of each batch are sharded over
+    the ranks, the shard count lowered per image height."""
     fakes, reals = [], []
     n = 0
     kw = {} if direction is None else {"direction": direction}
+    if row_sharded(cfg):
+        gen, kw["n_spatial"] = engine.generate_spatial, int(cfg.spatial_shards)
+    else:
+        gen = engine.generate
     for batch in loader:
         x = to_device(batch[key_in], engine.device)
-        fakes.append(to_host(engine.generate(state, x, **kw)))
+        fakes.append(to_host(gen(state, x, **kw)))
         reals.append(np.asarray(batch[key_out], np.float32))
         n += x.shape[0]
         if max_items is not None and n >= max_items:
@@ -114,7 +134,14 @@ def _collect(engine, state, loader, key_in: str, key_out: str,
         np.concatenate(reals)[:max_items]
 
 
-def evaluate_engine(cfg, engine, state, logger, epoch):
+def evaluate_engine(cfg, engine, state, logger, epoch, lead: bool = True):
+    """The epoch's metric (logged), or None. ``lead=False``: a rank of a
+    row-sharded eval that is not the lead runs the generator passes alone
+    and returns None."""
+    if not lead:
+        if row_sharded(cfg):
+            _collect_images(cfg, engine, state)
+        return None
     if "pix2pix" in cfg.model:
         return _eval_pix2pix(cfg, engine, state, logger)
     if cfg.model == "srgan":
@@ -126,12 +153,25 @@ def evaluate_engine(cfg, engine, state, logger, epoch):
     raise NotImplementedError(cfg.model)
 
 
-def _eval_pix2pix(cfg, engine, state, logger):
+def _collect_images(cfg, engine, state):
+    """The generator passes of the pix2pix eval, (loader, fakes, reals), or
+    of CycleGAN's, {direction: (fakes, reals)}: both directions before any
+    metric, as gcc_tpu collects them."""
     loader = create_dataset(eval_cfg(cfg, load_size=256), seed=1234)
+    cap = None if cfg.ntest == float("inf") else int(cfg.ntest)
+    if "cyclegan" in cfg.model:
+        return {direction: _collect(cfg, engine, state, loader, key_in,
+                                    key_out, cap, direction=direction)
+                for direction, key_in, key_out in (("AtoB", "A", "B"),
+                                                   ("BtoA", "B", "A"))}
     # direction swap as in set_input
     key_in, key_out = ("B", "A") if cfg.direction == "BtoA" else ("A", "B")
-    cap = None if cfg.ntest == float("inf") else int(cfg.ntest)
-    fakes, reals = _collect(engine, state, loader, key_in, key_out, cap)
+    return (loader,) + _collect(cfg, engine, state, loader, key_in, key_out,
+                                cap)
+
+
+def _eval_pix2pix(cfg, engine, state, logger):
+    loader, fakes, reals = _collect_images(cfg, engine, state)
     if uses_miou(cfg):
         from gcc_tpu_torch.metrics.miou import compute_miou
         miou = compute_miou(cfg, fakes, loader.dataset, device=engine.device)
@@ -154,7 +194,8 @@ def _eval_pix2pix(cfg, engine, state, logger):
 def _eval_sagan(cfg, engine, state, logger):
     loader = create_dataset(eval_cfg(cfg, load_size=64), seed=1234)
     n_eval = max(1, int(0.1 * len(loader.dataset)))  # 10% (test_metric.py:144)
-    fakes, reals = _collect(engine, state, loader, "z", "real_img", n_eval)
+    fakes, reals = _collect(cfg, engine, state, loader, "z", "real_img",
+                            n_eval)
     fid = _real_fid(cfg, fakes, engine.device)
     if fid is not None:
         logger.info(f"FID: {fid:.2f}")
@@ -204,13 +245,10 @@ def _eval_cyclegan(cfg, engine, state, logger) -> Dict[str, float]:
     """Each direction's FID against the other domain's real statistics
     (real_stat_B.npz for AtoB, real_stat_A.npz for BtoA), or the proxy
     pixel-FID against its images (gcc_tpu/eval/orchestrators.py:212-235)."""
-    loader = create_dataset(eval_cfg(cfg, load_size=256), seed=1234)
-    cap = None if cfg.ntest == float("inf") else int(cfg.ntest)
     out = {}
-    for direction, key_in, key_out in (("AtoB", "A", "B"),
-                                       ("BtoA", "B", "A")):
-        fakes, reals = _collect(engine, state, loader, key_in, key_out, cap,
-                                direction=direction)
+    for direction, (fakes, reals) in _collect_images(cfg, engine,
+                                                     state).items():
+        key_out = direction[-1]
         fid = _real_fid(cfg, fakes, engine.device, side=key_out)
         if fid is not None:
             out[direction] = fid

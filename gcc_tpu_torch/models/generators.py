@@ -12,6 +12,7 @@ distillation features in the order the JAX package's sorted sown keys give.
 
 from __future__ import annotations
 
+import logging
 import math
 from typing import List, Optional, Sequence, Tuple
 
@@ -25,6 +26,7 @@ from gcc_tpu_torch.ops.layers import (
 )
 from gcc_tpu_torch.ops.mobile_block import fused_mobile_block
 from gcc_tpu_torch.ops.spectral import SpectralConvTranspose
+from gcc_tpu_torch.parallel import spatial
 from gcc_tpu_torch.parallel.mesh import global_batch, local_rows
 
 
@@ -108,6 +110,12 @@ class UnetGenerator(nn.Module):
       g_feat_1 <- BN output of down depth 3
       g_feat_2 <- relu(concat) feeding up depth 3
       g_feat_3 <- relu(concat) feeding up depth 1
+
+    Row-sharded (parallel/spatial.py), the down path runs sharded until a
+    height no longer splits over the shards (32 -> 1 over 5 downs on 4
+    shards: at 2 rows), replicated below it, and sharded again from the up
+    conv whose output splits; each skip keeps the layout it was made in,
+    and a concatenation pairs the two in one layout.
     """
 
     def __init__(self, input_nc: int = 3, output_nc: int = 3,
@@ -140,6 +148,7 @@ class UnetGenerator(nn.Module):
         forward moves the BatchNorm running stats when ``update_stats``."""
         n, depths = self.num_downs, self.depths
         feats, skips, h = [None] * 4, {}, x
+        rows = spatial.active()
         for d in depths:
             if d > 0:
                 h = leaky_relu(h, 0.2)
@@ -148,7 +157,7 @@ class UnetGenerator(nn.Module):
                 h = getattr(self, f"down_norm_{d}")(h, update_stats)
                 if d in (1, 3):
                     feats[d // 2] = h  # g_feat_0 at depth 1, g_feat_1 at 3
-            skips[d] = h
+            skips[d] = (h, rows is not None and rows.sharded)
         for d in reversed(depths):
             h = torch.relu(h)  # uprelu on the innermost down output or concat
             if d in (1, 3):
@@ -159,7 +168,10 @@ class UnetGenerator(nn.Module):
                                                update_stats)
             if self.use_dropout and self.training and 4 <= d <= n - 2:
                 h2 = dropout(h2, 0.5, generator)
-            h = torch.cat([skips[max(dd for dd in depths if dd < d)], h2], 1)
+            skip, sharded = skips[max(dd for dd in depths if dd < d)]
+            if rows is not None:
+                skip = rows.relayout(skip, sharded, rows.sharded)
+            h = torch.cat([skip, h2], 1)
         raise AssertionError("unreachable")
 
 
@@ -196,7 +208,10 @@ class MobileResnetGenerator(nn.Module):
     measurement on the card decides it) | bool. The fused path runs each
     residual block as the CUDA stage kernels (ops/mobile_block.py) with the
     SAME parameters; it is taken only without dropout and for inputs of at
-    least 20 px a side, as in the JAX package.
+    least 20 px a side, as in the JAX package. A row-sharded forward
+    (parallel/spatial.py) takes the unfused blocks, as the JAX package's
+    ``_spatial_safe`` does: the kernels normalise whole planes, which no
+    shard holds.
     """
 
     def __init__(self, input_nc: int = 3, output_nc: int = 3, ngf: int = 64,
@@ -235,8 +250,13 @@ class MobileResnetGenerator(nn.Module):
         # (ngf 64: 64*64 px * 256 ch * 4 B * 6 = 25.2 MB > 15.5 MB) falls
         # back to XLA there while the card runs it fused: the same function
         # either way (fused == unfused, tests/test_mobile_block.py:78-100).
+        rows = spatial.active()
+        h = x.shape[2] if rows is None else rows.height(x)  # the global rows
         fused = bool(self.use_fused_blocks) and self.dropout_rate == 0 \
-            and min(x.shape[2:4]) >= 20
+            and min(h, x.shape[3]) >= 20
+        if fused and rows is not None:
+            _log_unfused_once()
+            fused = False
         h = torch.relu(instance_norm(self.conv_in(reflect_pad(x, 3))))
         h = torch.relu(instance_norm(self.down_0(h)))
         h = torch.relu(instance_norm(self.down_1(h)))
@@ -257,6 +277,18 @@ class MobileResnetGenerator(nn.Module):
         h = torch.relu(instance_norm(self.up_0(h)))
         h = torch.relu(instance_norm(self.up_1(h)))
         return tanh(self.conv_out(reflect_pad(h, 3))), feats
+
+
+_LOGGED_UNFUSED = []
+
+
+def _log_unfused_once() -> None:
+    if not _LOGGED_UNFUSED:
+        _LOGGED_UNFUSED.append(True)
+        logging.getLogger("gcc-tpu-torch").info(
+            "row-sharded forward: MobileResnet runs its unfused blocks (the "
+            "fused stage kernels normalise whole planes, which no shard "
+            "holds)")
 
 
 def sagan_default_filter_cfgs(ngf: int, image_size: int = 64) -> list:

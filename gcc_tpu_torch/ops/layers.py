@@ -18,6 +18,11 @@ each layer computes in its input's dtype. A bf16 conv takes its weight
 rounded to bf16, adds the fp32 bias to its bf16 output and rounds once
 (gcc_tpu/ops/layers.py:70-80); the norms take fp32 statistics and return the
 input's dtype. An fp32 input takes the fp32 code as it was, bit for bit.
+
+Under a row-sharded view (parallel/spatial.py, eval only) the convs fetch
+their halo rows, ``reflect_pad`` reflects at the image's own borders and
+``instance_norm`` sums over the whole plane across the ranks; without one
+every layer runs as above.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from gcc_tpu_torch.parallel import spatial
 from gcc_tpu_torch.parallel.mesh import active, all_reduce_sum
 
 CONV_STD = 0.02  # N(0, 0.02) conv/linear init (utils/util.py:266-268)
@@ -52,11 +58,19 @@ class Conv(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        view = spatial.active()
+        if view is not None:  # row-sharded: H's padding is in the slab
+            return spatial.conv(
+                view, x, lambda s: self._conv(s, (0, self.padding)),
+                self.weight.shape[2], self.stride[0], self.padding)
+        return self._conv(x, self.padding)
+
+    def _conv(self, x: torch.Tensor, padding) -> torch.Tensor:
         if full_precision(x, self.weight):
             return F.conv2d(x, self.weight, self.bias, self.stride,
-                            self.padding, groups=self.groups)
+                            padding, groups=self.groups)
         return add_bias(F.conv2d(x, self.weight.to(x.dtype), None,
-                                 self.stride, self.padding,
+                                 self.stride, padding,
                                  groups=self.groups), self.bias)
 
 
@@ -77,12 +91,23 @@ class ConvTranspose(nn.Module):
     reset_parameters = Conv.reset_parameters
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        view = spatial.active()
+        if view is not None:  # row-sharded: no padding along H in the slab
+            return spatial.conv_transpose(
+                view, x, lambda s, extra: self._conv(
+                    s, (0, self.padding), (extra, self.output_padding)),
+                self.weight.shape[2], self.stride[0], self.padding,
+                self.output_padding)
+        return self._conv(x, self.padding, self.output_padding)
+
+    def _conv(self, x: torch.Tensor, padding, output_padding
+              ) -> torch.Tensor:
         if full_precision(x, self.weight):
             return F.conv_transpose2d(x, self.weight, self.bias, self.stride,
-                                      self.padding, self.output_padding)
+                                      padding, output_padding)
         return add_bias(F.conv_transpose2d(
-            x, self.weight.to(x.dtype), None, self.stride, self.padding,
-            self.output_padding), self.bias)
+            x, self.weight.to(x.dtype), None, self.stride, padding,
+            output_padding), self.bias)
 
 
 class BatchNorm(nn.Module):
@@ -117,6 +142,9 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, update_stats: bool = True
                 ) -> torch.Tensor:
         xf = x.float()
+        if self.training and spatial.active() is not None:
+            raise RuntimeError("a row-sharded forward is eval only: "
+                               "BatchNorm in train mode under the view")
         if self.training:
             n = x.shape[0] * x.shape[2] * x.shape[3]
             if active() is not None:
@@ -181,10 +209,14 @@ def add_bias(y: torch.Tensor, bias) -> torch.Tensor:
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Affine-free InstanceNorm2d over (H, W), two-pass variance in fp32,
-    returned in x's dtype."""
+    returned in x's dtype; row-sharded, over the global plane."""
     xf = x.float()
-    mean = xf.mean(dim=(2, 3), keepdim=True)
-    var = (xf - mean).square().mean(dim=(2, 3), keepdim=True)
+    view = spatial.active()
+    if view is not None:
+        mean, var = spatial.instance_moments(view, xf)
+    else:
+        mean = xf.mean(dim=(2, 3), keepdim=True)
+        var = (xf - mean).square().mean(dim=(2, 3), keepdim=True)
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
@@ -318,7 +350,11 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
 
 
 def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
-    """ReflectionPad2d on NCHW."""
+    """ReflectionPad2d on NCHW; row-sharded, the rank's rows with their
+    halo (parallel/spatial.py)."""
+    view = spatial.active()
+    if view is not None:
+        return spatial.reflect_pad(view, x, pad)
     return F.pad(x, (pad, pad, pad, pad), mode="reflect")
 
 

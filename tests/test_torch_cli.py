@@ -465,11 +465,18 @@ def test_refusals(tmp_path):
                      f"{SR} --checkpoints_dir {tmp_path}"):
             with pytest.raises(RuntimeError, match="CUDA"):
                 ttrain.main(f"{args} --name card".split())
-    for flag, match in (("--gpu_ids 0,1", "Queue A item 5"),
-                        ("--mesh_shape 2,1", "mesh_shape"),
-                        ("--spatial_shards 2", "spatial_shards")):
-        with pytest.raises(NotImplementedError, match=match):
-            ttrain.main(f"{base} {flag} --name r".split())
+    with pytest.raises(NotImplementedError, match="Queue A item 5"):
+        ttrain.main(f"{base} --gpu_ids 0,1 --name r".split())
+    # a mesh of two axes asks for the product of its axes as ranks, as the
+    # JAX package's training mesh does
+    assert ttrain.mesh_plan(parse(f"{base}{CPU} --mesh_shape 2,1".split())) \
+        == ("cpu", [None, None])
+    # --spatial_shards shards the epoch-end eval's rows; in one process it
+    # degrades to 1 shard, with the JAX package's warning
+    assert _train(f"{UNET} --n_epochs 1 --spatial_shards 2 --name sp",
+                  tmp_path) == 0
+    assert ("spatial_apply: 2 shards requested but only 1 ranks; degrading "
+            "to 1") in _log(tmp_path, "sp")
     # --memory_guard strict runs: measured on a card, skipped on the CPU
     assert _train(f"{UNET} --n_epochs 1 --memory_guard strict --name g",
                   tmp_path) == 0

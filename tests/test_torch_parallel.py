@@ -140,7 +140,7 @@ def test_the_boundary_test_covers_the_mesh():
     package is among them."""
     import test_torch_boundary as tb
     names = {p.name for p in tb.PORT_FILES if p.parent.name == "parallel"}
-    assert names == {"__init__.py", "mesh.py"}
+    assert names == {"__init__.py", "mesh.py", "spatial.py"}
 
 
 # ---------------------------------------------------------------------------
@@ -385,11 +385,24 @@ def test_cli_mesh_trains_checkpoints_and_resumes(tmp_path):
         in _log(exp, "three")
 
 
-def test_cli_refusals():
-    with pytest.raises(NotImplementedError, match="spatial_shards"):
-        ttrain.main(f"{CLI} --mesh_shape 2 --spatial_shards 2".split())
-    with pytest.raises(NotImplementedError, match="mesh_shape"):
-        ttrain.main(f"{CLI} --mesh_shape 2,2".split())
+def test_cli_refusals(tmp_path):
+    from gcc_tpu_torch.cli import test as ttest
+    from gcc_tpu_torch.config import parse
+    # --spatial_shards on 2 ranks: every rank runs the epoch-end eval's
+    # generator passes over its rows, rank 0 scores them; the metric is the
+    # unsharded eval's of the same final weights
+    exp = str(tmp_path)
+    assert ttrain.main(f"{CLI} --mesh_shape 2 --spatial_shards 2 --n_epochs 1 "
+                       f"--name sp --checkpoints_dir {exp}".split()) == 0
+    assert ttest.main(f"{CLI} --name sp_test --checkpoints_dir {exp} "
+                      f"--pretrain_path {exp}/sp/checkpoints/model_1.ckpt"
+                      .split()) == 0
+    fid = [ln.split("pixel-FID (no inception weights): ")[1]
+           for ln in _log(exp, "sp").splitlines() if "pixel-FID" in ln]
+    assert len(fid) == 1 and fid[0] in _log(exp, "sp_test")
+    # a mesh of two axes: the product of its axes as data-parallel ranks
+    assert ttrain.mesh_plan(parse(f"{CLI} --mesh_shape 2,2".split())) \
+        == ("cpu", [None] * 4)
     if torch.cuda.device_count() < 8:
         with pytest.raises(NotImplementedError, match="needs them"):
             ttrain.main(f"{CLI} --gpu_ids 0,1,2,3,4,5,6,7".split())
