@@ -50,6 +50,7 @@ from gcc_tpu_torch.utils.weights import (  # noqa: E402
     export_jax_variables, load_jax_variables,
 )
 from torch_tf32 import mma_partial, tf32  # noqa: E402
+from torch_limits import one_thread  # noqa: E402,F401
 
 # (B, N, dq, dv): multi-tile with a ragged tail, the JAX package's own case,
 # the student's main-path shape, and widths past one feature/output chunk

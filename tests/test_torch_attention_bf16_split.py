@@ -27,6 +27,7 @@ torch = pytest.importorskip("torch")
 from gcc_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from gcc_tpu_torch.ops import kernels  # noqa: E402
 from torch_tf32 import rz32  # noqa: E402
+from torch_limits import one_thread  # noqa: E402,F401
 
 N, TILE = 1024, 64  # the main path's attn2 length; the kernels' key tile
 # (dq, dv) of the SAGAN main path's attn2: teacher, student

@@ -33,9 +33,11 @@ The B2 stage's plain versions sum the depthwise taps by kernel row,
 a in ~1000 rounded to the other bf16 neighbour of XLA's and the difference
 spread through b, b-hat and the backward (dx at 0.33 of the bf16-fp32
 difference); by rows, y and dx are gcc_tpu's bit for bit (measured).
-"""
 
-import copy
+The generators' and discriminators' forwards:
+tests/test_torch_bf16_nets.py; the engine steps at learning rate 0
+(STEP_BOUNDS): tests/test_torch_bf16_step.py.
+"""
 
 import numpy as np
 import pytest
@@ -46,99 +48,19 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from gcc_tpu import losses as jlosses  # noqa: E402
-from gcc_tpu.config import Config as JaxConfig  # noqa: E402
-from gcc_tpu.engines.common import GANState as JaxState  # noqa: E402
-from gcc_tpu.engines.pix2pix import Pix2PixEngine as JaxEngine  # noqa: E402
-from gcc_tpu.models import generators as jgen  # noqa: E402
 from gcc_tpu.ops import layers as jl  # noqa: E402
 from gcc_tpu.ops import mask as jmask  # noqa: E402
 from gcc_tpu.ops.pallas.mobile_block import fused_sep_stage as jax_stage  # noqa: E402
 from gcc_tpu_torch import losses  # noqa: E402
 from gcc_tpu_torch.config import Config  # noqa: E402
-from gcc_tpu_torch.engines.common import arch_params, weight_params  # noqa: E402
 from gcc_tpu_torch.engines.pix2pix import Pix2PixEngine  # noqa: E402
-from gcc_tpu_torch.models.generators import (  # noqa: E402
-    MobileResnetGenerator, UnetGenerator,
-)
 from gcc_tpu_torch.ops import layers, mask  # noqa: E402
 from gcc_tpu_torch.ops import mobile_block as mb  # noqa: E402
-from gcc_tpu_torch.utils.weights import (  # noqa: E402
-    export_jax_variables, from_jax_nets, load_jax_variables, to_jax_nets,
+from gcc_tpu_torch.utils.weights import load_jax_variables  # noqa: E402
+from torch_limits import one_thread  # noqa: E402,F401
+from torch_bf16_pix2pix_common import (  # noqa: E402
+    BF, CONFIGS, LR, bf16_round, f32, max_ulps, nchw, nhwc, ratio, trajectory,
 )
-
-BF = torch.bfloat16
-# gcc_tpu's bf16 programs are compiled to round where their source rounds
-# (module docstring)
-EXACT = {"xla_allow_excess_precision": False}
-FAST = {"xla_backend_optimization_level": 0,
-        "xla_llvm_disable_expensive_passes": True, **EXACT}
-LR, ARCH_LR = 2e-4, 1e-4
-# the tiny configurations of tests/test_torch_{unet,pix2pix}.py; the resnet
-# student keeps blocks 0 and 8 of its nine (the teacher all nine), which
-# saves a third of the JAX compile of its fused stages
-UNET_CFG = [3, 6, 12, 20, 24, 20, 12, 6, 5]
-RESNET_CFG = [3, 6, 12, 5, 12] + [0, 0] * 7 + [3, 12, 6, 3]
-BASE = dict(model="pix2pix", ngf=4, ndf=8, teacher_ngf=8, teacher_ndf=8,
-            crop_size=32, no_dropout=True, gan_mode="hinge",
-            online_distillation=True, darts_discriminator=True,
-            lambda_L1=100.0, lambda_content=50.0, lambda_gram=1e4,
-            arch_lr=ARCH_LR, lr=LR)
-CONFIGS = {"unet": (dict(BASE, backbone="unet", num_downs=5), UNET_CFG),
-           "resnet_fused": (dict(BASE, backbone="resnet",
-                                 fused_resblock="on"), RESNET_CFG)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def nchw(a):
-    return torch.from_numpy(np.ascontiguousarray(
-        np.transpose(np.asarray(a, np.float32), (0, 3, 1, 2))))
-
-
-def nhwc(t):
-    return np.transpose(t.detach().float().numpy(), (0, 2, 3, 1))
-
-
-def f32(a):
-    """A JAX or torch array as float32 numpy, its layout kept."""
-    if isinstance(a, torch.Tensor):
-        return a.detach().float().numpy()
-    return np.asarray(jnp.asarray(a).astype(jnp.float32))
-
-
-def bf16_round(a):
-    """float32 numpy values rounded to bf16, back as float32."""
-    return torch.from_numpy(np.asarray(a, np.float32)).to(BF).float().numpy()
-
-
-def rms(a):
-    return float(np.sqrt(np.mean(np.square(np.asarray(a, np.float64)))))
-
-
-def ratio(port, jbf, ref32):
-    """rms(port - jax_bf16) / rms(jax_bf16 - fp32)."""
-    return rms(np.asarray(port) - jbf) / rms(jbf - np.asarray(ref32))
-
-
-def max_ulps(got, want):
-    """max |got - want| in bf16 ulps at the larger magnitude of the two."""
-    big = np.maximum(np.abs(got), np.abs(want)).astype(np.float64)
-    ulp = 2.0 ** (np.floor(np.log2(np.maximum(big, 2.0 ** -126))) - 7)
-    return float(np.max(np.abs(got.astype(np.float64) - want) / ulp))
-
-
-def _leaves(tree, prefix=""):
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _leaves(v, f"{prefix}{k}/")
-        else:
-            yield f"{prefix}{k}", v
 
 
 # ---------------------------------------------------------------------------
@@ -264,408 +186,8 @@ def test_gram_pair_err_bf16(c, hw):
 
 
 # ---------------------------------------------------------------------------
-# generator forwards
-# ---------------------------------------------------------------------------
-
-GENERATORS = {
-    "unet": (lambda: jgen.UnetGenerator(num_downs=5, ngf=4, use_dropout=False),
-             lambda: UnetGenerator(3, 3, 5, 4, False)),
-    "resnet_unfused": (
-        lambda: jgen.MobileResnetGenerator(ngf=4, use_fused_blocks=False),
-        lambda: MobileResnetGenerator(3, 3, 4, use_fused_blocks=False)),
-    "resnet_fused": (
-        lambda: jgen.MobileResnetGenerator(ngf=4, use_fused_blocks=True),
-        lambda: MobileResnetGenerator(3, 3, 4, use_fused_blocks=True)),
-}
-
-
-@pytest.mark.parametrize("name", sorted(GENERATORS))
-def test_generator_forward_bf16(name):
-    """The train-mode output and the four captured features in bf16, from
-    the same variables on the same batch: ratio <= 1/4. Measured: 0 for
-    every output of the three (bit for bit)."""
-    jmake, tmake = GENERATORS[name]
-    jmod = jmake()
-    x = (np.random.RandomState(3).rand(2, 32, 32, 3) * 2 - 1).astype(
-        np.float32)
-    v = jax.tree_util.tree_map(np.asarray, jmod.init(
-        {"params": jax.random.PRNGKey(1), "dropout": jax.random.PRNGKey(2)},
-        jnp.asarray(x), train=True))
-    port = tmake().train()
-    load_jax_variables(port, v)
-
-    def jax_run(dt):
-        xd = jnp.asarray(x).astype(dt)
-        out, mut = jax.jit(lambda v, x: jmod.apply(
-            v, x, train=True, mutable=["batch_stats", "intermediates"])).lower(
-            v, xd).compile(EXACT)(v, xd)
-        feats = mut["intermediates"]
-        return [out] + [feats[k][0] for k in sorted(feats)]
-
-    jb, j32 = jax_run(jnp.bfloat16), jax_run(jnp.float32)
-    with torch.no_grad():
-        out, feats = port(nchw(bf16_round(x)).to(BF))
-    assert out.dtype == BF and all(f.dtype == BF for f in feats)
-    for i, (p, b, r) in enumerate(zip([out] + feats, jb, j32)):
-        got = ratio(nhwc(p), f32(b), f32(r))
-        assert got <= 0.25, f"{name} output {i}: ratio {got}"
-
-
-# ---------------------------------------------------------------------------
 # the cooperative iteration: train_step + arch_step
 # ---------------------------------------------------------------------------
-
-def jax_state(jeng, nets):
-    """gcc_tpu's step-0 pix2pix state around JAX-layout nets, its own
-    optimizer inits (engines/pix2pix.py:118-140): flax's op-by-op init_state
-    is not run."""
-    nets = jax.tree_util.tree_map(jnp.asarray, nets)
-    p = {k: v["params"] for k, v in nets.items()}
-    opts = {"g": jeng.tx_g.init({"g": p["g"], "tf": p["tf"]}),
-            "d": jeng.tx_d.init(p["d"]),
-            "td": jeng.tx_d.init(p["td"]),
-            "tg": jeng.tx_g.init({"g": p["tg"]}),
-            "arch": jeng.tx_arch.init(nets["d"]["arch"])}
-    return JaxState(step=jnp.int32(0), nets=nets, opts=opts,
-                    ema={"d_arch": jnp.float32(0.0)},
-                    rng=jax.random.PRNGKey(0))
-
-
-def _jax_tree(net, values, collect=weight_params, coll="params"):
-    """``values`` (one per ``collect(net)`` parameter) in the JAX layout of
-    ``net``'s variables."""
-    net = copy.deepcopy(net)
-    with torch.no_grad():
-        for p, v in zip(collect(net), values):
-            p.copy_(v)
-    return jax.tree_util.tree_map(np.asarray, export_jax_variables(net))[coll]
-
-
-def _adam_mu(eng, state):
-    """Each port optimizer's first moments in the JAX engine's opts layout:
-    after one step from zero, (1 - b1) times the step's gradient."""
-    nets, opts = state.nets, state.opts
-    n_g = len(weight_params(nets["g"]))
-    return {"g": {"g": _jax_tree(nets["g"], opts["g"].mu[:n_g]),
-                  "tf": _jax_tree(nets["tf"], opts["g"].mu[n_g:])},
-            "tg": {"g": _jax_tree(nets["tg"], opts["tg"].mu)},
-            "td": _jax_tree(nets["td"], opts["td"].mu),
-            "d": _jax_tree(nets["d"], opts["d"].mu),
-            "arch": _jax_tree(nets["d"], opts["arch"].mu, arch_params, "arch")}
-
-
-def setup(name, lr):
-    """The port's and gcc_tpu's engines for a configuration at learning rate
-    ``lr`` (the teachers' and, halved, the arch step's too), the nets of the
-    port's seeded init in the JAX layout, and the batch source of the
-    iterations (A, B, val A, val B per iteration)."""
-    kw, student = CONFIGS[name]
-    kw = dict(kw, lr=lr, arch_lr=lr / 2)
-    eng = Pix2PixEngine(Config(**kw), filter_cfgs=student, device="cpu")
-    nets0 = to_jax_nets(eng.init_state(seed=5))
-    jeng = JaxEngine(JaxConfig(**kw), filter_cfgs=student)
-    rng = np.random.RandomState(7)
-
-    def batches():
-        return [rng.rand(2, 32, 32, 3).astype(np.float32) * 2 - 1
-                for _ in range(4)]
-
-    return eng, jeng, nets0, batches
-
-
-def trajectory(name, n_iters, lr):
-    """gcc_tpu's bf16 iterations and the port's bf16 and fp32 ones from the
-    port's seeded init on the same batches, at learning rate ``lr`` (the
-    teachers' and the arch step's too). Per iteration: the three loss dicts,
-    nets and Adam first moments (JAX engine layout) as {"jax", bf16, fp32}."""
-    eng, jeng, nets0, batches = setup(name, lr)
-    states = {dt: from_jax_nets(eng, nets0) for dt in (BF, torch.float32)}
-    jst = jax_state(jeng, nets0)
-    lr_, beta, alr = (jnp.float32(v) for v in (lr, 0.9, lr / 2))
-    train = arch = None
-    out = []
-    for _ in range(n_iters):
-        A, B, Av, Bv = batches()
-        jb = {"A": jnp.asarray(A).astype(jnp.bfloat16),
-              "B": jnp.asarray(B).astype(jnp.bfloat16)}
-        jv = {"A": jnp.asarray(Av).astype(jnp.bfloat16),
-              "B": jnp.asarray(Bv).astype(jnp.bfloat16)}
-        if train is None:
-            train = jax.jit(jeng._train_step).lower(jst, jb, lr_).compile(FAST)
-            arch = jax.jit(jeng._arch_step).lower(jst, jv, beta, alr).compile(
-                FAST)
-        jst, m1 = train(jst, jb, lr_)
-        jst, m2 = arch(jst, jv, beta, alr)
-        np_ = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
-        rec = {"jax": ({k: float(v) for k, v in {**m1, **m2}.items()},
-                       np_(jst.nets),
-                       {k: np_(o.mu) for k, o in jst.opts.items()})}
-        for dt, st in states.items():
-            tb = {"A": nchw(A).to(dt), "B": nchw(B).to(dt)}
-            tv = {"A": nchw(Av).to(dt), "B": nchw(Bv).to(dt)}
-            st, t1 = eng.train_step(st, tb, lr)
-            st, t2 = eng.arch_step(st, tv, 0.9, lr / 2)
-            rec[dt] = ({k: float(v) for k, v in {**t1, **t2}.items()},
-                       to_jax_nets(st), _adam_mu(eng, st))
-        out.append(rec)
-    return out
-
-
-def _joint_ratio(port, jbf, ref32, keys):
-    """The ratio rule over several results at once: the rms of each side's
-    differences over all of keys."""
-    num = sum(np.sum(np.square(np.asarray(port[k], np.float64)
-                               - np.asarray(jbf[k], np.float64))) for k in keys)
-    den = sum(np.sum(np.square(np.asarray(jbf[k], np.float64)
-                               - np.asarray(ref32[k], np.float64)))
-              for k in keys)
-    return float(np.sqrt(num / den))
-
-
-@pytest.fixture(scope="module", params=sorted(CONFIGS))
-def step(request):
-    """One train_step + arch_step of a configuration at learning rate 0:
-    every loss, gradient and BatchNorm statistic is then computed at the
-    initial weights, so gcc_tpu's and the port's can be compared without
-    Adam's first steps (+-lr whatever the gradient's size) turning bf16
-    rounding noise in a near-zero gradient into a full step."""
-    return request.param, trajectory(request.param, 1, 0.0)[0]
-
-
-# Each net's results (an optimizer's gradients, a net's running statistics,
-# an update's losses) are held to the ratio rule on their own, at 1/4 unless
-# named here. Every layer rounds as gcc_tpu's does, but the two frameworks'
-# convolutions sum their fp32 products in different orders: where a sum lies
-# next to the middle of two bf16 values, the two round to different
-# neighbours (test_teacher_first_difference_bf16 finds the first such
-# convolution in each teacher). Downstream of it every normalization and
-# convolution spreads the difference until it is as large as bf16's own
-# rounding. The results that read such a teacher forward are named below,
-# with their measured ratio; a bound is set from that measurement up to 1/2,
-# and a result above 1/2 is held to 1/4 instead on gcc_tpu's own teacher
-# output (test_discriminators_on_jax_fakes_bf16). None: no ratio bound in
-# the composed iteration.
-STEP_BOUNDS = {
-    # the resnet teacher's train-batch forward: ratio 0.47 at its output
-    ("resnet_fused", "grad", "tg"): 0.35,  # measured 0.29
-    ("resnet_fused", "grad", "td"): None,  # measured 1.03
-    ("resnet_fused", "stats", "td"): 0.3,  # measured 0.26
-    # the arch step's losses read the teachers' val-batch forward (the U-Net
-    # teacher's) or a val-batch forward in which gcc_tpu's convolutions,
-    # compiled for speed here, sum in another order than with XLA's full
-    # optimizations (resnet_fused: with those, the three are gcc_tpu's bit
-    # for bit)
-    ("unet", "loss", "arch"): None,  # measured 1.2
-    ("resnet_fused", "loss", "arch"): None,  # measured 1.2
-}
-LOSS_GROUPS = {"D": ("D_fake", "D_real"),
-               "G": ("G_GAN", "G_L1", "content", "gram"),
-               "arch": ("D_arch", "D_arch_diff", "teacher_D_arch_diff")}
-
-
-def check_ratio(name, kind, net, got):
-    bound = STEP_BOUNDS.get((name, kind, net), 0.25)
-    assert np.isfinite(got), f"{name} {kind} {net}: ratio {got}"
-    if bound is not None:
-        assert got <= bound, f"{name} {kind} {net}: ratio {got} > {bound}"
-
-
-def test_step_losses_bf16(step):
-    """Each update's losses together (a loss is one number; its bf16-fp32
-    difference can cancel by chance, as resnet_fused's D_arch's does to
-    1/50 of its terms'), at ratio <= 1/4 unless STEP_BOUNDS names them.
-    Measured: D 0 and 0, G 6e-4 and 0.16 (unet, resnet_fused)."""
-    name, rec = step
-    j, b, f = rec["jax"][0], rec[BF][0], rec[torch.float32][0]
-    assert set(j) == set(b) == set(f) == {k for g in LOSS_GROUPS.values()
-                                          for k in g}
-    for group, keys in LOSS_GROUPS.items():
-        check_ratio(name, "loss", group, _joint_ratio(b, j, f, keys))
-
-
-def test_step_gradients_bf16(step):
-    """Each optimizer's gradients (its Adam first moments after one step,
-    (1 - b1) grad), in fp32 and finite, at ratio <= 1/4 unless STEP_BOUNDS
-    names them. Measured: unet d 0.10, g (with tf) 0.19, tg 0.13, td 0.17;
-    resnet_fused d 0.07, g 0.09, tg 0.29, td 1.03.
-
-    The mask alphas (arch) are held to fp32 instead. gcc_tpu's alpha
-    gradient is the transpose of a bf16 broadcast product, a lax.reduce of
-    B*H*W bf16 products, which XLA on the CPU sums one after the other in
-    bf16 (measured: equal to a sequential bf16 sum; 31.75 where the exact
-    sum is 33.63); the port sums them in fp32 and rounds once, as torch's
-    reductions do. So the port's bf16 alpha gradient is nearer the fp32
-    one than gcc_tpu's CPU value is (measured ratios to gcc_tpu 0.21 unet,
-    1.05 resnet_fused)."""
-    name, rec = step
-    jmu, bmu, fmu = rec["jax"][2], rec[BF][2], rec[torch.float32][2]
-    assert set(jmu) == set(bmu) == {"g", "d", "tg", "td", "arch"}
-    for opt in jmu:
-        jl, bl, fl = (dict(_leaves(t[opt])) for t in (jmu, bmu, fmu))
-        assert set(jl) == set(bl) == set(fl), opt
-        assert all(v.dtype == np.float32 and np.isfinite(v).all()
-                   for v in bl.values())
-        if opt == "arch":
-            keys = sorted(jl)
-            port = np.sqrt(sum(np.sum(np.square(bl[k] - fl[k])) for k in keys))
-            jax_ = np.sqrt(sum(np.sum(np.square(jl[k] - fl[k])) for k in keys))
-            assert port < jax_, f"{name} alphas: {port} vs {jax_}"
-            continue
-        check_ratio(name, "grad", opt, _joint_ratio(bl, jl, fl, sorted(jl)))
-
-
-def test_step_batch_stats_bf16(step):
-    """Each net's BatchNorm running statistics the iteration's forwards
-    wrote, in fp32, at ratio <= 1/4 unless STEP_BOUNDS names them.
-    Measured: unet d 8e-5, g 1e-5, tg 0.04, td 0.15; resnet_fused d 0.17,
-    td 0.26."""
-    name, rec = step
-    nets = [n for n, t in rec["jax"][1].items() if "batch_stats" in t]
-    assert "d" in nets and "td" in nets
-    for net in nets:
-        jl, bl, fl = (dict(_leaves(rec[k][1][net]["batch_stats"]))
-                      for k in ("jax", BF, torch.float32))
-        assert set(jl) == set(bl) == set(fl), net
-        check_ratio(name, "stats", net, _joint_ratio(bl, jl, fl, sorted(jl)))
-
-
-def _jax_modules(tree, prefix=""):
-    """{module path: its first output} from flax's captured intermediates."""
-    out = {}
-    for k, v in tree.items():
-        if k == "__call__":
-            out[prefix[:-1]] = v[0]
-        elif isinstance(v, dict):  # not a sown feature
-            out.update(_jax_modules(v, f"{prefix}{k}."))
-    return out
-
-
-@pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_teacher_first_difference_bf16(name):
-    """Where the teacher's bf16 forward first leaves gcc_tpu's: the step's
-    teacher G on its train and val batches, module by module in the port's
-    order. The first module whose output differs, if one does, is a
-    convolution, at one bf16 ulp in at most 1 % of its outputs: the two
-    frameworks' fp32 sums rounding to different bf16 neighbours. (A
-    convolution that rounded at another point than gcc_tpu's differs at far
-    more: 29 % of a layer's outputs with XLA's excess precision on, module
-    docstring.) Measured: resnet_fused down_1 (3x3 stride 2, 8 -> 16) on the
-    train batch, 0.024 % of its outputs, and conv_in (7x7, 3 -> 8) on the
-    val batch, 0.006 %; unet none on the train batch and down_2 (4x4 stride
-    2, 16 -> 32) on the val batch, 0.098 %. At the teacher's output that
-    reads 0.47 and 0 (bit for bit) for resnet_fused's train and val batch,
-    0 and 0.53 for unet's: the ratios STEP_BOUNDS's named results inherit."""
-    eng, jeng, nets0, batches = setup(name, 0.0)
-    A, _, Av, _ = batches()
-    tg = from_jax_nets(eng, nets0).nets["tg"]
-    order = []
-    for mname, mod in tg.named_modules():
-        if mname:
-            mod.register_forward_hook(
-                lambda m, i, o, n=mname: order.append((n, m, o)))
-    jv = jax.tree_util.tree_map(jnp.asarray, nets0["tg"])
-
-    def fwd(v, x):
-        return jeng.TG.apply(v, x, train=True, capture_intermediates=True,
-                             mutable=["intermediates"],
-                             rngs={"dropout": jax.random.PRNGKey(0)})
-
-    run = None
-    for x in (A, Av):
-        xb = jnp.asarray(x).astype(jnp.bfloat16)
-        run = run or jax.jit(fwd).lower(jv, xb).compile(EXACT)
-        inter = _jax_modules(run(jv, xb)[1]["intermediates"])
-        order.clear()
-        with torch.no_grad():
-            tg(nchw(bf16_round(x)).to(BF), None, update_stats=False)
-        first = next(((n, m, o) for n, m, o in order
-                      if isinstance(o, torch.Tensor)
-                      and not np.array_equal(nhwc(o), f32(inter[n]))), None)
-        if first is not None:
-            n, m, o = first
-            got, want = nhwc(o), f32(inter[n])
-            assert isinstance(m, (layers.Conv, layers.ConvTranspose)), n
-            assert max_ulps(got, want) <= 1.0, n
-            assert np.mean(got != want) <= 0.01, n
-
-
-@pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_discriminators_on_jax_fakes_bf16(name):
-    """The step's discriminator work that reads a generator's output, fed
-    gcc_tpu's own bf16 generator outputs: the teacher D's update on gcc_tpu's
-    teacher fake (its gradients and running statistics) and the arch step's
-    three D forwards on the val batch (the teacher D on gcc_tpu's teacher
-    fake, D on its student fake and on the real pair), each at ratio <= 1/4;
-    the fp32 side is gcc_tpu's fp32 run on the same batch. These are the
-    results STEP_BOUNDS leaves without a bound in the composed iteration.
-    Measured: td gradients 0.11 and 0.17 (resnet_fused, unet; 1.03 and 0.17
-    in the composed iteration), running statistics 0.013 and 4e-4, the arch
-    step's D outputs 0 and 0 (bit for bit; its losses are fp32 functions of
-    them)."""
-    from gcc_tpu.engines.common import apply_net, d_pair as jax_d_pair
-    from gcc_tpu_torch.engines.common import d_pair
-
-    eng, jeng, nets0, batches = setup(name, 0.0)
-    A, B, Av, Bv = batches()
-    jn = jax.tree_util.tree_map(jnp.asarray, nets0)
-    rngs = {"dropout": jax.random.PRNGKey(0)}
-    cat = lambda a, b: jnp.concatenate([a, b], -1)  # noqa: E731
-
-    def fakes(nets, a, av):
-        return (apply_net(jeng.TG, nets["tg"], a, rngs=rngs,
-                          update_stats=False)[0],
-                apply_net(jeng.G, nets["g"], av, rngs=rngs)[0],
-                apply_net(jeng.TG, nets["tg"], av, rngs=rngs)[0])
-
-    def discs(nets, a, b, av, bv, tfake, fake_v, tfake_v):
-        def td_loss(p):
-            v = {**nets["td"], "params": p}
-            pf, pr, v = jax_d_pair(jeng.TD, v, cat(a, tfake), cat(a, b))
-            return (jlosses.gan_loss(pf, False, jeng.gan_mode)
-                    + jlosses.gan_loss(pr, True, jeng.gan_mode)) * 0.5, v
-
-        (_, v), g = jax.value_and_grad(td_loss, has_aux=True)(
-            nets["td"]["params"])
-        return (g, v["batch_stats"],
-                apply_net(jeng.TD, nets["td"], cat(av, tfake_v))[0],
-                apply_net(jeng.D, nets["d"], cat(av, fake_v))[0],
-                apply_net(jeng.D, nets["d"], cat(av, bv))[0])
-
-    want = {}
-    for dt in (jnp.bfloat16, jnp.float32):
-        batch = [jnp.asarray(x).astype(dt) for x in (A, B, Av, Bv)]
-        jf = jax.jit(fakes).lower(jn, batch[0], batch[2]).compile(EXACT)(
-            jn, batch[0], batch[2])
-        args = batch + list(jf)
-        want[dt] = jax.tree_util.tree_map(f32, jax.jit(discs).lower(
-            jn, *args).compile(EXACT)(jn, *args))
-        if dt == jnp.bfloat16:
-            inputs = args
-
-    st = from_jax_nets(eng, nets0)
-    TD, D = st.nets["td"], st.nets["d"]
-    a, b, av, bv, tfake, fake_v, tfake_v = (nchw(f32(x)).to(BF)
-                                            for x in inputs)
-    pf, pr, _ = d_pair(TD, torch.cat([a, tfake], 1), torch.cat([a, b], 1))
-    loss = (losses.gan_loss(pf, False, eng.gan_mode)
-            + losses.gan_loss(pr, True, eng.gan_mode)) * 0.5
-    grads = torch.autograd.grad(loss, weight_params(TD))
-    got = {"grad": dict(_leaves(_jax_tree(TD, grads))),
-           "stats": dict(_leaves(export_jax_variables(TD)["batch_stats"]))}
-    with torch.no_grad():
-        outs = [TD(torch.cat([av, tfake_v], 1))[0],
-                D(torch.cat([av, fake_v], 1))[0], D(torch.cat([av, bv], 1))[0]]
-    got["arch"] = {k: nhwc(o) for k, o in zip(("tpf", "pf", "pr"), outs)}
-    ref = {}
-    for dt, w in want.items():
-        ref[dt] = {"grad": dict(_leaves(w[0])), "stats": dict(_leaves(w[1])),
-                   "arch": dict(zip(("tpf", "pf", "pr"), w[2:]))}
-    for kind, port in got.items():
-        jb_, j32 = ref[jnp.bfloat16][kind], ref[jnp.float32][kind]
-        assert set(port) == set(jb_), kind
-        r = _joint_ratio(port, jb_, j32, sorted(port))
-        assert r <= 0.25, f"{name} {kind}: ratio {r}"
-
 
 def test_loss_trajectory_bf16():
     """Three U-Net iterations at lr 2e-4: every loss within 1e-2 of

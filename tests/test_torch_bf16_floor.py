@@ -33,17 +33,10 @@ import test_torch_serve_export as tse  # noqa: E402
 
 from gcc_tpu_torch.ops.layers import add_bias  # noqa: E402
 from gcc_tpu_torch.utils import serve_export as sx  # noqa: E402
+from torch_limits import one_thread  # noqa: E402,F401
 
 BF = torch.bfloat16
 N_PLACES = 8  # seeded random placements of the one-ulp moves
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _finish(conv, y):

@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 from gcc_tpu_torch.config import Config  # noqa: E402
 from gcc_tpu_torch.engines.pix2pix import Pix2PixEngine  # noqa: E402
 from gcc_tpu_torch.engines.sagan import SAGANEngine  # noqa: E402
+from torch_limits import child_env, one_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "gcc_tpu_torch").rglob("*.py")) + [
@@ -72,7 +73,7 @@ def test_importing_the_port_loads_no_jax():
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300,
-                         env={**os.environ, "PYTHONPATH": str(ROOT)})
+                         env=child_env(PYTHONPATH=str(ROOT)))
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 12
 
@@ -174,7 +175,7 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path, where):
         (tmp_path / "chip_smoke.py").write_text(
             (ROOT / "chip_smoke.py").read_text())
         cwd = tmp_path
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env = {k: v for k, v in child_env().items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
                          capture_output=True, text=True, timeout=300, env=env)
     assert out.returncode != 0

@@ -29,16 +29,7 @@ from gcc_tpu_torch.engines.sagan import SAGANEngine  # noqa: E402
 from gcc_tpu_torch.engines.srgan import SRGANEngine  # noqa: E402
 from gcc_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 from gcc_tpu_torch.utils import msgpack_lite  # noqa: E402
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Tiny nets run best on one intra-op thread, and the test workers that
-    share the host's cores then do not oversubscribe them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_limits import one_thread  # noqa: E402,F401
 
 
 def _tree():

@@ -31,6 +31,7 @@ from gcc_tpu_torch.models.generators import (  # noqa: E402
     mobile_resnet_default_cfg, unet_default_filter_cfgs,
 )
 from gcc_tpu_torch.utils.weights import export_jax_variables  # noqa: E402
+from torch_limits import one_thread  # noqa: E402,F401
 
 K = jax.random.PRNGKey(0)
 

@@ -21,17 +21,10 @@ from gcc_tpu_torch.models.generators import (  # noqa: E402
     MobileResnetGenerator, SAGANGenerator, SRResNet, UnetGenerator,
 )
 from gcc_tpu_torch.utils.weights import export_jax_variables  # noqa: E402
+from torch_limits import one_thread  # noqa: E402,F401
 
 FAMILIES = ("pix2pix", "cyclegan", "sagan", "srgan")
 NUM_DOWNS = 5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _nets(model):

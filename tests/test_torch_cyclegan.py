@@ -7,10 +7,8 @@
   the same weights on the same numpy batches, ngf 4 / ndf 8, teacher 8/8,
   32 px, batch 2, pools at 0 (a coin flip cannot be shared across
   frameworks), unfused blocks. G_A's student is pruned, one block elided.
-* normal_distillation (frozen teachers) over 2 iterations at 80 px, where
-  the blocks are 20 px a side and the fused gate opens: the port with
-  ``--fused_resblock on`` (the stage kernels' plain versions on the CPU)
-  against the JAX engine unfused.
+* normal_distillation (frozen teachers) at 80 px, fused against unfused:
+  tests/test_torch_cyclegan_80px.py.
 * The replay pool's semantics, the discriminators and generator against
   flax's, the weights mapping, and the engine's refusal without a card.
 
@@ -38,11 +36,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from gcc_tpu.config import Config as JaxConfig  # noqa: E402
-from gcc_tpu.engines.common import GANState as JaxState  # noqa: E402
 from gcc_tpu.engines.common import add_sign_sparsity as jax_sparsity  # noqa: E402
 from gcc_tpu.engines.common import cyclegan_heavy_sparsity as jax_heavy  # noqa: E402
-from gcc_tpu.engines.cyclegan import CycleGANEngine as JaxEngine  # noqa: E402
 from gcc_tpu.models.discriminators import PatchGAN as JaxPatchGAN  # noqa: E402
 from gcc_tpu.models.generators import (  # noqa: E402
     MobileResnetGenerator as JaxMobileResnet,
@@ -60,113 +55,11 @@ from gcc_tpu_torch.ops.pool import ReplayPool  # noqa: E402
 from gcc_tpu_torch.utils.weights import (  # noqa: E402
     export_jax_variables, from_jax_nets, load_jax_variables, to_jax_nets,
 )
-
-LR, ARCH_LR, N_ITERS = 2e-4, 1e-4, 3
-KW = dict(model="cyclegan", ngf=4, ndf=8, teacher_ngf=8, teacher_ndf=8,
-          crop_size=32, gan_mode="lsgan", online_distillation=True,
-          darts_discriminator=True, pool_size=0, lr=LR, arch_lr=ARCH_LR,
-          lambda_A=10.0, lambda_B=10.0, lambda_identity=0.5,
-          lambda_content=0.01, lambda_gram=10.0, lambda_L1=1.0,
-          lambda_weight=1e-3, fused_resblock="off")
-# G_A's student: [c7, d1, d2, (l1, l2) x 9, u1, u2], block 4 elided
-CFG_A = [3, 6, 12, 5, 12, 7, 12, 4, 12, 2, 12, 0, 0, 6, 12, 5, 12, 3, 12,
-         8, 12, 6, 3]
-# read the teachers after their update in the same iteration
-CHAOTIC = {"D_arch_A", "D_arch_B", "D_arch_diff_A", "D_arch_diff_B",
-           "teacher_netD_A_arch_diff", "teacher_netD_B_arch_diff"}
-FAST = {"xla_backend_optimization_level": 0,
-        "xla_llvm_disable_expensive_passes": True}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def _np(tree):
-    return jax.tree_util.tree_map(np.array, tree)
-
-
-def _nchw(a):
-    return torch.from_numpy(np.ascontiguousarray(np.transpose(a, (0, 3, 1, 2))))
-
-
-def _leaves(tree, prefix=""):
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _leaves(v, f"{prefix}{k}/")
-        else:
-            yield f"{prefix}{k}", v
-
-
-def jax_state(jeng, nets):
-    """The JAX engine's step-0 state around JAX-layout nets: its own
-    optimizer inits, as engines/cyclegan.py:112-140 builds them."""
-    nets = jax.tree_util.tree_map(jnp.asarray, nets)
-    p = {k: v["params"] for k, v in nets.items() if "params" in v}
-    opts = {"g": jeng.tx_g.init({k: p[k] for k in p
-                                 if k in ("g_a", "g_b", "tf_a", "tf_b")}),
-            "d": jeng.tx_d.init({"d_a": p["d_a"], "d_b": p["d_b"]})}
-    if jeng.cfg.online_distillation:
-        opts["tg"] = jeng.tx_g.init({"g_a": p["tg_a"], "g_b": p["tg_b"]})
-        opts["td"] = jeng.tx_d.init({"d_a": p["td_a"], "d_b": p["td_b"]})
-    if jeng.darts:
-        opts["arch"] = jeng.tx_arch.init({"d_a": nets["d_a"]["arch"],
-                                          "d_b": nets["d_b"]["arch"]})
-    return JaxState(step=jnp.int32(0), nets=nets, opts=opts,
-                    ema={"d_a_arch": jnp.float32(0.0),
-                         "d_b_arch": jnp.float32(0.0)},
-                    rng=jax.random.PRNGKey(0))
-
-
-def jax_steps(jeng, state, batch):
-    """The JAX engine's train and arch steps, compiled once each."""
-    lr = jnp.float32(LR)
-    train = jax.jit(jeng._train_step).lower(state, batch, lr).compile(FAST)
-    arch = None
-    if jeng.darts:
-        arch = jax.jit(jeng._arch_step).lower(
-            state, batch, jnp.float32(0.9), jnp.float32(ARCH_LR)).compile(FAST)
-    return (lambda s, b: train(s, b, lr),
-            lambda s, b: arch(s, b, jnp.float32(0.9), jnp.float32(ARCH_LR)))
-
-
-def trajectory(kw, n_iters, size, cfg_a=None, seed=11):
-    """(initial, per-iteration JAX and port nets, loss histories) of both
-    engines from the port's seeded init on the same batches."""
-    jeng = JaxEngine(JaxConfig(**{**kw, "fused_resblock": "off"}),
-                     cfg_AtoB=cfg_a)
-    eng = CycleGANEngine(Config(**kw), cfg_AtoB=cfg_a, device="cpu")
-    state = eng.init_state(seed=3)
-    nets0 = to_jax_nets(state)
-    jstate = jax_state(jeng, nets0)
-    rng = np.random.RandomState(seed)
-
-    def mk():
-        return rng.rand(2, size, size, 3).astype(np.float32) * 2 - 1
-
-    jtrain = jarch = None
-    snaps, hist = [], []
-    for _ in range(n_iters):
-        A, B, Av, Bv = mk(), mk(), mk(), mk()
-        jb = {"A": jnp.asarray(A), "B": jnp.asarray(B)}
-        jv = {"A": jnp.asarray(Av), "B": jnp.asarray(Bv)}
-        if jtrain is None:
-            jtrain, jarch = jax_steps(jeng, jstate, jb)
-        jstate, m = jtrain(jstate, jb)
-        state, t = eng.train_step(state, {"A": _nchw(A), "B": _nchw(B)}, LR)
-        if eng.darts:
-            jstate, m2 = jarch(jstate, jv)
-            state, t2 = eng.arch_step(state, {"A": _nchw(Av), "B": _nchw(Bv)},
-                                      0.9)
-            m, t = {**m, **m2}, {**t, **t2}
-        hist.append(({k: float(v) for k, v in m.items()},
-                     {k: float(v) for k, v in t.items()}))
-        snaps.append((_np(jstate.nets), to_jax_nets(state)))
-    return nets0, snaps, hist
+from torch_limits import one_thread  # noqa: E402,F401
+from torch_cyclegan_common import (  # noqa: E402
+    ARCH_LR, CFG_A, CHAOTIC, KW, LR, N_ITERS, _leaves, _nchw, _np, _tnets,
+    flips, trajectory,
+)
 
 
 @pytest.fixture(scope="module")
@@ -184,25 +77,6 @@ def feeds_instance_norm(net, path):
     return net.startswith("td_") and path.endswith("/bias") \
         and path.startswith(("params/conv_1/", "params/conv_2/",
                              "params/conv_3/"))
-
-
-def flips(jnets, tnets, lr=LR):
-    """Per kernel leaf, the entries more than 1e-6 apart; all of them must
-    be isolated opposite Adam steps, at most 2*lr apart."""
-    out = {}
-    for net in jnets:
-        for path, a in _leaves(jnets[net]):
-            if not path.endswith("kernel"):
-                continue
-            d = np.abs(np.asarray(a, np.float64) - tnets[net][path])
-            n = int((d > 1e-6).sum())
-            if n:
-                out[f"{net}/{path}"] = (n, d.size, float(d.max()))
-    return out
-
-
-def _tnets(nets):
-    return {k: dict(_leaves(v)) for k, v in nets.items()}
 
 
 def test_loss_trajectory_parity(runs):
@@ -280,75 +154,6 @@ def test_heavy_sparsity_weights_match_jax():
 
 def test_cpu_path_launches_no_kernel(runs):
     assert all(v == 0 for v in mobile_block.LAUNCHES.values())
-
-
-@pytest.fixture(scope="module")
-def normal80():
-    """Two iterations of normal distillation (frozen teachers) at 80 px,
-    where the blocks are 20 px a side: the port's blocks of all four
-    generators run fused, through the stage kernels' plain versions
-    (counted), the JAX engine's unfused. One JAX compile serves both tests
-    below."""
-    calls = {"fwd": 0}
-    plain = mobile_block.stage_fwd_plain
-
-    def counted(*a, **k):
-        calls["fwd"] += 1
-        return plain(*a, **k)
-
-    kw = {**KW, "crop_size": 80, "online_distillation": False,
-          "normal_distillation": True, "fused_resblock": "on"}
-    mobile_block.stage_fwd_plain = counted
-    try:
-        run = trajectory(kw, 2, 80, cfg_a=CFG_A, seed=5)
-    finally:
-        mobile_block.stage_fwd_plain = plain
-    return run, calls["fwd"]
-
-
-def test_fused_blocks_at_80px_match_jax_unfused(normal80):
-    """The port's fused blocks hold the JAX engine's unfused ones: every
-    loss of the first iteration at the pix2pix bound, every kernel within
-    1e-6 after it but isolated opposite Adam steps. The two sides' trees
-    are the same; the separable convs' biases are not read on the fused
-    path and keep their values there."""
-    (nets0, snaps, hist), fwd = normal80
-    # an iteration: the teachers' 6 target forwards (9 blocks each), the
-    # students' 6 with a gradient (G_A 8 blocks, G_B 9) and the arch
-    # step's one of each of the four G's; two stages a block
-    per_iter = 2 * (6 * 9 + 3 * (8 + 9) + (8 + 9 + 9 + 9))
-    assert fwd == 2 * per_iter
-    j, t = hist[0]
-    for k in j:
-        tol = 3e-2 if k in CHAOTIC else 1e-4 + 2e-3 * abs(j[k])
-        assert abs(j[k] - t[k]) < tol, (k, j[k], t[k])
-    jnets, tnets = snaps[0]
-    found = flips(jnets, _tnets(tnets))
-    print(f"isolated opposite Adam steps: {found}")
-    for name, (n, size, worst) in found.items():
-        assert worst <= 2 * LR + 1e-6 and n <= max(1, size // 100), name
-    for net in ("g_a", "g_b"):
-        for path, a in _leaves(tnets[net]):
-            if "_sep" in path and path.endswith("/bias"):
-                np.testing.assert_array_equal(
-                    a, dict(_leaves(nets0[net]))[path])
-
-
-def test_normal_distillation_parity(normal80):
-    """Frozen teachers: both iterations at the pix2pix bound on every loss
-    (the arch keys 3e-2), and the teachers' parameters unchanged on both
-    sides."""
-    (nets0, snaps, hist), _ = normal80
-    for i, (j, t) in enumerate(hist):
-        assert set(j) == set(t)
-        for k in j:
-            tol = 3e-2 if k in CHAOTIC else 1e-4 + 2e-3 * abs(j[k])
-            assert abs(j[k] - t[k]) < tol, (i, k, j[k], t[k])
-    jnets, tnets = snaps[-1]
-    for net in ("tg_a", "tg_b", "td_a", "td_b"):
-        for path, a in _leaves(nets0[net]):
-            np.testing.assert_array_equal(dict(_leaves(tnets[net]))[path], a)
-            np.testing.assert_array_equal(dict(_leaves(jnets[net]))[path], a)
 
 
 # ---------------------------------------------------------------------------

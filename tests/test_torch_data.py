@@ -35,20 +35,11 @@ from gcc_tpu_torch.data.loader import InfiniteLoader, Loader  # noqa: E402
 from gcc_tpu_torch.data.resample import BICUBIC, BILINEAR, resize  # noqa: E402
 from gcc_tpu_torch.eval.orchestrators import pixel_fid  # noqa: E402
 from gcc_tpu_torch.utils.image import png_bytes, save_images  # noqa: E402
+from torch_limits import one_thread  # noqa: E402,F401
 
 PIL_METHOD = {BICUBIC: Image.BICUBIC, BILINEAR: Image.BILINEAR}
 IN_SIZES = [(8, 8), (17, 29), (64, 32), (256, 512), (1, 7)]
 OUT_SIZES = [(8, 8), (3, 100), (1, 1), (32, 16), (286, 286), (7, 5)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Tiny nets run best on one intra-op thread, and the test workers that
-    share the host's cores then do not oversubscribe them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _pil_resize(a, size, method):

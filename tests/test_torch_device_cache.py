@@ -30,20 +30,13 @@ from gcc_tpu_torch.data import (  # noqa: E402
 from gcc_tpu_torch.data import device_cache  # noqa: E402
 from gcc_tpu_torch.data.loader import Loader  # noqa: E402
 from torch_data_roots import cfg_kw, write_root  # noqa: E402
+from torch_limits import one_thread  # noqa: E402,F401
 
 CACHEABLE = [("aligned", "resize_and_crop", False),
              ("unaligned", "resize_and_crop", False),
              ("unaligned", "resize_and_crop", True),
              ("sa", None, False)]
 CACHE_IDS = ["aligned", "unaligned", "unaligned-serial", "sa"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _root(tmp_path, mode, preprocess, serial=False, **kw):

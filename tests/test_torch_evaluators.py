@@ -27,16 +27,9 @@ from gcc_tpu.utils import torch_ref_evaluators as tre  # noqa: E402
 from gcc_tpu_torch.metrics import inception as inc  # noqa: E402
 from gcc_tpu_torch.metrics import miou  # noqa: E402
 from gcc_tpu_torch.utils import weights  # noqa: E402
+from torch_limits import one_thread  # noqa: E402,F401
 
 THIN_DRN = (1, 1, 2, 2, 2, 2, 1, 1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(ours, theirs) -> float:

@@ -30,17 +30,10 @@ from gcc_tpu_torch.engines.common import (  # noqa: E402
 from gcc_tpu_torch.models.discriminators import PatchGAN  # noqa: E402
 from gcc_tpu_torch.ops.layers import init_params  # noqa: E402
 from gcc_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from torch_limits import one_thread, spawn_within  # noqa: E402,F401
 
 # tests/test_fused_d.py's pix2pix, no dropout
 PIX2PIX = dict(crop_size=32, num_downs=5, no_dropout=True)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _d(seed=0):
@@ -128,7 +121,9 @@ def dp(tmp_path_factory):
     jobs = [("fused", dict(kw, arch=False, fused_d_batch=True)),
             ("fused_arch", dict(kw, fused_d_batch=True)),
             ("unfused_arch", dict(kw, fused_d_batch=False))]
-    pmesh.spawn(W.rank_runs, 2, args=(jobs, out), threads=1, timeout=60.0)
+    with spawn_within(60, "the two ranks of the dp fixture"):
+        pmesh.spawn(W.rank_runs, 2, args=(jobs, out), threads=1,
+                    timeout=60.0)
     return out, kw
 
 

@@ -28,6 +28,7 @@ from gcc_tpu_torch.metrics import miou as port_miou  # noqa: E402
 from gcc_tpu_torch.metrics import vgg as port_vgg  # noqa: E402
 from gcc_tpu_torch.metrics.ingest import (IngestError,  # noqa: E402
                                           ingest_evaluator)
+from torch_limits import one_thread  # noqa: E402,F401
 
 THIN_DRN = (1, 1, 2, 2, 2, 2, 1, 1)
 JAX_LOADERS = {"inception": load_torch_fid_inception,
@@ -41,14 +42,6 @@ PORT_LOADERS = {
     "vgg": lambda p: {f"{conv}.{leaf}": torch.from_numpy(v)
                       for conv, node in port_vgg.load_torch_vgg19(p).items()
                       for leaf, v in node.items()}}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _fixture(kind, tmp_path, seed=0):

@@ -24,16 +24,9 @@ torch = pytest.importorskip("torch")
 from gcc_tpu.utils import memory_guard as jguard  # noqa: E402
 from gcc_tpu_torch.cli import train as ttrain  # noqa: E402
 from gcc_tpu_torch.utils import memory_guard as guard  # noqa: E402
+from torch_limits import one_thread  # noqa: E402,F401
 
 GIB = 1 << 30
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 class _Log:

@@ -27,6 +27,7 @@ from gcc_tpu_torch.models.generators import MobileResnetGenerator  # noqa: E402
 from gcc_tpu_torch.ops import mobile_block as mb  # noqa: E402
 from gcc_tpu_torch.ops.layers import init_params  # noqa: E402
 from torch_tf32 import mma_partial  # noqa: E402
+from torch_limits import one_thread  # noqa: E402,F401
 
 
 def nchw(a):

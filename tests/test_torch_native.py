@@ -22,6 +22,7 @@ from gcc_tpu_torch.config import Config  # noqa: E402
 from gcc_tpu_torch.data import build_dataset  # noqa: E402
 from gcc_tpu_torch.data.resample import BICUBIC, resize  # noqa: E402
 from torch_data_roots import cfg_kw, write_root  # noqa: E402
+from torch_limits import one_thread  # noqa: E402,F401
 
 LEVEL = 2.0 / 255.0  # one uint8 level in [-1, 1]
 

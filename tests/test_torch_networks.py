@@ -23,6 +23,7 @@ from gcc_tpu_torch.models.generators import MobileResnetGenerator  # noqa: E402
 from gcc_tpu_torch.utils.weights import (  # noqa: E402
     export_jax_variables, load_jax_variables,
 )
+from torch_limits import one_thread  # noqa: E402,F401
 
 ATOL = 2e-5
 # pruned [c7, d1, d2, (l1, l2) x 9, u1, u2] with block 6 elided

@@ -33,6 +33,7 @@ from gcc_tpu_torch.config import Config  # noqa: E402
 from gcc_tpu_torch.engines.pix2pix import Pix2PixEngine  # noqa: E402
 from gcc_tpu_torch.engines.sagan import SAGANEngine  # noqa: E402
 from gcc_tpu_torch.utils.weights import from_jax_nets, to_jax_nets  # noqa: E402
+from torch_limits import one_thread  # noqa: E402,F401
 
 N_ITERS = 2
 PIX2PIX = dict(model="pix2pix", ngf=4, ndf=8, teacher_ngf=8, teacher_ndf=8,

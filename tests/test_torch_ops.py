@@ -30,6 +30,7 @@ from gcc_tpu_torch.ops import layers as tl  # noqa: E402
 from gcc_tpu_torch.ops import mask as tmask  # noqa: E402
 from gcc_tpu_torch.utils import schedule as tschedule  # noqa: E402
 from gcc_tpu_torch.utils.weights import load_jax_variables  # noqa: E402
+from torch_limits import one_thread  # noqa: E402,F401
 
 ATOL = 1e-6
 

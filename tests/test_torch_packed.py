@@ -31,14 +31,7 @@ from gcc_tpu_torch.config import Config  # noqa: E402
 from gcc_tpu_torch.data import build_dataset, packed  # noqa: E402
 from gcc_tpu_torch.data.loader import Loader  # noqa: E402
 from torch_data_roots import CASES, IDS, cfg_kw, write_root  # noqa: E402
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_limits import one_thread  # noqa: E402,F401
 
 
 def _pack_both(tmp_path, mode, preprocess, split):

@@ -24,6 +24,7 @@ from gcc_tpu_torch.cli import prepare  # noqa: E402
 from gcc_tpu_torch.cli import test as ttest  # noqa: E402
 from gcc_tpu_torch.cli import train as ttrain  # noqa: E402
 from torch_data_roots import _imgs  # noqa: E402
+from torch_limits import one_thread  # noqa: E402,F401
 
 UNET = ("--model pix2pix --dataset_mode aligned --ngf 4 --ndf 4 "
         "--num_downs 5 --crop_size 32 --load_size 36 --batch_size 4 "
@@ -41,14 +42,6 @@ SAGAN = ("--model sagan --dataset_mode sa --ngf 4 --ndf 4 --z_dim 16 "
          # fp32, as UNET above: SAGAN computes in bf16 by default
          "--lambda_gram 1 --compute_dtype float32")
 CPU = " --gpu_ids -1"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _roots(tmp_path, flags, sagan):

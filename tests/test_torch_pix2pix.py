@@ -28,6 +28,7 @@ from gcc_tpu_torch.config import Config  # noqa: E402
 from gcc_tpu_torch.engines.pix2pix import Pix2PixEngine  # noqa: E402
 from gcc_tpu_torch.ops import mobile_block  # noqa: E402
 from gcc_tpu_torch.utils.weights import from_jax_nets, to_jax_nets  # noqa: E402
+from torch_limits import one_thread  # noqa: E402,F401
 
 # pruned student [c7, d1, d2, (l1, l2) x 9, u1, u2]; block 4 is elided (l1 = 0)
 STUDENT_CFG = [3, 6, 12, 5, 12, 7, 12, 4, 12, 2, 12, 0, 0, 6, 12, 5, 12,

@@ -32,6 +32,7 @@ from gcc_tpu_torch.ops import attention  # noqa: E402
 from gcc_tpu_torch.utils.weights import (  # noqa: E402
     export_jax_variables, load_jax_variables,
 )
+from torch_limits import one_thread  # noqa: E402,F401
 
 GAMMA = {"attn1": 0.5, "attn2": -0.3}
 

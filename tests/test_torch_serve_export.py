@@ -59,6 +59,7 @@ from gcc_tpu_torch.config import Config  # noqa: E402
 from gcc_tpu_torch.ops.layers import Conv, ConvTranspose  # noqa: E402
 from gcc_tpu_torch.utils import serve_export as sx  # noqa: E402
 from gcc_tpu_torch.utils.weights import to_jax_nets  # noqa: E402
+from torch_limits import ONE_THREAD, one_thread, watched  # noqa: E402,F401
 
 BF = torch.bfloat16
 
@@ -107,16 +108,6 @@ EXPORTS = {"unet": ("unet", "AtoB", False),
 EXACT = {"xla_allow_excess_precision": False,
          "xla_backend_optimization_level": 0,
          "xla_llvm_disable_expensive_passes": True}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Tiny nets run best on one intra-op thread, and the test workers that
-    share the host's cores then do not oversubscribe them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _engines(family):
@@ -561,14 +552,16 @@ def test_cli_end_to_end(tmp_path, monkeypatch):
     loader = subprocess.Popen(
         [sys.executable, "-I", "-c", LOADER, str(tmp_path / "x.npy")] + paths,
         cwd=tmp_path, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True, env={"PATH": os.environ["PATH"]})
+        text=True, env={"PATH": os.environ["PATH"], **ONE_THREAD},
+        start_new_session=True)
     want = []
-    for quant, tag in (("none", ""), ("int8", "_int8")):
-        assert jmain(["--output_dir", jax_dir, "--platforms", "cpu",
-                      "--quantize", quant] + flags) == 0
-        want.append(run_jax(hx.load_exported(
-            os.path.join(jax_dir, f"pix2pix_G{tag}.stablehlo")), xj))
-    _, err = loader.communicate(timeout=300)
+    with watched(loader, 300, "test_cli_end_to_end: the loader"):
+        for quant, tag in (("none", ""), ("int8", "_int8")):
+            assert jmain(["--output_dir", jax_dir, "--platforms", "cpu",
+                          "--quantize", quant] + flags) == 0
+            want.append(run_jax(hx.load_exported(
+                os.path.join(jax_dir, f"pix2pix_G{tag}.stablehlo")), xj))
+        _, err = loader.communicate(timeout=300)
     assert loader.returncode == 0, err
     log = open(os.path.join(tmp_path, "exp", "logger.log")).read()
     assert f"exported {paths[0]} (" in log and "quantize=int8" in log

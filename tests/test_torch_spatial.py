@@ -38,25 +38,19 @@ import torch_spatial_workers as W  # noqa: E402
 from gcc_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from gcc_tpu_torch.parallel import spatial  # noqa: E402
 from gcc_tpu_torch.utils.weights import export_jax_variables  # noqa: E402
+from torch_limits import one_thread, spawn_within  # noqa: E402,F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)  # tests/test_parallel.py's
 WORLD = 4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
 def ranks():
     """Every rank's results of one spawn of 4 Gloo ranks."""
     with tempfile.TemporaryDirectory() as out:
-        pmesh.spawn(W.spatial_job, WORLD, args=(out,), threads=1,
-                    timeout=120.0)
+        with spawn_within(120, "the four ranks of the ranks fixture"):
+            pmesh.spawn(W.spatial_job, WORLD, args=(out,), threads=1,
+                        timeout=120.0)
         res = []
         for r in range(WORLD):
             with open(os.path.join(out, f"{r}.pkl"), "rb") as f:
@@ -229,7 +223,8 @@ def test_cli_test_sharded_writes_the_unsharded_images(tmp_path):
             f"--checkpoints_dir {tmp_path} --gpu_ids -1")
     for name, flags in (("plain", ""), ("one", " --spatial_shards 2"),
                         ("two", " --mesh_shape 2 --spatial_shards 2")):
-        assert ttest.main(f"{base} --name {name}{flags}".split()) == 0
+        with spawn_within(120, f"test_cli_spatial_shards: {name}"):
+            assert ttest.main(f"{base} --name {name}{flags}".split()) == 0
     logs = {n: (tmp_path / n / "logger.log").read_text()
             for n in ("plain", "one", "two")}
     assert ("spatial_apply: 2 shards requested but only 1 ranks; "

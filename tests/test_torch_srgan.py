@@ -61,6 +61,7 @@ from gcc_tpu_torch.ops.layers import init_params  # noqa: E402
 from gcc_tpu_torch.utils.weights import (  # noqa: E402
     export_jax_variables, load_jax_variables, to_jax_nets,
 )
+from torch_limits import one_thread  # noqa: E402,F401
 
 LR, N_ITERS = 1e-4, 3
 FILTERS = [4, 6, 8, 4, 6, 8, 4, 0, 8, 4, 6, 8, 4, 6, 8, 4]  # block 7 elided
@@ -72,14 +73,6 @@ KW = dict(model="srgan", ngf=8, ndf=8, teacher_ngf=8, teacher_ndf=8,
           lambda_L1=1.0)
 FAST = {"xla_backend_optimization_level": 0,
         "xla_llvm_disable_expensive_passes": True}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):

@@ -36,17 +36,10 @@ import torch.nn.functional as F
 import torch_bf16_pairs as bp
 from gcc_tpu_torch.ops import kernels
 from gcc_tpu_torch.ops import mobile_block as mb
+from torch_limits import one_thread  # noqa: E402,F401
 
 BF = torch.bfloat16
 THREADS, WARPS = 256, 8
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_native_ops_equal_the_fp32_forms():

@@ -37,18 +37,11 @@ import torch.nn.functional as F
 
 from gcc_tpu_torch.ops import kernels
 from gcc_tpu_torch.ops import mobile_block as mb
+from torch_limits import one_thread  # noqa: E402,F401
 
 THREADS, VEC, VPT, WARPS = 256, 8, 2, 8  # VPT vectors of VEC: 16 pixels a thread
 BK, BM, SMS, BLOCKS_PER_SM = 32, 128, 132, 2  # the kernels' tiles, an H100
 BF = torch.bfloat16
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def rnd(t):

@@ -37,6 +37,7 @@ from gcc_tpu_torch.models.generators import (  # noqa: E402
 from gcc_tpu_torch.utils.weights import (  # noqa: E402
     export_jax_variables, from_jax_nets, load_jax_variables, to_jax_nets,
 )
+from torch_limits import one_thread  # noqa: E402,F401
 
 # the tiny configuration of tests/test_cooperative_parity.py
 STUDENT_CFGS = [3, 6, 12, 20, 24, 20, 12, 6, 5]

@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 from gcc_tpu_torch.models.generators import MobileResnetGenerator  # noqa: E402
 from gcc_tpu_torch.utils import get_data, visual  # noqa: E402
 from gcc_tpu_torch.utils.weights import load_jax_variables  # noqa: E402
+from torch_limits import one_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

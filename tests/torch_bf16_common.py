@@ -15,7 +15,6 @@ import contextlib
 import copy
 
 import numpy as np
-import pytest
 import torch
 import torch.nn.functional as F
 
@@ -31,16 +30,6 @@ BF = torch.bfloat16
 EXACT = {"xla_allow_excess_precision": False}
 FAST = {"xla_backend_optimization_level": 0,
         "xla_llvm_disable_expensive_passes": True, **EXACT}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One torch thread for the module: six xdist workers with eight threads
-    each oversubscribe the host."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def nchw(a):
