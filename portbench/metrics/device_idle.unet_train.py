@@ -1,0 +1,3 @@
+"""device_idle.unet_train: readers.device_idle_train."""
+
+from portbench.readers import device_idle_train as read  # noqa: F401
