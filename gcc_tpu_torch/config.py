@@ -142,7 +142,7 @@ class Config:
     native_loader: bool = False  # C++ transform engine (gcc_tpu_torch.native; raises if g++ cannot build it)
     debug_nans: bool = False  # jax_debug_nans (SURVEY.md §5 sanitizers row)
     check_numerics: bool = False  # post-step finite-check on the named-loss dict; aborts with the offending loss names (cheaper than --debug_nans: no per-primitive re-execution, one host sync per step)
-    profile_steps: int = 0  # capture a jax.profiler trace of the first N iters
+    profile_steps: int = 0  # write a torch.profiler chrome trace (profile/trace.json, with the gcc.* spans) of the first N iters
     seed: int = 0
     compute_dtype: str = "bfloat16"  # dtype for conv math inside the step
     param_dtype: str = "float32"

@@ -24,6 +24,7 @@ from gcc_tpu_torch.losses import gan_loss, gram_pair_err, mse, sqrt_mse
 from gcc_tpu_torch.ops.layers import BatchNorm, Conv, ConvTranspose, Dense
 from gcc_tpu_torch.parallel.mesh import reduce_gradients
 from gcc_tpu_torch.parallel.spatial import spatial_apply
+from gcc_tpu_torch.utils.tracing import span, spanned
 from gcc_tpu_torch.utils.weights import export_jax_variables, load_jax_variables
 
 
@@ -166,6 +167,7 @@ class Adam:
         self.mu = [torch.zeros_like(p) for p in params]
         self.nu = [torch.zeros_like(p) for p in params]
 
+    @spanned("gcc.adam")
     @torch.no_grad()
     def step(self, params: Sequence[torch.Tensor],
              grads: Sequence[torch.Tensor], lr) -> None:
@@ -340,8 +342,9 @@ class CombinedStepMixin:
 
     def train_arch_step(self, state: GANState, batch, val_batch, lr: float,
                         ema_beta: float, arch_lr: Optional[float] = None):
-        state, m = self.train_step(state, batch, lr)
-        state, am = self.arch_step(state, val_batch, ema_beta, arch_lr)
+        with span("gcc.step"):
+            state, m = self.train_step(state, batch, lr)
+            state, am = self.arch_step(state, val_batch, ema_beta, arch_lr)
         return state, {**m, **am}
 
 

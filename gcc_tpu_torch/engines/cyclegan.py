@@ -50,6 +50,7 @@ from gcc_tpu_torch.models.generators import (
 from gcc_tpu_torch.ops.layers import init_params
 from gcc_tpu_torch.ops.mask import clip_alphas
 from gcc_tpu_torch.parallel.mesh import mesh_step
+from gcc_tpu_torch.utils.tracing import span, spanned
 from gcc_tpu_torch.ops.pool import ReplayPool
 from gcc_tpu_torch.utils.weights import export_jax_variables, load_jax_variables
 
@@ -194,7 +195,8 @@ class CycleGANEngine(CombinedStepMixin):
 
         if self.distill and not self.online:
             # normal_distillation: frozen teachers, forward-only targets
-            with torch.no_grad(), eval_mode(nets["td_a"], nets["td_b"]):
+            with span("gcc.teacher_g"), torch.no_grad(), \
+                    eval_mode(nets["td_a"], nets["td_b"]):
                 (t_fake_B, _, t_fake_A, _, _, _, tgfA, tgfB) = \
                     self._g_forward_all(nets["tg_a"], nets["tg_b"], A, B)
                 _, tdfA = nets["td_a"](t_fake_B)
@@ -203,88 +205,97 @@ class CycleGANEngine(CombinedStepMixin):
         if self.online:
             # ---- teacher G update, joint over both directions ----
             TDA, TDB = nets["td_a"], nets["td_b"]
-            (tfB, trA, tfA, trB, tiA, tiB, tgfA, tgfB) = \
-                self._g_forward_all(nets["tg_a"], nets["tg_b"], A, B)
-            pfa, _ = TDA(tfB, False)
-            pfb, _ = TDB(tfA, False)
-            loss = (gan_loss(pfa, True, gm) + gan_loss(pfb, True, gm)
-                    + lam_A * l1(trA, A) + lam_B * l1(trB, B)
-                    + lam_idt * (lam_B * l1(tiA, B) + lam_A * l1(tiB, A)))
-            tg_params = self._pair(nets, "tg")
-            # the TEACHER gets the sparsity injection too, heavy weighting
-            # included (train.py:93-98, CycleGAN.py:537)
-            gtg = self._sparsify(nets, "tg", tg_params,
-                                 grads_of(loss, tg_params))
-            opts["tg"].step(tg_params, gtg, cfg.lr)
-            t_fake_B, t_fake_A = tfB.detach(), tfA.detach()
+            with span("gcc.teacher_g"):
+                (tfB, trA, tfA, trB, tiA, tiB, tgfA, tgfB) = \
+                    self._g_forward_all(nets["tg_a"], nets["tg_b"], A, B)
+                pfa, _ = TDA(tfB, False)
+                pfb, _ = TDB(tfA, False)
+                loss = (gan_loss(pfa, True, gm) + gan_loss(pfb, True, gm)
+                        + lam_A * l1(trA, A) + lam_B * l1(trB, B)
+                        + lam_idt * (lam_B * l1(tiA, B) + lam_A * l1(tiB, A)))
+                tg_params = self._pair(nets, "tg")
+                # the TEACHER gets the sparsity injection too, heavy
+                # weighting included (train.py:93-98, CycleGAN.py:537)
+                gtg = self._sparsify(nets, "tg", tg_params,
+                                     grads_of(loss, tg_params))
+                opts["tg"].step(tg_params, gtg, cfg.lr)
+                t_fake_B, t_fake_A = tfB.detach(), tfA.detach()
 
             # ---- teacher D update on its own pools; the fake passes'
             # features are the D targets ----
-            tp_fake_B = nets["tpool_b"].query(t_fake_B, state.rng)
-            tp_fake_A = nets["tpool_a"].query(t_fake_A, state.rng)
-            pra, pfa, tdfA = d_pair(TDA, B, tp_fake_B, self.fused_d, False)
-            prb, pfb, tdfB = d_pair(TDB, A, tp_fake_A, self.fused_d, False)
-            loss = ((gan_loss(pra, True, gm) + gan_loss(pfa, False, gm)) * 0.5
-                    + (gan_loss(prb, True, gm)
-                       + gan_loss(pfb, False, gm)) * 0.5)
-            td_params = self._pair(nets, "td")
-            opts["td"].step(td_params, grads_of(loss, td_params), cfg.lr)
-            targets_A = [f.detach() for f in tgfA + tdfA]
-            targets_B = [f.detach() for f in tgfB + tdfB]
+            with span("gcc.teacher_d"):
+                tp_fake_B = nets["tpool_b"].query(t_fake_B, state.rng)
+                tp_fake_A = nets["tpool_a"].query(t_fake_A, state.rng)
+                pra, pfa, tdfA = d_pair(TDA, B, tp_fake_B, self.fused_d, False)
+                prb, pfb, tdfB = d_pair(TDB, A, tp_fake_A, self.fused_d, False)
+                loss = ((gan_loss(pra, True, gm)
+                         + gan_loss(pfa, False, gm)) * 0.5
+                        + (gan_loss(prb, True, gm)
+                           + gan_loss(pfb, False, gm)) * 0.5)
+                td_params = self._pair(nets, "td")
+                opts["td"].step(td_params, grads_of(loss, td_params), cfg.lr)
+                targets_A = [f.detach() for f in tgfA + tdfA]
+                targets_B = [f.detach() for f in tgfB + tdfB]
 
         # ---- student G update (G-then-D, CycleGAN.py:567-588) ----
-        (fake_B, rec_A, fake_A, rec_B, idt_A, idt_B, fA, fB) = \
-            self._g_forward_all(nets["g_a"], nets["g_b"], A, B)
-        # the masked student D is BatchNorm: its stats move on this forward
-        pfa, _ = nets["d_a"](fake_B)
-        pfb, _ = nets["d_b"](fake_A)
-        aux = {"G_A": gan_loss(pfa, True, gm), "G_B": gan_loss(pfb, True, gm),
-               "cycle_A": lam_A * l1(rec_A, A),
-               "cycle_B": lam_B * l1(rec_B, B),
-               "idt_A": lam_idt * lam_B * l1(idt_A, B),
-               "idt_B": lam_idt * lam_A * l1(idt_B, A)}
-        loss = sum(aux.values())
-        if self.distill:
-            trA, trB = nets["tf_a"](fA), nets["tf_b"](fB)
-            # teacher-D features of the student fake are detached in the
-            # reference (CycleGAN.py:492-493): no gradient through them
-            with torch.no_grad():
-                _, sdA = nets["td_a"](fake_B.detach(), False)
-                _, sdB = nets["td_b"](fake_A.detach(), False)
-            cA, gA = distill_losses(trA + sdA, targets_A, use_sqrt=False)
-            cB, gB = distill_losses(trB + sdB, targets_B, use_sqrt=False)
-            n_feats = len(trA) + len(sdA)
-            aux["content_A"] = cfg.lambda_content * cA
-            aux["content_B"] = cfg.lambda_content * cB
-            aux["gram_A"] = cfg.lambda_gram * gA
-            aux["gram_B"] = cfg.lambda_gram * gB
-            # L1 accumulated once per feature pair (CycleGAN.py:515,523)
-            aux["L1_A"] = cfg.lambda_L1 * n_feats * l1(fake_B, t_fake_B)
-            aux["L1_B"] = cfg.lambda_L1 * n_feats * l1(fake_A, t_fake_A)
-            for k in ("content_A", "content_B", "gram_A", "gram_B", "L1_A",
-                      "L1_B"):
-                loss = loss + aux[k]
-        bundle = self._g_bundle(nets)
-        gg = self._sparsify(nets, "g", bundle, grads_of(loss, bundle))
-        opts["g"].step(bundle, gg, lr)
-        m.update({k: v.detach() for k, v in aux.items()})
+        with span("gcc.student_g"):
+            (fake_B, rec_A, fake_A, rec_B, idt_A, idt_B, fA, fB) = \
+                self._g_forward_all(nets["g_a"], nets["g_b"], A, B)
+            # the masked student D is BatchNorm: its stats move on this
+            # forward
+            pfa, _ = nets["d_a"](fake_B)
+            pfb, _ = nets["d_b"](fake_A)
+            aux = {"G_A": gan_loss(pfa, True, gm),
+                   "G_B": gan_loss(pfb, True, gm),
+                   "cycle_A": lam_A * l1(rec_A, A),
+                   "cycle_B": lam_B * l1(rec_B, B),
+                   "idt_A": lam_idt * lam_B * l1(idt_A, B),
+                   "idt_B": lam_idt * lam_A * l1(idt_B, A)}
+            loss = sum(aux.values())
+            if self.distill:
+                trA, trB = nets["tf_a"](fA), nets["tf_b"](fB)
+                # teacher-D features of the student fake are detached in
+                # the reference (CycleGAN.py:492-493): no gradient through
+                # them
+                with torch.no_grad():
+                    _, sdA = nets["td_a"](fake_B.detach(), False)
+                    _, sdB = nets["td_b"](fake_A.detach(), False)
+                cA, gA = distill_losses(trA + sdA, targets_A, use_sqrt=False)
+                cB, gB = distill_losses(trB + sdB, targets_B, use_sqrt=False)
+                n_feats = len(trA) + len(sdA)
+                aux["content_A"] = cfg.lambda_content * cA
+                aux["content_B"] = cfg.lambda_content * cB
+                aux["gram_A"] = cfg.lambda_gram * gA
+                aux["gram_B"] = cfg.lambda_gram * gB
+                # L1 accumulated once per feature pair (CycleGAN.py:515,523)
+                aux["L1_A"] = cfg.lambda_L1 * n_feats * l1(fake_B, t_fake_B)
+                aux["L1_B"] = cfg.lambda_L1 * n_feats * l1(fake_A, t_fake_A)
+                for k in ("content_A", "content_B", "gram_A", "gram_B",
+                          "L1_A", "L1_B"):
+                    loss = loss + aux[k]
+            bundle = self._g_bundle(nets)
+            gg = self._sparsify(nets, "g", bundle, grads_of(loss, bundle))
+            opts["g"].step(bundle, gg, lr)
+            m.update({k: v.detach() for k, v in aux.items()})
 
         # ---- student D update on the pooled fakes ----
-        pooled_fake_B = nets["pool_b"].query(fake_B.detach(), state.rng)
-        pooled_fake_A = nets["pool_a"].query(fake_A.detach(), state.rng)
-        pra, pfa, _ = d_pair(nets["d_a"], B, pooled_fake_B, self.fused_d)
-        prb, pfb, _ = d_pair(nets["d_b"], A, pooled_fake_A, self.fused_d)
-        lda = (gan_loss(pra, True, gm) + gan_loss(pfa, False, gm)) * 0.5
-        ldb = (gan_loss(prb, True, gm) + gan_loss(pfb, False, gm)) * 0.5
-        d_params = self._pair(nets, "d")
-        opts["d"].step(d_params, grads_of(lda + ldb, d_params), lr)
-        m["D_A"], m["D_B"] = lda.detach(), ldb.detach()
+        with span("gcc.student_d"):
+            pooled_fake_B = nets["pool_b"].query(fake_B.detach(), state.rng)
+            pooled_fake_A = nets["pool_a"].query(fake_A.detach(), state.rng)
+            pra, pfa, _ = d_pair(nets["d_a"], B, pooled_fake_B, self.fused_d)
+            prb, pfb, _ = d_pair(nets["d_b"], A, pooled_fake_A, self.fused_d)
+            lda = (gan_loss(pra, True, gm) + gan_loss(pfa, False, gm)) * 0.5
+            ldb = (gan_loss(prb, True, gm) + gan_loss(pfb, False, gm)) * 0.5
+            d_params = self._pair(nets, "d")
+            opts["d"].step(d_params, grads_of(lda + ldb, d_params), lr)
+            m["D_A"], m["D_B"] = lda.detach(), ldb.detach()
 
         state.step += 1
         return state, m
 
     # -------------------------------------------------------------- arch step
 
+    @spanned("gcc.arch")
     @mesh_step
     def arch_step(self, state: GANState, batch: Dict[str, torch.Tensor],
                   ema_beta: float, arch_lr: Optional[float] = None

@@ -48,6 +48,7 @@ from gcc_tpu_torch.models.generators import (
 from gcc_tpu_torch.ops.layers import Conv, init_params
 from gcc_tpu_torch.ops.mask import clip_alphas
 from gcc_tpu_torch.parallel.mesh import mesh_step
+from gcc_tpu_torch.utils.tracing import span, spanned
 
 
 class TransformConvs(nn.Module):
@@ -179,77 +180,86 @@ class Pix2PixEngine(CheckpointMixin, CombinedStepMixin, RowShardedMixin):
 
         if self.distill and not self.online:
             # normal_distillation: frozen teacher, forward-only targets
-            with torch.no_grad(), eval_mode(nets["tg"], nets["td"]):
+            with span("gcc.teacher_g"), torch.no_grad(), \
+                    eval_mode(nets["tg"], nets["td"]):
                 tfake, tg_feats = nets["tg"](A)
                 _, td_feats = nets["td"](torch.cat([A, tfake], 1))
             target_feats = tg_feats + td_feats
         if self.online:
             TG, TD = nets["tg"], nets["td"]
-            # ---- teacher forward (tfake for its D update) ----
-            with torch.no_grad():
-                tfake, _ = TG(A, t_masks(), update_stats=False)
-
-            # ---- teacher D update (D-then-G order, Pix2Pix.py:565-583) ----
-            pf, pr, _ = d_pair(TD, torch.cat([A, tfake], 1), AB, self.fused_d)
-            loss = (gan_loss(pf, False, self.gan_mode)
-                    + gan_loss(pr, True, self.gan_mode)) * 0.5
-            td_params = weight_params(TD)
-            opts["td"].step(td_params, grads_of(loss, td_params),
-                            cfg.lr)  # teacher LR is never scheduled
+            # ---- teacher D update (D-then-G order, Pix2Pix.py:565-583),
+            # after the teacher forward that makes its tfake ----
+            with span("gcc.teacher_d"):
+                with torch.no_grad():
+                    tfake, _ = TG(A, t_masks(), update_stats=False)
+                pf, pr, _ = d_pair(TD, torch.cat([A, tfake], 1), AB,
+                                   self.fused_d)
+                loss = (gan_loss(pf, False, self.gan_mode)
+                        + gan_loss(pr, True, self.gan_mode)) * 0.5
+                td_params = weight_params(TD)
+                opts["td"].step(td_params, grads_of(loss, td_params),
+                                cfg.lr)  # teacher LR is never scheduled
 
             # ---- teacher G update; capture distillation targets ----
-            tfake2, tg_feats = TG(A, t_masks())
-            pf, td_feats = TD(torch.cat([A, tfake2], 1))
-            loss = gan_loss(pf, True, self.gan_mode, for_discriminator=False) \
-                + cfg.lambda_L1 * l1(tfake2, B)
-            tg_params = weight_params(TG)
-            # the TEACHER gets the sparsity injection too (train.py:93-98,
-            # Pix2Pix.py:552)
-            gtg = add_sign_sparsity(TG, tg_params, grads_of(loss, tg_params),
-                                    cfg.lambda_weight, cfg.lambda_scale)
-            opts["tg"].step(tg_params, gtg, cfg.lr)
-            target_feats = [f.detach() for f in tg_feats + td_feats]
+            with span("gcc.teacher_g"):
+                tfake2, tg_feats = TG(A, t_masks())
+                pf, td_feats = TD(torch.cat([A, tfake2], 1))
+                loss = gan_loss(pf, True, self.gan_mode,
+                                for_discriminator=False) \
+                    + cfg.lambda_L1 * l1(tfake2, B)
+                tg_params = weight_params(TG)
+                # the TEACHER gets the sparsity injection too
+                # (train.py:93-98, Pix2Pix.py:552)
+                gtg = add_sign_sparsity(TG, tg_params,
+                                        grads_of(loss, tg_params),
+                                        cfg.lambda_weight, cfg.lambda_scale)
+                opts["tg"].step(tg_params, gtg, cfg.lr)
+                target_feats = [f.detach() for f in tg_feats + td_feats]
 
-        # ---- student forward (fake for the D update) ----
-        with torch.no_grad():
-            fake, _ = G(A, masks(), update_stats=False)
-
-        # ---- student D update (alphas are constants here) ----
-        pf, pr, _ = d_pair(D, torch.cat([A, fake], 1), AB, self.fused_d)
-        lf = gan_loss(pf, False, self.gan_mode)
-        lr_ = gan_loss(pr, True, self.gan_mode)
-        d_params = weight_params(D)
-        opts["d"].step(d_params, grads_of((lf + lr_) * 0.5, d_params), lr)
-        m["D_fake"], m["D_real"] = lf.detach(), lr_.detach()
+        # ---- student D update (alphas are constants here), after the
+        # student forward that makes its fake ----
+        with span("gcc.student_d"):
+            with torch.no_grad():
+                fake, _ = G(A, masks(), update_stats=False)
+            pf, pr, _ = d_pair(D, torch.cat([A, fake], 1), AB, self.fused_d)
+            lf = gan_loss(pf, False, self.gan_mode)
+            lr_ = gan_loss(pr, True, self.gan_mode)
+            d_params = weight_params(D)
+            opts["d"].step(d_params, grads_of((lf + lr_) * 0.5, d_params),
+                           lr)
+            m["D_fake"], m["D_real"] = lf.detach(), lr_.detach()
 
         # ---- student G update ----
-        fake2, g_feats = G(A, masks())
-        pf, _ = D(torch.cat([A, fake2], 1))
-        l_gan = gan_loss(pf, True, self.gan_mode, for_discriminator=False)
-        l_l1 = cfg.lambda_L1 * l1(fake2, B)
-        loss = l_gan + l_l1
-        m["G_GAN"], m["G_L1"] = l_gan.detach(), l_l1.detach()
-        if self.distill:
-            transformed = nets["tf"](g_feats)
-            _, sd_feats = nets["td"](torch.cat([A, fake2], 1))
-            content, gram_l = distill_losses(transformed + sd_feats,
-                                             target_feats, use_sqrt=True)
-            m["content"] = cfg.lambda_content * content.detach()
-            m["gram"] = cfg.lambda_gram * gram_l.detach()
-            loss = loss + cfg.lambda_content * content \
-                + cfg.lambda_gram * gram_l
-        bundle = self._g_bundle(nets)
-        gg = grads_of(loss, bundle)
-        n_g = len(weight_params(G))
-        gg[:n_g] = add_sign_sparsity(G, bundle[:n_g], gg[:n_g],
-                                     cfg.lambda_weight, cfg.lambda_scale)
-        opts["g"].step(bundle, gg, lr)
+        with span("gcc.student_g"):
+            fake2, g_feats = G(A, masks())
+            pf, _ = D(torch.cat([A, fake2], 1))
+            l_gan = gan_loss(pf, True, self.gan_mode,
+                             for_discriminator=False)
+            l_l1 = cfg.lambda_L1 * l1(fake2, B)
+            loss = l_gan + l_l1
+            m["G_GAN"], m["G_L1"] = l_gan.detach(), l_l1.detach()
+            if self.distill:
+                transformed = nets["tf"](g_feats)
+                _, sd_feats = nets["td"](torch.cat([A, fake2], 1))
+                content, gram_l = distill_losses(transformed + sd_feats,
+                                                 target_feats, use_sqrt=True)
+                m["content"] = cfg.lambda_content * content.detach()
+                m["gram"] = cfg.lambda_gram * gram_l.detach()
+                loss = loss + cfg.lambda_content * content \
+                    + cfg.lambda_gram * gram_l
+            bundle = self._g_bundle(nets)
+            gg = grads_of(loss, bundle)
+            n_g = len(weight_params(G))
+            gg[:n_g] = add_sign_sparsity(G, bundle[:n_g], gg[:n_g],
+                                         cfg.lambda_weight, cfg.lambda_scale)
+            opts["g"].step(bundle, gg, lr)
 
         state.step += 1
         return state, m
 
     # -------------------------------------------------------------- arch step
 
+    @spanned("gcc.arch")
     @mesh_step
     def arch_step(self, state: GANState, batch: Dict[str, torch.Tensor],
                   ema_beta: float, arch_lr: Optional[float] = None

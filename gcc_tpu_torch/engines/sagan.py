@@ -50,6 +50,7 @@ from gcc_tpu_torch.models.generators import (
 from gcc_tpu_torch.ops.layers import init_params
 from gcc_tpu_torch.ops.mask import clip_alphas
 from gcc_tpu_torch.parallel.mesh import mesh_step
+from gcc_tpu_torch.utils.tracing import span, spanned
 
 _DUP_SEGMENTS = ("l1", "l2", "l3", "l4", "query_conv", "key_conv",
                  "value_conv")
@@ -160,75 +161,83 @@ class SAGANEngine(CheckpointMixin, CombinedStepMixin):
 
         if self.distill and not self.online:
             # normal_distillation: frozen teacher, forward-only targets
-            with torch.no_grad(), eval_mode(nets["tg"], nets["td"]):
+            with span("gcc.teacher_g"), torch.no_grad(), \
+                    eval_mode(nets["tg"], nets["td"]):
                 tfake, tg_feats = nets["tg"](z)
                 _, td_feats = nets["td"](tfake)
             target_feats = tg_feats + td_feats
         if self.online:
             TG, TD = nets["tg"], nets["td"]
-            with torch.no_grad():
-                tfake0, _ = TG(z, update_stats=False)
-
             # ---- teacher D update: real first (SAGAN.py:379), TTUR ----
-            pr, pf, _ = d_pair(TD, real, tfake0, self.fused_d)
-            loss = gan_loss(pf, False, self.gan_mode) \
-                + gan_loss(pr, True, self.gan_mode)
-            td_params = weight_params(TD)
-            opts["td"].step(td_params, grads_of(loss, td_params),
-                            cfg.lr * 4)  # teacher LR is never scheduled
+            with span("gcc.teacher_d"):
+                with torch.no_grad():
+                    tfake0, _ = TG(z, update_stats=False)
+                pr, pf, _ = d_pair(TD, real, tfake0, self.fused_d)
+                loss = gan_loss(pf, False, self.gan_mode) \
+                    + gan_loss(pr, True, self.gan_mode)
+                td_params = weight_params(TD)
+                opts["td"].step(td_params, grads_of(loss, td_params),
+                                cfg.lr * 4)  # teacher LR is never scheduled
 
             # ---- teacher G update; capture distillation targets ----
-            tfake, tg_feats = TG(z)
-            pf, td_feats = TD(tfake)
-            loss = gan_loss(pf, True, self.gan_mode, for_discriminator=False)
-            tg_params = weight_params(TG)
-            # the TEACHER gets the sparsity injection too (train.py:93-98,
-            # SAGAN.py:494-496)
-            gtg = add_sign_sparsity(TG, tg_params, grads_of(loss, tg_params),
-                                    cfg.lambda_weight, cfg.lambda_scale)
-            opts["tg"].step(tg_params, gtg, cfg.lr)
-            target_feats = [f.detach() for f in tg_feats + td_feats]
-            tfake = tfake.detach()
+            with span("gcc.teacher_g"):
+                tfake, tg_feats = TG(z)
+                pf, td_feats = TD(tfake)
+                loss = gan_loss(pf, True, self.gan_mode,
+                                for_discriminator=False)
+                tg_params = weight_params(TG)
+                # the TEACHER gets the sparsity injection too
+                # (train.py:93-98, SAGAN.py:494-496)
+                gtg = add_sign_sparsity(TG, tg_params,
+                                        grads_of(loss, tg_params),
+                                        cfg.lambda_weight, cfg.lambda_scale)
+                opts["tg"].step(tg_params, gtg, cfg.lr)
+                target_feats = [f.detach() for f in tg_feats + td_feats]
+                tfake = tfake.detach()
 
         # ---- student D update (alphas are constants here) ----
-        with torch.no_grad():
-            fake, _ = G(z, update_stats=False)
-        pr, pf, _ = d_pair(D, real, fake, self.fused_d)
-        lf = gan_loss(pf, False, self.gan_mode)
-        lr_ = gan_loss(pr, True, self.gan_mode)
-        d_params = weight_params(D)
-        opts["d"].step(d_params, grads_of(lf + lr_, d_params), lr * 4)
-        m["D_fake"], m["D_real"] = lf.detach(), lr_.detach()
+        with span("gcc.student_d"):
+            with torch.no_grad():
+                fake, _ = G(z, update_stats=False)
+            pr, pf, _ = d_pair(D, real, fake, self.fused_d)
+            lf = gan_loss(pf, False, self.gan_mode)
+            lr_ = gan_loss(pr, True, self.gan_mode)
+            d_params = weight_params(D)
+            opts["d"].step(d_params, grads_of(lf + lr_, d_params), lr * 4)
+            m["D_fake"], m["D_real"] = lf.detach(), lr_.detach()
 
         # ---- student G update ----
-        fake2, g_feats = G(z)
-        pf, _ = D(fake2)
-        l_gan = gan_loss(pf, True, self.gan_mode, for_discriminator=False)
-        loss = l_gan
-        m["G_GAN"] = l_gan.detach()
-        if self.distill:
-            transformed = nets["tf"](g_feats)
-            _, sd_feats = nets["td"](fake2)
-            content, gram_l = distill_losses(transformed + sd_feats,
-                                             target_feats, use_sqrt=True)
-            l_l1 = cfg.lambda_L1 * l1(fake2, tfake)
-            loss = loss + cfg.lambda_content * content \
-                + cfg.lambda_gram * gram_l + l_l1
-            m["content"] = cfg.lambda_content * content.detach()
-            m["gram"] = cfg.lambda_gram * gram_l.detach()
-            m["L1"] = l_l1.detach()
-        bundle = self._g_bundle(nets)
-        gg = grads_of(loss, bundle)
-        n_g = len(weight_params(G))
-        gg[:n_g] = add_sign_sparsity(G, bundle[:n_g], gg[:n_g],
-                                     cfg.lambda_weight, cfg.lambda_scale)
-        opts["g"].step(bundle, gg, lr)
+        with span("gcc.student_g"):
+            fake2, g_feats = G(z)
+            pf, _ = D(fake2)
+            l_gan = gan_loss(pf, True, self.gan_mode,
+                             for_discriminator=False)
+            loss = l_gan
+            m["G_GAN"] = l_gan.detach()
+            if self.distill:
+                transformed = nets["tf"](g_feats)
+                _, sd_feats = nets["td"](fake2)
+                content, gram_l = distill_losses(transformed + sd_feats,
+                                                 target_feats, use_sqrt=True)
+                l_l1 = cfg.lambda_L1 * l1(fake2, tfake)
+                loss = loss + cfg.lambda_content * content \
+                    + cfg.lambda_gram * gram_l + l_l1
+                m["content"] = cfg.lambda_content * content.detach()
+                m["gram"] = cfg.lambda_gram * gram_l.detach()
+                m["L1"] = l_l1.detach()
+            bundle = self._g_bundle(nets)
+            gg = grads_of(loss, bundle)
+            n_g = len(weight_params(G))
+            gg[:n_g] = add_sign_sparsity(G, bundle[:n_g], gg[:n_g],
+                                         cfg.lambda_weight, cfg.lambda_scale)
+            opts["g"].step(bundle, gg, lr)
 
         state.step += 1
         return state, m
 
     # -------------------------------------------------------------- arch step
 
+    @spanned("gcc.arch")
     @mesh_step
     def arch_step(self, state: GANState, batch: Dict[str, torch.Tensor],
                   ema_beta: float, arch_lr: Optional[float] = None

@@ -54,6 +54,7 @@ from gcc_tpu_torch.models.generators import SRResNet
 from gcc_tpu_torch.ops.layers import init_params
 from gcc_tpu_torch.ops.mask import clip_alphas
 from gcc_tpu_torch.parallel.mesh import mesh_step
+from gcc_tpu_torch.utils.tracing import span, spanned
 from gcc_tpu_torch.utils.weights import load_jax_variables
 
 
@@ -161,12 +162,13 @@ class SRGANEngine(CheckpointMixin, CombinedStepMixin, RowShardedMixin):
         sparsity injection (SRGAN.py:514-522)."""
         cfg = self.cfg
         G = state.nets["g"]
-        fake, _ = G(batch["lr"])
-        loss = mse(fake, batch["hr"])
-        params = weight_params(G)
-        grads = add_sign_sparsity(G, params, grads_of(loss, params),
-                                  cfg.lambda_weight, cfg.lambda_scale)
-        state.opts["g"].step(params, grads, lr)
+        with span("gcc.student_g"):
+            fake, _ = G(batch["lr"])
+            loss = mse(fake, batch["hr"])
+            params = weight_params(G)
+            grads = add_sign_sparsity(G, params, grads_of(loss, params),
+                                      cfg.lambda_weight, cfg.lambda_scale)
+            state.opts["g"].step(params, grads, lr)
         state.step += 1
         return state, {"content": loss.detach()}
 
@@ -180,79 +182,87 @@ class SRGANEngine(CheckpointMixin, CombinedStepMixin, RowShardedMixin):
 
         if self.distill and not self.online:
             # normal_distillation: frozen teacher, forward-only targets
-            with torch.no_grad(), eval_mode(nets["tg"], nets["td"]):
+            with span("gcc.teacher_g"), torch.no_grad(), \
+                    eval_mode(nets["tg"], nets["td"]):
                 tfake, tg_feats = nets["tg"](lr_img)
                 t_fake_in = to_imagenet_norm(tfake)
                 _, td_feats = nets["td"](t_fake_in)
             targets = tg_feats + td_feats
         if self.online:
             TG, TD = nets["tg"], nets["td"]
-            with torch.no_grad():
-                tfake, _ = TG(lr_img, update_stats=False)
-                t_fake_in = to_imagenet_norm(tfake)
-
-            # ---- teacher G update (G-then-D order) ----
-            tfake2, tg_feats = TG(lr_img)
-            fake_in2 = to_imagenet_norm(tfake2)
-            pf, _ = TD(fake_in2)
-            loss = cfg.lambda_SR_content * mse(tfake2, hr) \
-                + cfg.lambda_SR_adversarial * gan_loss(
-                    pf, True, gm, for_discriminator=False) \
-                + cfg.lambda_SR_perceptual * self._perceptual(fake_in2,
-                                                              real_in)
-            tg_params = weight_params(TG)
-            opts["tg"].step(tg_params, grads_of(loss, tg_params), cfg.lr)
+            # ---- teacher G update (G-then-D order), after the no-grad
+            # forward whose fake the teacher D update reads ----
+            with span("gcc.teacher_g"):
+                with torch.no_grad():
+                    tfake, _ = TG(lr_img, update_stats=False)
+                    t_fake_in = to_imagenet_norm(tfake)
+                tfake2, tg_feats = TG(lr_img)
+                fake_in2 = to_imagenet_norm(tfake2)
+                pf, _ = TD(fake_in2)
+                loss = cfg.lambda_SR_content * mse(tfake2, hr) \
+                    + cfg.lambda_SR_adversarial * gan_loss(
+                        pf, True, gm, for_discriminator=False) \
+                    + cfg.lambda_SR_perceptual * self._perceptual(fake_in2,
+                                                                  real_in)
+                tg_params = weight_params(TG)
+                opts["tg"].step(tg_params, grads_of(loss, tg_params), cfg.lr)
 
             # ---- teacher D update; the pre-update teacher fake's features
             # are the D targets (SRGAN.py:397-405) ----
-            pr, pf, td_feats = d_pair(TD, real_in, t_fake_in, self.fused_d)
-            loss = gan_loss(pr, True, gm) + gan_loss(pf, False, gm)
-            td_params = weight_params(TD)
-            opts["td"].step(td_params, grads_of(loss, td_params), cfg.lr)
-            targets = [f.detach() for f in tg_feats + td_feats]
+            with span("gcc.teacher_d"):
+                pr, pf, td_feats = d_pair(TD, real_in, t_fake_in,
+                                          self.fused_d)
+                loss = gan_loss(pr, True, gm) + gan_loss(pf, False, gm)
+                td_params = weight_params(TD)
+                opts["td"].step(td_params, grads_of(loss, td_params), cfg.lr)
+                targets = [f.detach() for f in tg_feats + td_feats]
 
         # ---- student G update (first: G-then-D, SRGAN.py:483-502) ----
-        fake, g_feats = G(lr_img)
-        fake_in = to_imagenet_norm(fake)
-        pf, _ = D(fake_in)
-        aux = {"content": cfg.lambda_SR_content * mse(fake, hr),
-               "G_GAN": cfg.lambda_SR_adversarial * gan_loss(
-                   pf, True, gm, for_discriminator=False),
-               "perceptual": cfg.lambda_SR_perceptual * self._perceptual(
-                   fake_in, real_in)}
-        loss = aux["content"] + aux["G_GAN"] + aux["perceptual"]
-        if self.distill:
-            transformed = nets["tf"](g_feats)
-            # not detached: the teacher D's features of the student fake
-            # carry gradient here (SRGAN.py:462-470)
-            _, sd_feats = nets["td"](fake_in)
-            content, gram_l = distill_losses(transformed + sd_feats, targets,
-                                             use_sqrt=True)
-            aux["distill_content"] = cfg.lambda_content * content
-            aux["gram"] = cfg.lambda_gram * gram_l
-            aux["L1"] = cfg.lambda_L1 * l1(fake_in, t_fake_in)
-            loss = loss + aux["distill_content"] + aux["gram"] + aux["L1"]
-        bundle = weight_params(G)
-        if self.distill:
-            bundle += weight_params(nets["tf"])
-        # no sparsity on the GAN path: backward_G does not call L1_sparsity
-        # (SRGAN.py:442-481)
-        opts["g"].step(bundle, grads_of(loss, bundle), lr)
-        m.update({k: v.detach() for k, v in aux.items()})
+        with span("gcc.student_g"):
+            fake, g_feats = G(lr_img)
+            fake_in = to_imagenet_norm(fake)
+            pf, _ = D(fake_in)
+            aux = {"content": cfg.lambda_SR_content * mse(fake, hr),
+                   "G_GAN": cfg.lambda_SR_adversarial * gan_loss(
+                       pf, True, gm, for_discriminator=False),
+                   "perceptual": cfg.lambda_SR_perceptual * self._perceptual(
+                       fake_in, real_in)}
+            loss = aux["content"] + aux["G_GAN"] + aux["perceptual"]
+            if self.distill:
+                transformed = nets["tf"](g_feats)
+                # not detached: the teacher D's features of the student
+                # fake carry gradient here (SRGAN.py:462-470)
+                _, sd_feats = nets["td"](fake_in)
+                content, gram_l = distill_losses(transformed + sd_feats,
+                                                 targets, use_sqrt=True)
+                aux["distill_content"] = cfg.lambda_content * content
+                aux["gram"] = cfg.lambda_gram * gram_l
+                aux["L1"] = cfg.lambda_L1 * l1(fake_in, t_fake_in)
+                loss = loss + aux["distill_content"] + aux["gram"] \
+                    + aux["L1"]
+            bundle = weight_params(G)
+            if self.distill:
+                bundle += weight_params(nets["tf"])
+            # no sparsity on the GAN path: backward_G does not call
+            # L1_sparsity (SRGAN.py:442-481)
+            opts["g"].step(bundle, grads_of(loss, bundle), lr)
+            m.update({k: v.detach() for k, v in aux.items()})
 
         # ---- student D update, unhalved ----
-        pr, pf, _ = d_pair(D, real_in, fake_in.detach(), self.fused_d)
-        lf = gan_loss(pf, False, gm)
-        lr_ = gan_loss(pr, True, gm)
-        d_params = weight_params(D)
-        opts["d"].step(d_params, grads_of(lf + lr_, d_params), lr)
-        m["D_fake"], m["D_real"] = lf.detach(), lr_.detach()
+        with span("gcc.student_d"):
+            pr, pf, _ = d_pair(D, real_in, fake_in.detach(), self.fused_d)
+            lf = gan_loss(pf, False, gm)
+            lr_ = gan_loss(pr, True, gm)
+            d_params = weight_params(D)
+            opts["d"].step(d_params, grads_of(lf + lr_, d_params), lr)
+            m["D_fake"], m["D_real"] = lf.detach(), lr_.detach()
 
         state.step += 1
         return state, m
 
     # -------------------------------------------------------------- arch step
 
+    @spanned("gcc.arch")
     @mesh_step
     def arch_step(self, state: GANState, batch: Dict[str, torch.Tensor],
                   ema_beta: float, arch_lr: Optional[float] = None

@@ -9,6 +9,7 @@ import torch
 import torch.nn as nn
 
 from gcc_tpu_torch.parallel.mesh import all_gather_rows, local_rows
+from gcc_tpu_torch.utils.tracing import spanned
 
 
 class ReplayPool(nn.Module):
@@ -44,6 +45,7 @@ class ReplayPool(nn.Module):
     def set_extra_state(self, state) -> None:
         self.count = int(state)
 
+    @spanned("gcc.pool")
     @torch.no_grad()
     def query(self, images: torch.Tensor,
               generator: torch.Generator) -> torch.Tensor:

@@ -59,7 +59,13 @@ def test_three_stage_workflow_unet(tmp_path):
         os.listdir(exp / "s1"))
     assert _train(f"{UNET} --n_epochs 1 {GCC} --scale_prune "
                   f"--target_budget 0.001 --pretrain_path "
-                  f"{s1 / 'model_best_AtoB.ckpt'} --name s2", exp) == 0
+                  f"{s1 / 'model_best_AtoB.ckpt'} --name s2 "
+                  f"--profile_steps 1", exp) == 0
+    # the operator's trace of a GCC iteration holds the engine's spans
+    trace = (exp / "s2" / "profile" / "trace.json").read_text()
+    for span in ("gcc.step", "gcc.teacher_d", "gcc.teacher_g",
+                 "gcc.student_d", "gcc.student_g", "gcc.arch", "gcc.adam"):
+        assert f'"name": "{span}"' in trace, span
     log = _log(exp, "s2")
     for line in ("pruned filter_cfgs", "pruned channel_cfgs",
                  "[proxy] pixel-FID (no inception weights)",
