@@ -306,11 +306,20 @@ Phases, each of which exits non-zero on failure:
               calls per image; (b) orchestrators._collect with
               --spatial_shards 2 over 2 ranks against 1 process: the same
               images within 1e-4.
+ 22. batch_norm  train-mode BatchNorm in bf16 (ops/batch_norm.py,
+              csrc/batch_norm_bf16.cu) at the U-Net teacher's up_norm_1
+              (128 x 64 x 128^2) and the PatchGAN's norm_3 at ndf 128 (128 x
+              1024 x 31^2): y, dx, the statistics and dw, db against the
+              plain versions within ops/batch_norm.py's bounds, two calls
+              bit for bit, CUDA-event times of the forward and the backward
+              against 6 and 10 bytes an element at 3.35 TB/s, the device
+              time of each launch, and the former fp32 chain (the plain
+              forward under autograd) and F.batch_norm timed beside them.
 Phases 1-16 run fp32 (phases 7, 8, 12 and 14 on fp32 batches; phases 11 and
 16 pass --compute_dtype float32): TF32 is off for cuDNN and matmul, except
-in phase 15 (g). The last eleven lines are phase 11's JSON record of its
+in phase 15 (g). The last twelve lines are phase 11's JSON record of its
 stages, phase 15's, phase 16's, phase 17's, phase 18's, phase 19's, phase
-20's, phase 21's, the card's name and power limit, the kernels' JSON record
+20's, phase 21's, phase 22's, the card's name and power limit, the kernels' JSON record
 and {"ok": true, "device": ...}. A
 kernel's "launches" is the main path's count (phase 4 for B2, phase 7 for
 B1, phase 17 (c) for B2's bf16 entry points, phase 18 (b) for B1's);
@@ -3102,7 +3111,7 @@ def parent_bf16_calls(torch, libs, x, dwk, pwk, res, relu, g, ahat, bhat,
     fp32_lib, lib = libs
     (B, C, H, W), M, dev, dt = x.shape, pwk.shape[0], x.device, x.dtype
     p = kernels.ptr
-    sms = mb._sms(dev.index)
+    sms = kernels.sm_count(dev.index)
     n_part = lib.gcc_stage_bwd_pw_bf16_partials(B, C, M, H, W, sms)
 
     def stream():
@@ -3178,6 +3187,7 @@ def bf16_kernels(torch, F, parent=None, ptxas=None):
     (parent: their two libraries), the depthwise backward's dx (and dW_dw)
     bit for bit theirs, and their three bf16 entry points timed in turns
     with the new ones: event ms, device ms, the host's us a call."""
+    from gcc_tpu_torch.ops import kernels
     from gcc_tpu_torch.ops import mobile_block as mb
 
     if ptxas is not None:
@@ -3285,7 +3295,7 @@ def bf16_kernels(torch, F, parent=None, ptxas=None):
         for k in timings:
             launches[k] = B2_LAUNCHES[k]
             if k == "stage_bwd_pw_bf16" and not mb._pw_grad_partials(
-                    B, C, M, S, S, mb._sms(x.device.index), "_bf16"):
+                    B, C, M, S, S, kernels.sm_count(x.device.index), "_bf16"):
                 launches[k] -= 1  # dW in one run: no ordered sum
             if k == "stage_bwd_dw_bf16" and not mb._dw_grad_partials(
                     B, "_bf16"):
@@ -5078,6 +5088,116 @@ def phase_spatial(torch, np, device="cuda"):
     return rec
 
 
+# phase 22: train-mode BatchNorm in bf16 (ops/batch_norm.py), at the U-Net
+# teacher's up_norm_1 and the PatchGAN's norm_3 at ndf 128, batch 128
+BN_TIMED = [("unet_up_norm_1", 128, 64, 128, 128),
+            ("patchgan_norm_3", 128, 1024, 31, 31)]
+BN_BYTES = {"fwd": 6, "bwd": 10}  # bytes an element, each way
+
+
+def phase_batch_norm(torch, F, device="cuda"):
+    """Each BatchNorm kernel pair against its plain version at BN_TIMED's
+    shapes, two calls bit for bit, then CUDA-event times of the forward and
+    the backward alone against their byte bounds, the device time of each
+    launch, and the layer's former fp32 chain (the plain forward under
+    autograd, its backward by autograd) and F.batch_norm timed the same
+    way."""
+    from gcc_tpu_torch.ops import batch_norm as bn
+    from gcc_tpu_torch.ops import kernels
+
+    print("== phase 22: train-mode BatchNorm in bf16, kernels against their "
+          "plain versions and their byte bounds")
+    dev, bf16 = torch.device(device), torch.bfloat16
+    out = {}
+    for name, N, C, H, W in BN_TIMED:
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def rnd(*shape, scale=1.0, shift=0.0):
+            return torch.randn(*shape, device=dev, generator=gen) * scale \
+                + shift
+
+        x = rnd(N, C, H, W, scale=1.5, shift=0.3).to(bf16)
+        g = rnd(N, C, H, W, scale=0.01).to(bf16)
+        w, b = rnd(C, scale=0.02, shift=1.0), rnd(C)
+        rm, rv = torch.zeros(C, device=dev), torch.ones(C, device=dev)
+        y, mean, invstd = bn.bn_fwd(x, w, b, rm, rv)
+        y_p, mean_p, invstd_p = bn.bn_fwd_plain(x, w, b)
+        dx, dw, db = bn.bn_bwd(g, x, mean, invstd, w)
+        dx_p, dw_p, db_p = bn.bn_bwd_plain(g, x, mean, invstd, w)
+        rec = {}
+        for what, got, ref in (("y", y, y_p), ("dx", dx, dx_p)):
+            ulps, err, share = kernels.bf16_err(got, ref)
+            rec[f"{what}_ulps"], rec[f"{what}_share"] = ulps, share
+            if ulps > bn.BF16_ULPS or share > bn.BF16_SHARE:
+                fail(f"phase 22 {name} {what}: {ulps} ulps, {share} of the "
+                     f"elements apart")
+        for what, got, ref, rtol in (("mean", mean, mean_p, bn.STAT_RTOL),
+                                     ("invstd", invstd, invstd_p,
+                                      bn.STAT_RTOL),
+                                     ("dw", dw, dw_p, bn.GRAD_RTOL),
+                                     ("db", db, db_p, bn.GRAD_RTOL)):
+            rel = max_err(got, ref) / float(ref.abs().max())
+            rec[f"{what}_rel"] = rel
+            if not rel <= rtol:
+                fail(f"phase 22 {name} {what}: {rel} of its largest value")
+        again = bn.bn_fwd(x, w, b) + bn.bn_bwd(g, x, mean, invstd, w)
+        if not all(torch.equal(a, c) for a, c in zip(
+                (y, mean, invstd, dx, dw, db), again)):
+            fail(f"phase 22 {name}: two calls differ")
+
+        def fwd():
+            bn.bn_fwd(x, w, b, rm, rv)
+
+        def bwd():
+            bn.bn_bwd(g, x, mean, invstd, w)
+
+        xr = x.detach().requires_grad_(True)
+        wr, br = w.detach().requires_grad_(True), \
+            b.detach().requires_grad_(True)
+
+        def chain_fwd():
+            bn.bn_fwd_plain(xr, wr, br, rm, rv)
+
+        def chain_fwd_bwd():
+            bn.bn_fwd_plain(xr, wr, br, rm, rv)[0].backward(g)
+
+        elements = N * C * H * W
+        for way, fn in (("fwd", fwd), ("bwd", bwd)):
+            rec[f"{way}_ms"] = cuda_ms(torch, fn)
+            rec[f"{way}_bound_ms"] = \
+                BN_BYTES[way] * elements / HBM_BYTES_PER_S * 1e3
+            split = launch_split(torch, fn, launches=2)
+            print_split(f"{name} {way}", split)
+            rec[f"{way}_device_ms"] = device_ms(split)
+            rec[f"{way}_by_launch"] = split
+        rec["chain_fwd_ms"] = cuda_ms(torch, chain_fwd, n=5)
+        rec["chain_fwd_bwd_ms"] = cuda_ms(torch, chain_fwd_bwd, n=5)
+        rec["chain_fwd_launches"] = len(launch_split(torch, chain_fwd, n=5))
+        # the yardstick: torch's own train-mode batch_norm (cuDNN or ATen;
+        # two-pass statistics), which the port does not call
+        rl, vl = rm.clone(), rv.clone()
+        rec["library_fwd_ms"] = cuda_ms(torch, lambda: F.batch_norm(
+            x, rl, vl, w, b, training=True), n=5)
+        rec["library_fwd_bwd_ms"] = cuda_ms(torch, lambda: F.batch_norm(
+            xr, rl, vl, wr, br, training=True).backward(g), n=5)
+        print(f"  {name} ({N} x {C} x {H} x {W}): forward {rec['fwd_ms']:.4f}"
+              f" ms (bound {rec['fwd_bound_ms']:.4f}, "
+              f"{100 * rec['fwd_bound_ms'] / rec['fwd_ms']:.1f} %), backward "
+              f"{rec['bwd_ms']:.4f} ms (bound {rec['bwd_bound_ms']:.4f}, "
+              f"{100 * rec['bwd_bound_ms'] / rec['bwd_ms']:.1f} %); the fp32 "
+              f"chain {rec['chain_fwd_ms']:.4f} ms forward, "
+              f"{rec['chain_fwd_bwd_ms']:.4f} ms with its backward; "
+              f"F.batch_norm {rec['library_fwd_ms']:.4f} / "
+              f"{rec['library_fwd_bwd_ms']:.4f} ms; y "
+              f"{rec['y_ulps']:g} ulps ({rec['y_share']:.2e} apart), dx "
+              f"{rec['dx_ulps']:g} ulps ({rec['dx_share']:.2e} apart)")
+        out[name] = rec
+        del x, g, y, y_p, dx, dx_p, xr, again
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -5174,6 +5294,7 @@ def main():
     serve = phase_serve_export(torch, np)
     dp = phase_dp(torch, np)
     spatial = phase_spatial(torch, np)
+    batch_norm = phase_batch_norm(torch, F)
     for k, v in dp["w1_nccl"]["b2_launches_per_iter"].items():
         by_path[k]["pix2pix resnet bf16, DP W=1, an iteration"] = v
 
@@ -5208,6 +5329,7 @@ def main():
     print(json.dumps({"serve_export": serve}))
     print(json.dumps({"dp": dp}))
     print(json.dumps({"spatial": spatial}))
+    print(json.dumps({"batch_norm": batch_norm}))
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

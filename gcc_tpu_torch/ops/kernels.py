@@ -9,7 +9,9 @@ starts one nvcc per source, all at once. Nothing here runs at import.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -26,9 +28,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gcc_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every C entry point, by source name (pointers and the stream
-# as c_void_p, ints as c_int); every entry point returns cudaError_t as int,
+# as c_void_p, ints as c_int, floats as c_float); every entry point returns cudaError_t as int,
 # but the *_partials entry points, gcc_attn_bwd_groups,
 # gcc_attn_bwd_bf16_groups, gcc_attn_bf16_serves and gcc_attn_bf16_smem,
 # which return a count (or 1/0, or bytes) and take no stream
@@ -60,6 +62,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "gcc_attn_fwd_bf16": [_P] * 5 + [_I] * 4 + [_P],
         "gcc_attn_bwd_bf16_groups": [_I] * 4,
         "gcc_attn_bwd_bf16": [_P] * 10 + [_I] * 4 + [_P],
+    },
+    "batch_norm_bf16": {
+        "gcc_bn_fwd_bf16": [_P] * 9 + [_I] * 4 + [_F] * 4 + [_P],
+        "gcc_bn_bwd_bf16": [_P] * 9 + [_I] * 4 + [_P],
     },
 }
 
@@ -168,6 +174,21 @@ def bf16_err(got: torch.Tensor, ref: torch.Tensor) -> Tuple[float, float,
     ulp = 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 7)
     d = (got.float() - ref.float()).abs()
     return float(d.max()) / ulp, float(d.max()), float((d > 0).float().mean())
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def on_device(dev: torch.device):
+    """A context in which dev is the current CUDA device: none to enter
+    where it is already (the common case, and a cost the host pays every
+    call)."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def ptr(t) -> int:

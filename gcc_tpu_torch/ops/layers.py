@@ -33,6 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from gcc_tpu_torch.ops import batch_norm
 from gcc_tpu_torch.parallel import spatial
 from gcc_tpu_torch.parallel.mesh import active, all_reduce_sum
 
@@ -119,7 +120,9 @@ class BatchNorm(nn.Module):
     batch's (``global_moments``). This is the JAX
     package's ``apply_net(..., update_stats=False)``: a train-mode forward
     that leaves ``batch_stats`` alone (engines/pix2pix.py:171-173), which
-    torch's own BatchNorm cannot express.
+    torch's own BatchNorm cannot express. A train-mode forward of a bf16
+    batch on a card takes the CUDA kernels of ops/batch_norm.py
+    (``kernel_route``), the same arithmetic in two launches each way.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.1,
@@ -141,10 +144,16 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, update_stats: bool = True
                 ) -> torch.Tensor:
-        xf = x.float()
         if self.training and spatial.active() is not None:
             raise RuntimeError("a row-sharded forward is eval only: "
                                "BatchNorm in train mode under the view")
+        if self.training and kernel_route(x):
+            return batch_norm.batch_norm_train(
+                x, self.weight, self.bias,
+                self.running_mean if update_stats else None,
+                self.running_var if update_stats else None,
+                self.momentum, self.eps)
+        xf = x.float()
         if self.training:
             n = x.shape[0] * x.shape[2] * x.shape[3]
             if active() is not None:
@@ -157,12 +166,9 @@ class BatchNorm(nn.Module):
                 else:  # the JAX package's one-pass form, E[x^2] - E[x]^2
                     var = xf.square().mean(dim=(0, 2, 3)) - mean.square()
             if update_stats:
-                unbias = n / max(n - 1, 1)  # torch stores unbiased running var
-                with torch.no_grad():
-                    self.running_mean.mul_(1 - self.momentum).add_(
-                        mean.detach(), alpha=self.momentum)
-                    self.running_var.mul_(1 - self.momentum).add_(
-                        var.detach() * unbias, alpha=self.momentum)
+                batch_norm.update_running(self.running_mean, self.running_var,
+                                          mean.detach(), var.detach(), n,
+                                          self.momentum)
         else:
             mean, var = self.running_mean, self.running_var
         # fp32 also where the net was cast below it (a bf16 serving artifact,
@@ -172,6 +178,16 @@ class BatchNorm(nn.Module):
         inv = torch.rsqrt(var + self.eps) * self.weight.float()
         return ((xf - mean[None, :, None, None]) * inv[None, :, None, None]
                 + self.bias.float()[None, :, None, None]).to(x.dtype)
+
+
+def kernel_route(x: torch.Tensor) -> bool:
+    """Whether a train-mode BatchNorm of x takes the bf16 CUDA kernels
+    (ops/batch_norm.py): a bf16 batch on a card, outside a data-parallel
+    mesh (whose statistics are all-reduced; a row-sharded view refuses a
+    train-mode BatchNorm before this is asked). fp32 keeps its code bit for
+    bit, the CPU the code the JAX parity tests hold, eval mode the running
+    statistics."""
+    return x.is_cuda and x.dtype == torch.bfloat16 and active() is None
 
 
 def global_moments(xf: torch.Tensor, two_pass: bool):

@@ -35,7 +35,6 @@ them, as the TPU path does.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import Optional, Tuple
 
@@ -208,21 +207,6 @@ def _suffix(t: torch.Tensor) -> str:
     return _SUFFIX[t.dtype]
 
 
-def _on(dev: torch.device):
-    """A context in which dev is the current CUDA device: none to enter
-    where it is already (the common case, and a cost the host pays every
-    call)."""
-    if dev.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(dev)
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    """The SM count of CUDA device ``index``, read once."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 @functools.lru_cache(maxsize=None)
 def _pw_grad_partials(B: int, C: int, M: int, H: int, W: int, sms: int,
                       sfx: str) -> int:
@@ -254,7 +238,7 @@ def stage_fwd(x, dwk, pwk, residual=None, relu=False):
     kernels.check(dev, "pwk", pwk, (M, C, 1, 1))
     if residual is not None:
         kernels.check(dev, "residual", residual, (B, M, H, W), dt)
-    with _on(dev):
+    with kernels.on_device(dev):
         y = torch.empty(B, M, H, W, device=dev, dtype=dt)
         ahat = torch.empty_like(x)
         bhat = torch.empty_like(y)
@@ -262,7 +246,7 @@ def stage_fwd(x, dwk, pwk, residual=None, relu=False):
         rstd_b = torch.empty(B, M, device=dev)
         p = kernels.ptr
         # the bf16 entry point sizes its product's tiles by the SM count
-        sms = (_sms(dev.index),) if sfx else ()
+        sms = (kernels.sm_count(dev.index),) if sfx else ()
         kernels.launch(_LIBRARY[sfx], f"gcc_stage_fwd{sfx}", p(x), p(dwk),
                        p(pwk), p(residual), p(y), p(ahat), p(bhat),
                        p(rstd_a), p(rstd_b), B, C, M, H, W, int(relu), *sms)
@@ -282,8 +266,8 @@ def stage_bwd_pw(g, ahat, bhat, rstd_b, pwk, relu):
     kernels.check(dev, "bhat", bhat, (B, M, H, W), dt)
     kernels.check(dev, "rstd_b", rstd_b, (B, M))
     kernels.check(dev, "pwk", pwk, (M, C, 1, 1))
-    sms = _sms(dev.index)
-    with _on(dev):
+    sms = kernels.sm_count(dev.index)
+    with kernels.on_device(dev):
         gah = torch.empty_like(ahat)
         gpw = torch.empty_like(pwk)
         # scratch: gb (B, M, H, W) in g's dtype, then the dW partials
@@ -312,7 +296,7 @@ def stage_bwd_dw(gah, ahat, rstd_a, x, dwk):
     kernels.check(dev, "rstd_a", rstd_a, (B, C))
     kernels.check(dev, "x", x, (B, C, H, W), dt)
     kernels.check(dev, "dwk", dwk, (C, 1, 3, 3))
-    with _on(dev):
+    with kernels.on_device(dev):
         gx = torch.empty_like(x)
         parts = _dw_grad_partials(B, sfx)
         gdw_part = torch.empty(parts, C, 9, device=dev) if parts else None

@@ -127,7 +127,7 @@ def parent_entry_points(torch, mb, kernels, lib):
                 torch.empty(B, C, device=dev), torch.empty(B, M, device=dev))
         if lib.gcc_stage_fwd_bf16(p(x), p(dwk), p(pwk), p(residual),
                                   *map(p, outs), B, C, M, H, W, int(relu),
-                                  mb._sms(dev.index), stream()):
+                                  kernels.sm_count(dev.index), stream()):
             raise RuntimeError("the earlier gcc_stage_fwd_bf16 failed")
         mb.LAUNCHES["stage_fwd_bf16"] += 1
         return outs[:5]
@@ -136,7 +136,7 @@ def parent_entry_points(torch, mb, kernels, lib):
         if not g.is_cuda or g.dtype != bf:
             return bwd0(g, ahat, bhat, rstd_b, pwk, relu)
         (B, C, H, W), M, dev = ahat.shape, pwk.shape[0], g.device
-        sms = mb._sms(dev.index)
+        sms = kernels.sm_count(dev.index)
         n = lib.gcc_stage_bwd_pw_bf16_partials(B, C, M, H, W, sms)
         outs = (torch.empty_like(g), torch.empty_like(ahat),
                 torch.empty(n, M, C, device=dev), torch.empty_like(pwk))
